@@ -1,0 +1,6 @@
+"""PyTorch port of the SemiSFL training round, for NVIDIA Hopper GPUs.
+
+Mirrors the layout of the JAX package ``repro`` (the reference), which it
+never imports.  Entry points run on the card (``device="cuda"``) unless the
+caller asks for ``device="cpu"``; the CUDA kernels under ``csrc/`` are
+built at first use (``kernels/build.py``)."""

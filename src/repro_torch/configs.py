@@ -1,0 +1,103 @@
+"""Configurations of the paper's CNN family, for the PyTorch port.
+
+A copy of what the CNN classification rig reads from the JAX package's
+``configs/base.py`` (``SemiSFLConfig``, the CNN fields of ``ArchConfig``,
+``get_config`` and the CNN branch of ``smoke_config``) and of
+``configs/paper_models.py``.  The port keeps its own copy so that it imports
+nothing of the JAX package."""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class SemiSFLConfig:
+    """Paper-technique hyperparameters (Section III-V defaults)."""
+
+    split_layer: int = 0                # 0 -> num_layers // 4 at build time
+    proj_dim: int = 128                 # projection-head output dim
+    proj_hidden: int = 256              # MLP projection head hidden width
+    proj_head: str = "mlp"              # none | linear | mlp  (Table V)
+    queue_len: int = 4096               # |Q| two-level memory queue
+    temperature: float = 0.1            # kappa in Eq.(3)/(5)
+    confidence_threshold: float = 0.95  # tau
+    ema_decay: float = 0.99             # gamma
+    k_s_init: int = 100                 # initial global updating frequency
+    k_u: int = 10                       # cross-entity updating frequency
+    alpha: float = 1.5                  # K_s decay factor, Eq.(10)
+    beta: float = 8.0                   # K_min = floor(beta * |Dl|/|D| * K_u)
+    observation_period: int = 10        # rounds per observation period
+    adaptation_window: int = 10         # periods in R_h
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """The CNN fields of the JAX package's ``ArchConfig``."""
+
+    name: str
+    num_layers: int
+    cnn_channels: Tuple[int, ...]
+    cnn_fc: Tuple[int, ...]
+    num_classes: int
+    image_size: int = 32
+    # dropout on the FC-stack activations (AlexNet/VGG convention); live
+    # only in train-mode forwards that are given dropout masks
+    cnn_dropout: float = 0.0
+    semisfl: SemiSFLConfig = field(default_factory=SemiSFLConfig)
+
+    @property
+    def split_layer(self) -> int:
+        s = self.semisfl.split_layer
+        if s <= 0:
+            s = max(1, self.num_layers // 4)
+        return min(s, self.num_layers - 1)
+
+
+def _cnn(name, channels, fc, image_size, split, num_classes=10, dropout=0.0):
+    return ArchConfig(
+        name=name, num_layers=len(channels), cnn_channels=channels,
+        cnn_fc=fc, num_classes=num_classes, image_size=image_size,
+        cnn_dropout=dropout,
+        semisfl=SemiSFLConfig(split_layer=split, proj_dim=64,
+                              proj_hidden=128, queue_len=2048))
+
+
+_REGISTRY = {c.name: c for c in (
+    # (i) customized CNN on SVHN: two convs, FC 512, softmax 10
+    _cnn("paper-cnn", channels=(32, 64), fc=(512,), image_size=32, split=2),
+    # (ii) AlexNet on CIFAR-10; 0.5 dropout on the FC-4096 stack
+    _cnn("paper-alexnet", channels=(64, 192, 384, 256, 256),
+         fc=(4096, 4096), image_size=32, split=5, dropout=0.5),
+    # (iii) VGG13 on STL-10; 0.5 FC dropout
+    _cnn("paper-vgg13",
+         channels=(64, 64, 128, 128, 256, 256, 512, 512, 512, 512),
+         fc=(4096, 4096), image_size=96, split=10, dropout=0.5),
+    # (iv) VGG16 on IMAGE-100; 0.5 FC dropout
+    _cnn("paper-vgg16",
+         channels=(64, 64, 128, 128, 256, 256, 256, 512, 512, 512,
+                   512, 512, 512),
+         fc=(4096, 4096), image_size=144, split=13, num_classes=100,
+         dropout=0.5),
+)}
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def smoke_config(name: str) -> ArchConfig:
+    """Reduced same-family variant for CPU tests (the CNN branch of the JAX
+    package's ``smoke_config``)."""
+    cfg = get_config(name)
+    return replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        cnn_channels=cfg.cnn_channels[:2] or (8, 16),
+        cnn_fc=(32,),
+        image_size=16,
+        semisfl=replace(cfg.semisfl, split_layer=1, queue_len=64,
+                        proj_dim=16, proj_hidden=32, k_s_init=2, k_u=2),
+    )

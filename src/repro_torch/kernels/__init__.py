@@ -1,0 +1,60 @@
+"""Public wrappers over the port's CUDA kernels.
+
+The tensor's device decides the route: a tensor on the CPU goes to the
+plain PyTorch version in ``ref``, a CUDA tensor to the hand-written kernel,
+which raises if it cannot build or launch.  Nothing falls back from the
+kernel to the plain version.  Every launch adds one to its count in
+:func:`launch_counts`, so a run can show that it went through the kernels.
+
+Nothing here imports a kernel's toolchain or builds a library when the
+module is imported; the first CUDA call builds (``kernels.build``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import clustering_loss as _cl
+from repro_torch.kernels import quantize as _q
+from repro_torch.kernels import ref
+
+
+def _route(x: torch.Tensor, name: str) -> str:
+    if x.device.type in ("cuda", "cpu"):
+        return x.device.type
+    raise ValueError(f"{name}: no route for a tensor on {x.device}")
+
+
+def clustering_loss(z: torch.Tensor, pseudo: torch.Tensor,
+                    anchor_ok: torch.Tensor, queue_z: torch.Tensor,
+                    queue_label: torch.Tensor, queue_conf: torch.Tensor,
+                    queue_valid: torch.Tensor,
+                    temperature: float) -> torch.Tensor:
+    """Fused Eq. (5); differentiable with respect to z (the queue is
+    stop-gradient)."""
+    if _route(z, "clustering_loss") == "cuda":
+        return _cl.ClusteringLoss.apply(z, pseudo, anchor_ok, queue_z,
+                                        queue_label, queue_conf, queue_valid,
+                                        temperature)
+    return ref.clustering_loss_ref(z, pseudo, anchor_ok, queue_z,
+                                   queue_label, queue_conf, queue_valid,
+                                   temperature)
+
+
+def quantize_dequantize(x: torch.Tensor, fmt: str, *,
+                        per_slice: bool = False) -> torch.Tensor:
+    """Amax-scaled int8/fp8 fake quantization, one scale per tensor or,
+    with ``per_slice``, one per leading slice.  Not differentiable: the
+    straight-through and gradient-path wrappers live in ``core.wire``."""
+    if _route(x, "quantize_dequantize") == "cuda":
+        return _q.quantize_dequantize_cuda(x, fmt, per_slice=per_slice)
+    return ref.quantize_dequantize_ref(x, fmt, per_slice=per_slice)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel since the last reset."""
+    return {**_cl.LAUNCHES, **_q.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for counts in (_cl.LAUNCHES, _q.LAUNCHES):
+        for k in counts:
+            counts[k] = 0

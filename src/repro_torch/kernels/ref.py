@@ -1,0 +1,90 @@
+"""Plain PyTorch versions of the port's kernels.
+
+The same maths as the JAX package's ``kernels/ref.py`` (``clustering_loss_ref``
+and ``quantize_dequantize_ref``), written in the most direct form: the full
+(B, Q) logit matrix, one amax per tensor or per leading slice.  The wrappers
+in ``repro_torch.kernels`` take these for tensors on the CPU; the CUDA
+kernels are held against them on the card."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+# qmax per wire format: int8 symmetric range; float8_e4m3fn finite max
+QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+def masked_contrastive(z: torch.Tensor, ref: torch.Tensor,
+                       pos_mask: torch.Tensor, valid_mask: torch.Tensor,
+                       temperature: float) -> torch.Tensor:
+    """The shared form of Eq. (3) and Eq. (5): z (B, d) anchors (gradients
+    flow), ref (R, d) references (stopped), pos_mask (B, R), valid_mask
+    (R,).  The softmax denominator runs over every valid reference; anchors
+    with no positive contribute 0, and the mean is over the rest."""
+    zf = z.float()
+    rf = ref.detach().float()
+    logits = (zf @ rf.T) / temperature                       # (B, R)
+    logits = torch.where(valid_mask[None, :], logits, NEG_INF)
+    logp = torch.log_softmax(logits, dim=-1)
+    pos = pos_mask & valid_mask[None, :]
+    n_pos = pos.sum(dim=-1)
+    per_anchor = -(torch.where(pos, logp, 0.0).sum(dim=-1)
+                   / n_pos.clamp(min=1))
+    has_pos = n_pos > 0
+    denom = has_pos.sum().clamp(min=1)
+    return torch.where(has_pos, per_anchor, 0.0).sum() / denom
+
+
+def clustering_loss_ref(z: torch.Tensor, pseudo: torch.Tensor,
+                        anchor_ok: torch.Tensor, queue_z: torch.Tensor,
+                        queue_label: torch.Tensor, queue_conf: torch.Tensor,
+                        queue_valid: torch.Tensor,
+                        temperature: float) -> torch.Tensor:
+    """Eq. (5).  Anchors are the projected student features z (B, d),
+    gated by ``anchor_ok``; positives are confident same-pseudo-label queue
+    entries; the softmax denominator runs over every valid queue entry.
+    Differentiable with respect to z; the queue is stop-gradient."""
+    pos = (pseudo[:, None] == queue_label[None, :]) & queue_conf[None, :]
+    return masked_contrastive(z, queue_z, pos & anchor_ok[:, None],
+                              queue_valid, temperature)
+
+
+def quantize_dequantize_ref(x: torch.Tensor, fmt: str, *,
+                            per_slice: bool = False) -> torch.Tensor:
+    """Amax-scaled fake quantization through ``fmt`` (``int8`` or ``fp8``).
+
+    One fp32 amax scale per tensor, or with ``per_slice`` one per leading
+    slice ``x[i]``.  int8 rounds half to even into [-127, 127]; fp8 round
+    trips through float8_e4m3fn.  A slice of zeros passes through exactly
+    (its scale falls back to 1)."""
+    if fmt not in QMAX:
+        raise ValueError(f"unknown wire format {fmt!r}; "
+                         f"known: {', '.join(sorted(QMAX))}")
+    xf = x.float()
+    return qdq_from_amax(xf, slice_amax(xf, per_slice), fmt).to(x.dtype)
+
+
+def slice_amax(xf: torch.Tensor, per_slice: bool) -> torch.Tensor:
+    """amax(|x|) of the whole tensor, or (S,) one per leading slice: the
+    plain version of the amax kernel."""
+    if per_slice:
+        return xf.abs().reshape(xf.shape[0], -1).amax(dim=1)
+    return xf.abs().amax()
+
+
+def qdq_from_amax(xf: torch.Tensor, amax: torch.Tensor,
+                  fmt: str) -> torch.Tensor:
+    """The quantize-dequantize pass given the amax (a scalar, or one per
+    leading slice): the plain version of the qdq kernel."""
+    amax = amax.reshape(amax.shape + (1,) * (xf.dim() - amax.dim()))
+    # divide by a tensor, not a Python number: on CUDA PyTorch turns a
+    # division by a host scalar into a multiply by its reciprocal, 1 ulp off
+    # the IEEE quotient that the JAX reference and the kernel compute
+    scale = torch.where(amax > 0.0, amax / amax.new_full(amax.shape,
+                                                         QMAX[fmt]), 1.0)
+    if fmt == "int8":
+        q = torch.clamp(torch.round(xf / scale), -QMAX["int8"], QMAX["int8"])
+    else:
+        q = (xf / scale).to(torch.float8_e4m3fn).float()
+    return q * scale

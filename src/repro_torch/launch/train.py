@@ -1,0 +1,133 @@
+"""SemiSFL training launcher for the PyTorch port (the JAX package's
+``launch/train.py::run_training``, SemiSFL only).
+
+Runs the paper's alternating-round training loop (Alg. 1) on the
+synthetic image task, on the card unless ``device="cpu"`` is asked for:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper-cnn \
+      --rounds 30 --full-config
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import replace
+from typing import NamedTuple, Optional
+
+import numpy as np
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.adaptation import FreqController
+from repro_torch.core.engine import (SemiSFLState, SemiSFLSystem,
+                                    make_controller)
+from repro_torch.core.wire import parse_wire_format
+from repro_torch.data.partition import dirichlet_partition, uniform_partition
+from repro_torch.data.pipeline import Loader, client_loaders
+from repro_torch.data.synthetic import (Dataset, make_image_dataset,
+                                        train_test_split)
+from repro_torch.device import resolve_device
+
+
+class Run(NamedTuple):
+    """Everything one training run drives, as :func:`build_run` sets it
+    up."""
+    system: SemiSFLSystem
+    state: SemiSFLState
+    controller: FreqController
+    labeled: Loader
+    clients: list
+    test: Dataset
+    select_rng: np.random.RandomState
+
+
+def build_run(arch: str = "paper-cnn", n_labeled: int = 250,
+              n_total: int = 2400, n_clients: int = 10, n_active: int = 5,
+              dirichlet: float = 0.0, labeled_batch: int = 32,
+              client_batch: int = 16, seed: int = 0, smoke: bool = True,
+              k_s: int = 15, k_u: int = 4, queue_len: int = 512,
+              wire_format: Optional[str] = None,
+              device: str = "cuda") -> Run:
+    """Data, partitions, loaders, system, initial state and controller of
+    a run (the set-up half of the JAX launcher's ``run_training``).
+
+    ``queue_len`` replaces the config's queue length, as the JAX launcher's
+    fixed 512 does; ``device`` is where everything runs ("cuda" by
+    default, raising if there is no card)."""
+    dev = resolve_device(device)
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    cfg = replace(cfg, semisfl=replace(
+        cfg.semisfl, k_s_init=k_s, k_u=k_u, queue_len=queue_len,
+        observation_period=3, adaptation_window=3))
+    ds = make_image_dataset(seed, num_classes=cfg.num_classes,
+                            n=n_total + 400, image_size=cfg.image_size)
+    train, test = train_test_split(ds, 400, seed=seed)
+    lab_idx = np.arange(n_labeled)
+    unl_idx = np.arange(n_labeled, len(train.y))
+    if dirichlet > 0:
+        parts = dirichlet_partition(seed, train.y[unl_idx], n_clients,
+                                    dirichlet)
+        parts = [unl_idx[p] for p in parts]
+    else:
+        parts = [unl_idx[p] for p in
+                 uniform_partition(seed, len(unl_idx), n_clients)]
+
+    system = SemiSFLSystem(cfg, n_clients_per_round=n_active,
+                           wire_format=parse_wire_format(wire_format),
+                           device=dev)
+    return Run(system=system, state=system.init_state(seed),
+               controller=make_controller(cfg, n_labeled, len(train.y)),
+               labeled=Loader(train, lab_idx, labeled_batch, seed),
+               clients=client_loaders(train, parts, client_batch, seed + 1),
+               test=test,
+               # one host-side selection RandomState per run
+               select_rng=np.random.RandomState(seed))
+
+
+def run_training(arch: str = "paper-cnn", rounds: int = 30,
+                 eval_every: int = 5, log=print, **kw):
+    """Train for ``rounds`` rounds; returns (state, history, system).
+    ``kw`` goes to :func:`build_run`."""
+    run = build_run(arch, **kw)
+    sys_, state, ctrl = run.system, run.state, run.controller
+    history = []
+    for r in range(rounds):
+        t0 = time.time()
+        state, m = sys_.run_round(state, run.labeled, run.clients, ctrl,
+                                  rng_np=run.select_rng)
+        rec = {"round": r, "k_s": ctrl.k_s, "dt": time.time() - t0}
+        if r % eval_every == 0 or r == rounds - 1:
+            m.test_acc = sys_.evaluate(state, run.test.x, run.test.y)
+            rec["test_acc"] = m.test_acc
+        rec.update({"f_s": m.f_s, "f_u": m.f_u, "mask_rate": m.mask_rate})
+        history.append(rec)
+        log("[semisfl] round {}: ".format(r) + " ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in rec.items() if k != "round"))
+    return state, history, sys_
+
+
+def main(argv: Optional[list] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="paper-cnn")
+    ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--labeled", type=int, default=250)
+    ap.add_argument("--total", type=int, default=2400)
+    ap.add_argument("--clients", type=int, default=10)
+    ap.add_argument("--active", type=int, default=5)
+    ap.add_argument("--dirichlet", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--full-config", action="store_true")
+    ap.add_argument("--wire-format", default=None,
+                    help="fp32 (default), int8 or fp8, optionally with a "
+                         "top-k delta upload, e.g. 'int8+topk0.1'")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    run_training(arch=args.arch, rounds=args.rounds, n_labeled=args.labeled,
+                 n_total=args.total, n_clients=args.clients,
+                 n_active=args.active, dirichlet=args.dirichlet,
+                 seed=args.seed, smoke=not args.full_config,
+                 wire_format=args.wire_format, device=args.device)
+
+
+if __name__ == "__main__":
+    main()
