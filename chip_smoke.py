@@ -13,15 +13,18 @@ Phases, in order; any failure exits nonzero:
      (clustering loss and dz at the shapes of the JAX kernel tests, an
      empty queue and the training round's shape; int8/fp8 quantization bit
      for bit), and time kernel, plain version and, where one exists, the
-     one PyTorch call that computes the same function;
+     one PyTorch call that computes the same function (the quantizer's
+     versions on inputs read from HBM, as its bound assumes);
   4. the main path: ``repro_torch.launch.train.run_training("paper-cnn",
-     smoke=False, device="cuda")`` at the full config, 3 rounds with the
-     ``int8+topk0.05`` wire and 1 with ``fp32``, with every kernel's launch
-     count read just after;
+     smoke=False, device="cuda")`` at the full config, 150 rounds with the
+     ``int8+topk0.05`` wire, long enough for the teacher to become
+     confident on part of the batch, and 1 with ``fp32``, with every
+     kernel's launch count read just after;
   5. one cross-entity step on the card against the same step through the
      port on the CPU, from the same state and draws;
-  6. where one warm round's time goes: host wall clock, device busy share
-     and kernel time by name (``torch.profiler``);
+  6. where a warm round's time goes, going on from the trained state:
+     host wall clock, device busy share and kernel time by name
+     (``torch.profiler``);
   7. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
 
 Needs one CUDA card, ``nvcc`` and this checkout's ``src/``; imports nothing
@@ -29,6 +32,7 @@ of JAX."""
 from __future__ import annotations
 
 import importlib
+import itertools
 import json
 import subprocess
 import sys
@@ -63,12 +67,26 @@ def _dev_us(e) -> float:
             or getattr(e, "self_cuda_time_total", 0))
 
 
+def l2_bytes() -> int:
+    import torch
+    return getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                   50 << 20)
+
+
+def cold_copies(t) -> itertools.cycle:
+    """A cycle over copies of ``t`` that together hold more than twice the
+    card's L2, so that a call on the next copy reads it from HBM, as a bound
+    at the HBM rate assumes."""
+    copies = 2 * l2_bytes() // (t.numel() * t.element_size()) + 2
+    return itertools.cycle([t.clone() for _ in range(copies)])
+
+
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
-    """(device ms, event ms) per call of ``fn``, after warm-up, inputs warm
-    in L2 as on the main path.  Device ms: the kernels' own durations from
-    ``torch.profiler``, summed per call.  Event ms: CUDA events around
-    back-to-back calls, which is the host's enqueue time where that is the
-    longer of the two."""
+    """(device ms, event ms) per call of ``fn``, after warm-up.  Device ms:
+    the kernels' own durations from ``torch.profiler``, summed per call.
+    Event ms: CUDA events around back-to-back calls, which is the host's
+    enqueue time where that is the longer of the two.  Inputs stay warm in
+    L2 unless ``fn`` cycles through :func:`cold_copies`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -266,6 +284,16 @@ def phase_kernels(card: str) -> dict:
     s, n = xf.shape[0], xf.numel() // xf.shape[0]
     scale = torch.where(amax > 0, amax / 127.0, 1.0)
     zp = torch.zeros(s, dtype=torch.int32, device=dev)
+    # the quantizer's bound is the HBM rate, so every version of it is
+    # timed on inputs that come from HBM; the clustering pair is bound by
+    # its operations, whose rate does not depend on where the inputs lie
+    xc = cold_copies(xf)
+    print(f"[timing] quantizer inputs cycle through copies of "
+          f"{xf.numel() * 4 / 1e6:.1f} MB, more than twice the L2 of "
+          f"{l2_bytes() / 1e6:.1f} MB")
+    warm = {"quantize_amax": time_ms(lambda: q.quantize_amax(xf, True)),
+            "quantize_qdq": time_ms(lambda: q.quantize_qdq(xf, amax, "int8",
+                                                           True))}
     timings = {
         "clustering_fwd": dict(
             ms=time_ms(lambda: cl.clustering_fwd(inputs, inv_t)),
@@ -282,25 +310,29 @@ def phase_kernels(card: str) -> dict:
             bound=bound_ms(in_bytes + 2 * b * 4 + 8 + b * PROJ * 4,
                            4 * n_has * n_valid * PROJ)),
         "quantize_amax": dict(
-            ms=time_ms(lambda: q.quantize_amax(xf, True)),
-            plain_ms=time_ms(lambda: ref.slice_amax(xf, True)),
+            ms=time_ms(lambda: q.quantize_amax(next(xc), True)),
+            plain_ms=time_ms(lambda: ref.slice_amax(next(xc), True)),
             library_ms=time_ms(lambda: torch.linalg.vector_norm(
-                xf.view(s, n), ord=float("inf"), dim=1)),
+                next(xc).view(s, n), ord=float("inf"), dim=1)),
             bound=bound_ms(s * n * 4 + s * 4, 2 * s * n)),
         "quantize_qdq": dict(
-            ms=time_ms(lambda: q.quantize_qdq(xf, amax, "int8", True)),
-            plain_ms=time_ms(lambda: ref.qdq_from_amax(xf, amax, "int8")),
+            ms=time_ms(lambda: q.quantize_qdq(next(xc), amax, "int8", True)),
+            plain_ms=time_ms(lambda: ref.qdq_from_amax(next(xc), amax,
+                                                       "int8")),
             library_ms=time_ms(lambda: torch.fake_quantize_per_channel_affine(
-                xf.view(s, n), scale, zp, 0, -127, 127)),
+                next(xc).view(s, n), scale, zp, 0, -127, 127)),
             bound=bound_ms(2 * s * n * 4 + s * 4, 5 * s * n)),
     }
-    del loss
+    del loss, xc
     for name, t in timings.items():
         fmt = lambda v: ("n/a" if v is None
                          else f"{v[0]:.4f} ms (events {v[1]:.4f} ms)")
+        extra = (f", kernel with its input warm in L2 {fmt(warm[name])}"
+                 if name in warm else "")
         print(f"[timing] {name}: kernel {fmt(t['ms'])}, plain "
               f"{fmt(t['plain_ms'])}, library {fmt(t['library_ms'])}, "
-              f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}) on {card}")
+              f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}){extra} "
+              f"on {card}")
         for k in ("ms", "plain_ms", "library_ms"):
             t[k] = None if t[k] is None else t[k][0]
     return {"errs": errs, "timings": timings}
@@ -314,28 +346,44 @@ MAIN_PATH = dict(smoke=False, n_clients=20, n_active=N_ACTIVE,
                  client_batch=CLIENT_BATCH, labeled_batch=64,
                  queue_len=QUEUE, k_s=5, k_u=4, eval_every=1, device="cuda")
 
+# The teacher is an EMA (decay 0.99) of the student and clears tau = 0.95
+# only after some tens of rounds from random weights; until then no anchor
+# is confident and the clustering kernels have nothing to sum.  The int8
+# run trains long enough for part of the batch to become confident.
+MAIN_RUNS = (("int8+topk0.05", 150), ("fp32", 1))
 
-def phase_main_path(card: str):
+
+def phase_main_path(card: str) -> dict:
+    """Returns {wire: (state, system)} of each run."""
     from repro_torch.launch.train import run_training
-    out = None
-    for wire, rounds in (("int8+topk0.05", 3), ("fp32", 1)):
+    runs, live = {}, 0
+    for wire, rounds in MAIN_RUNS:
         t0 = time.time()
         state, history, system = run_training("paper-cnn", rounds=rounds,
-                                              wire_format=wire, **MAIN_PATH)
+                                              wire_format=wire,
+                                              log=lambda _: None,
+                                              **MAIN_PATH)
+        confident = [rec["round"] for rec in history
+                     if rec["mask_rate"] < 1.0]
+        print(f"[main] paper-cnn wire={wire}, per round: f_s f_u mask_rate "
+              f"K_s teacher_acc wall_s")
         for rec in history:
-            print(f"[main] paper-cnn wire={wire} round {rec['round']}: "
-                  f"f_s={rec['f_s']:.6g} f_u={rec['f_u']:.6g} "
-                  f"mask_rate={rec['mask_rate']:.4g} K_s={rec['k_s']} "
-                  f"teacher_acc={rec['test_acc']:.4g} "
-                  f"wall={rec['dt']:.3f} s on {card}")
             if not all(np.isfinite([rec["f_s"], rec["f_u"],
                                     rec["test_acc"]])):
                 fail(f"non-finite metrics in {rec}")
+            print(f"[main] {rec['round']:3d} {rec['f_s']:.6g} "
+                  f"{rec['f_u']:.6g} {rec['mask_rate']:.4g} {rec['k_s']} "
+                  f"{rec['test_acc']:.4g} {rec['dt']:.3f}")
         print(f"[main] wire={wire}: {rounds} rounds in "
-              f"{time.time() - t0:.2f} s (incl. data and set-up)")
-        if out is None:
-            out = (state, system)
-    return out
+              f"{time.time() - t0:.2f} s (incl. data and set-up) on {card}; "
+              f"{len(confident)} rounds with mask_rate < 1, the first "
+              f"{confident[0] if confident else None}")
+        live += len(confident)
+        runs[wire] = (state, system)
+    if not live:
+        fail("no main-path round had a confident anchor (mask_rate < 1): "
+             "the clustering kernels did no work")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -356,9 +404,9 @@ def phase_cross_check(state, system):
     to_cpu = lambda tree: tree_map(
         lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, tree)
     bottoms, t_bottoms = system.broadcast(state)
-    # a few rounds in, the teacher rarely clears tau; sharpen its classifier
-    # so that part of the batch is confident and the clustering loss has
-    # anchors (the same state goes to both sides)
+    # one round from random weights, the teacher does not clear tau; sharpen
+    # its classifier so that part of the batch is confident and the
+    # clustering loss has anchors (the same state goes to both sides)
     cls = state.teacher["top"]["cls"]
     teacher = dict(state.teacher, top=dict(
         state.teacher["top"], cls={"w": cls["w"] * 40.0, "b": cls["b"]}))
@@ -398,11 +446,13 @@ OUR_KERNELS = ("fwd_kernel", "finalize_kernel", "bwd_kernel", "amax_kernel",
                "qdq_kernel")
 
 
-def phase_profile(card: str) -> None:
-    """One warm int8+topk0.05 round of the main path: its wall time on the
-    host clock (ending in a synchronize), then the same round again under
-    ``torch.profiler`` for device busy time, kernel time by name and the
-    host time of the round's three phase spans."""
+def phase_profile(card: str, trained) -> None:
+    """Warm int8+topk0.05 rounds of the main path, going on from the
+    ``trained`` state of its int8 run, so that part of each batch is
+    confident and the clustering kernels do their work: three rounds' wall
+    time on the host clock (each ending in a synchronize), then one more
+    round under ``torch.profiler`` for device busy time, kernel time by
+    name and the host time of the round's three phase spans."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -410,15 +460,17 @@ def phase_profile(card: str) -> None:
     from repro_torch.launch.train import build_run
     kw = {k: v for k, v in MAIN_PATH.items() if k != "eval_every"}
     run = build_run("paper-cnn", wire_format="int8+topk0.05", **kw)
+    masks = []
 
     def one(state):
-        state, _ = run.system.run_round(state, run.labeled, run.clients,
+        state, m = run.system.run_round(state, run.labeled, run.clients,
                                         run.controller,
                                         rng_np=run.select_rng)
         torch.cuda.synchronize()
+        masks.append(m.mask_rate)
         return state
 
-    state = one(one(run.state))                      # warm-up
+    state = one(one(trained))                        # warm-up
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -429,6 +481,10 @@ def phase_profile(card: str) -> None:
         t0 = time.perf_counter()
         state = one(state)
         wall_prof = time.perf_counter() - t0
+    print(f"[profile] mask_rate of the 2 warm-up, 3 timed and 1 profiled "
+          f"rounds: {', '.join(f'{m:.4f}' for m in masks)}")
+    if masks[-1] >= 1.0:
+        fail("the profiled round had no confident anchor")
     events = prof.key_averages()
     # device-side entries only: kernels and copies (the spans' device-side
     # mirrors cover whole phases and would count every kernel twice)
@@ -437,14 +493,15 @@ def phase_profile(card: str) -> None:
                       and not e.key.startswith("semisfl.")),
                      key=_dev_us, reverse=True)
     busy = sum(_dev_us(e) for e in kernels) / 1e6
-    ours = sum(_dev_us(e) for e in kernels
-               if any(k in e.key for k in OUR_KERNELS)) / 1e6
+    ours = {k: sum(_dev_us(e) for e in kernels if k in e.key) / 1e6
+            for k in OUR_KERNELS}
     print(f"[profile] round wall (no profiler) "
           f"{', '.join(f'{w:.6f}' for w in walls)} s; under the profiler "
           f"{wall_prof:.6f} s, device busy {busy:.6f} s (idle share "
           f"{1 - busy / wall_prof:.4f}); the four ported kernels "
-          f"{ours:.6f} s; {sum(e.count for e in kernels)} device ops; "
-          f"on {card}")
+          f"{sum(ours.values()):.6f} s ("
+          f"{', '.join(f'{k} {v:.6f}' for k, v in ours.items())}); "
+          f"{sum(e.count for e in kernels)} device ops; on {card}")
     for e in events:
         if e.key.startswith("semisfl.") and e.device_type == DeviceType.CPU:
             print(f"[profile] span {e.key}: host {e.cpu_time_total / 1e3:.3f}"
@@ -479,14 +536,15 @@ def main() -> int:
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     reset_launch_counts()
-    state, system = phase_main_path(card)
+    runs = phase_main_path(card)
     launches = launch_counts()
     print(f"[main] kernel launches on the main path: {launches}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"the main path never launched {missing}")
-    phase_cross_check(state, system)
-    phase_profile(card)
+    trained, system = runs["int8+topk0.05"]
+    phase_cross_check(runs["fp32"][0], system)
+    phase_profile(card, trained)
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -62,7 +62,7 @@ class SemiSFLState(NamedTuple):
     opt: Any           # momentum buffers of params (supervised phase)
     queue: FeatureQueue
     round: int
-    step: int          # cumulative optimizer step; drives the LR schedule
+    step: int          # cumulative count of supervised and semi steps
 
 
 class SemiCarry(NamedTuple):
@@ -378,15 +378,13 @@ class SemiSFLSystem:
 
     @torch.no_grad()
     def evaluate(self, state: SemiSFLState, test_x: np.ndarray,
-                 test_y: np.ndarray, batch: int = 256,
-                 use_teacher: bool = True) -> float:
-        """Test accuracy of the (teacher) model, read once at the end."""
-        params = state.teacher if use_teacher else state.params
+                 test_y: np.ndarray, batch: int = 256) -> float:
+        """Test accuracy of the teacher model, read once at the end."""
         correct = torch.zeros((), device=self.device)
         for i in range(0, len(test_y), batch):
             xb = self._to_device(test_x[i: i + batch])
             yb = self._to_device(test_y[i: i + batch])
-            logits, _, _ = self._forward(params, xb)
+            logits, _, _ = self._forward(state.teacher, xb)
             correct += (logits.argmax(-1) == yb).float().sum()
         return float(correct.cpu()) / len(test_y)
 

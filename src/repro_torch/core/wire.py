@@ -44,12 +44,6 @@ class WireFormat:
             raise ValueError(
                 f"topk_frac must be in (0, 1], got {self.topk_frac}")
 
-    @property
-    def identity(self) -> bool:
-        """True when every payload is uncompressed fp32 (no-op wire)."""
-        return (self.activations == "fp32" and self.gradients == "fp32"
-                and self.topk_frac >= 1.0)
-
 
 FP32 = WireFormat()
 
