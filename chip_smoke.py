@@ -12,10 +12,13 @@ Phases, in order; any failure exits nonzero:
   3. hold each kernel against its plain PyTorch version on the card
      (clustering loss and dz at the shapes of the JAX kernel tests, an
      empty queue and the training round's shape; int8/fp8 quantization bit
-     for bit), and time kernel, plain version and, where one exists, the
-     one PyTorch call that computes the same function (the quantizer's
-     versions on inputs read from HBM, as its bound assumes);
-  4. the main path: ``repro_torch.launch.train.run_training("paper-cnn",
+     for bit; flash attention at the JAX kernel tests' shapes, windows and
+     non-causal case, at ragged lengths, with 5 query heads per KV head and
+     at Qwen3-14B's prefill shape), and time kernel, plain version and,
+     where one exists, the one PyTorch call that computes the same function
+     (the quantizer's versions on inputs read from HBM, as its bound
+     assumes);
+  4. the first path: ``repro_torch.launch.train.run_training("paper-cnn",
      smoke=False, device="cuda")`` at the full config, 150 rounds with the
      ``int8+topk0.05`` wire, long enough for the teacher to become
      confident on part of the batch, and 1 with ``fp32``, with every
@@ -25,7 +28,15 @@ Phases, in order; any failure exits nonzero:
   6. where a warm round's time goes, going on from the trained state:
      host wall clock, device busy share and kernel time by name
      (``torch.profiler``);
-  7. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
+  7. the second path: split-inference serving of the full Qwen3-14B
+     (``repro_torch.launch.serve.serve_config``: 40 layers, width 5120,
+     bf16, weights drawn on the card from seed 0), batch 4, a 2048-token
+     prompt, 32 greedy tokens, with the launch counts read just after, then
+     the same run again under ``torch.profiler``;
+  8. card against CPU on the serving path: the same fp32 weights of a
+     2-layer Qwen3-14B at full width, one prefill of 256 tokens and 4
+     decode steps on each;
+  9. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
 
 Needs one CUDA card, ``nvcc`` and this checkout's ``src/``; imports nothing
 of JAX."""
@@ -37,6 +48,7 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -44,8 +56,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # published peaks of one H100 SXM (dense): fp32 outside the tensor cores,
-# and HBM3 bandwidth
+# bf16 in the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 # the training round's shapes at the full paper-cnn config: 10 active
@@ -56,6 +69,25 @@ CUT = (CLIENT_BATCH, 16, 16, 32)
 
 CLUSTER_TEST_SHAPES = [(16, 64, 16, 4), (64, 256, 32, 10), (100, 512, 64, 7),
                        (32, 1000, 128, 4)]
+
+# the serving path: Qwen3-14B, batch 4, a 2048-token prompt, 32 generated
+# tokens; its prefill attention is q (4, 40, 2048, 128) over k, v
+# (4, 8, 2048, 128) in bf16, causal, once per layer
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
+
+# flash attention against its plain version, in fp32 and bf16:
+# (b, h, kvh, sq, skv, hd, causal, window).  The JAX kernel tests' shapes,
+# windows and non-causal case, ragged lengths, 5 query heads per KV head.
+FLASH_CASES = [
+    (1, 2, 1, 128, 128, 64, True, 0), (2, 4, 2, 256, 256, 64, True, 0),
+    (1, 8, 8, 256, 256, 128, True, 0), (2, 8, 2, 384, 384, 80, True, 0),
+    (1, 4, 4, 256, 256, 112, True, 0), (1, 2, 2, 256, 256, 64, True, 64),
+    (1, 2, 2, 256, 256, 64, True, 128), (1, 2, 2, 256, 256, 64, True, 4096),
+    (2, 2, 2, 128, 256, 64, False, 0), (1, 10, 2, 200, 200, 128, True, 0),
+    (2, 10, 2, 1000, 1000, 128, True, 0), (1, 5, 1, 77, 300, 96, False, 0),
+    (1, 4, 2, 33, 33, 32, True, 16)]
+# the reference suite's TOLS (tests/test_kernels.py)
+FLASH_TOLS = {"float32": 2e-4, "bfloat16": 3e-2}
 
 
 def fail(msg: str) -> None:
@@ -115,8 +147,9 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
     return dev / 1e3 / iters, event_ms
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_flops / PEAK_FP32_FLOPS
+def bound_ms(n_bytes: float, n_flops: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -338,6 +371,93 @@ def phase_kernels(card: str) -> dict:
     return {"errs": errs, "timings": timings}
 
 
+def _attn_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that attention leaves unmasked."""
+    import torch
+    q_pos = torch.arange(sq)[:, None]
+    kv_pos = torch.arange(skv)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window:
+        mask &= kv_pos > q_pos - window
+    return int(mask.sum())
+
+
+def phase_flash(card: str) -> dict:
+    """Flash attention against its plain version on the card, then timed at
+    the serving path's prefill shape in the model's layout."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    err = 0.0
+
+    def check(q, k, v, what, tol, causal=True, window=0):
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        e = float((got.float() - want.float()).abs().max())
+        print(f"[kernels] flash {what}: max|err| {e:.3g} (tol {tol})")
+        if got.dtype != q.dtype or got.stride() != q.stride():
+            fail(f"flash {what}: output {got.dtype} {got.stride()}, want "
+                 f"{q.dtype} {q.stride()}")
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            fail(f"flash attention {what} differs from the plain version by "
+                 f"{e}")
+        return got, e
+
+    for dname, tol in FLASH_TOLS.items():
+        dt = getattr(torch, dname)
+        for b, h, kvh, sq, skv, hd, causal, window in FLASH_CASES:
+            q = randn(b, h, sq, hd).to(dt)
+            k, v = randn(b, kvh, skv, hd).to(dt), randn(b, kvh, skv, hd).to(dt)
+            what = (f"{dname} q ({b}, {h}, {sq}, {hd}) kv ({kvh}, {skv}) "
+                    f"causal={causal} window={window}")
+            err = max(err, check(q, k, v, what, tol, causal, window)[1])
+    # causal over 16 keys with a window of 8: rows 23 on see no key -> 0
+    q, k = randn(1, 2, 64, 32), randn(1, 1, 16, 32)
+    got, _ = check(q, k, k, "rows that see no key", FLASH_TOLS["float32"],
+                   window=8)
+    if float(got[:, :, 23:].abs().max()) != 0.0:
+        fail("flash attention: a row that sees no key is not 0")
+
+    # the serving path's shape, in the model's layout: (B, S, heads, hd)
+    # projections handed over as (B, heads, S, hd) views
+    b, h, kvh, s, hd = SERVE_BATCH, 40, 8, SERVE_PROMPT, 128
+    bf = torch.bfloat16
+    q = randn(b, s, h, hd).to(bf).transpose(1, 2)
+    k = randn(b, s, kvh, hd).to(bf).transpose(1, 2)
+    v = randn(b, s, kvh, hd).to(bf).transpose(1, 2)
+    err = max(err, check(q, k, v, f"serve shape bf16 q {tuple(q.shape)} kv "
+                         f"{tuple(k.shape)} (strided views)",
+                         FLASH_TOLS["bfloat16"])[1])
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    n_flops = 4 * b * h * hd * _attn_pairs(s, s, True, 0)
+    t = dict(
+        ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v), iters=10,
+                   warmup=2),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5,
+                         warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters=10, warmup=2),
+        bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
+    print(f"[timing] flash_attention at q {tuple(q.shape)} kv "
+          f"{tuple(k.shape)} bf16 causal ({n_flops:.4g} operations, "
+          f"{n_bytes / 1e6:.1f} MB): kernel {t['ms'][0]:.4f} ms (events "
+          f"{t['ms'][1]:.4f}), plain {t['plain_ms'][0]:.4f} ms (events "
+          f"{t['plain_ms'][1]:.4f}), library (scaled_dot_product_attention) "
+          f"{t['library_ms'][0]:.4f} ms (events {t['library_ms'][1]:.4f}), "
+          f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}); kernel at "
+          f"{n_flops / t['ms'][0] / 1e9:.1f} TFLOP/s on {card}")
+    for key in ("ms", "plain_ms", "library_ms"):
+        t[key] = t[key][0]
+    return {"err": err, "timing": t}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -511,6 +631,141 @@ def phase_profile(card: str, trained) -> None:
               f"{e.key[:100]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: serving Qwen3-14B
+# ---------------------------------------------------------------------------
+
+def _serve_full(log):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_config
+    return serve_config(get_config("qwen3-14b"), SERVE_BATCH, SERVE_PROMPT,
+                        SERVE_TOKENS, seed=0, device="cuda", log=log)
+
+
+def phase_serve(card: str) -> dict:
+    """The full Qwen3-14B through the port's serving entry point, with every
+    kernel's launch count set to 0 just before and read just after."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    cfg = get_config("qwen3-14b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    res = _serve_full(lambda m: print(f"[serve] {m}"))
+    launches = launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    toks = res.tokens
+    print(f"[serve] qwen3-14b at full width, {cfg.num_layers} layers "
+          f"(split {cfg.split_layer} + {cfg.num_layers - cfg.split_layer}), "
+          f"bf16, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+          f"{SERVE_TOKENS} tokens: prefill {res.prefill_s:.6f} s "
+          f"({SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.1f} prompt tok/s), "
+          f"decode {SERVE_TOKENS - 1} steps in {res.decode_s:.6f} s "
+          f"({(SERVE_TOKENS - 1) * SERVE_BATCH / res.decode_s:.1f} tok/s, "
+          f"{res.decode_s / (SERVE_TOKENS - 1) * 1e3:.3f} ms per step), "
+          f"{wall:.2f} s with weight init; peak device memory "
+          f"{peak / 2**30:.2f} GiB; on {card}")
+    print(f"[serve] launches on the serving path: {launches}; flash "
+          f"attention launches per prefill {launches['flash_attention']}")
+    print(f"[serve] tokens of sequence 0: {toks[0].tolist()}")
+    if not bool(torch.isfinite(res.logits.float()).all()):
+        fail("serving gave non-finite prefill logits")
+    if toks.shape != (SERVE_BATCH, SERVE_TOKENS) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        fail(f"serving gave tokens of shape {toks.shape} in "
+             f"[{toks.min()}, {toks.max()}]")
+    if launches["flash_attention"] != cfg.num_layers:
+        fail(f"one prefill launched flash attention "
+             f"{launches['flash_attention']} times, want {cfg.num_layers}")
+    return launches
+
+
+def phase_serve_profile(card: str) -> None:
+    """The same serving run under ``torch.profiler``: device busy time,
+    idle share and device time by kernel, for the whole run and for each
+    of its two spans (``serve.prefill``, ``serve.decode``: device ops are
+    assigned to the span in which they start)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = _serve_full(lambda _: None)
+        wall = time.perf_counter() - t0
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
+                      and not e.key.startswith("serve.")),
+                     key=_dev_us, reverse=True)
+    busy = sum(_dev_us(e) for e in kernels) / 1e6
+    flash = sum(_dev_us(e) for e in kernels if "flash_kernel" in e.key) / 1e6
+    print(f"[serve-profile] under the profiler: prefill {res.prefill_s:.6f} "
+          f"s, decode {res.decode_s:.6f} s, serve_config {wall:.6f} s "
+          f"(weight init included); device busy {busy:.6f} s (idle share "
+          f"{1 - busy / wall:.4f} of serve_config's wall); flash attention "
+          f"{flash:.6f} s; {sum(e.count for e in kernels)} device ops; on "
+          f"{card}")
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("serve.")]
+    for span in ("serve.prefill", "serve.decode"):
+        rng = next(e.time_range for e in events if e.name == span
+                   and e.device_type == DeviceType.CPU)
+        inside = [e for e in device
+                  if rng.start <= e.time_range.start < rng.end]
+        span_busy = sum(e.time_range.elapsed_us() for e in inside) / 1e6
+        span_wall = rng.elapsed_us() / 1e6
+        by_name: dict[str, list] = {}
+        for e in inside:
+            acc = by_name.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc[1] += 1
+        print(f"[serve-profile] span {span}: host {span_wall:.6f} s, "
+              f"device busy {span_busy:.6f} s (idle share "
+              f"{1 - span_busy / span_wall:.4f}), {len(inside)} device ops")
+        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                    )[:6]:
+            print(f"[serve-profile]   {span} device {ms:10.3f} ms x{n:<6d} "
+                  f"{name[:90]}")
+
+
+def phase_lm_cross_check() -> None:
+    """One prefill of 256 tokens and 4 decode steps of a 2-layer Qwen3-14B
+    at full width, in fp32 with TF32 off, on the card and on the CPU from
+    the same weights (drawn on the card, copied to the CPU).  cuBLAS and
+    the CPU sum in other orders and the flash kernel against its plain
+    version too, so the logits are held to 1e-3 (phase 5's tolerance); the
+    greedy tokens must be equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_config
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.tree import tree_map
+    cfg = replace(get_config("qwen3-14b"), num_layers=2, dtype="float32")
+    params = DecoderLM(cfg).init(torch.Generator("cuda").manual_seed(1),
+                                 "cuda")
+    kw = dict(batch=2, prompt_len=256, gen_tokens=5, seed=0,
+              log=lambda _: None)
+    t0 = time.perf_counter()
+    gpu = serve_config(cfg, params=params, device="cuda", **kw)
+    cpu = serve_config(cfg, params=tree_map(lambda t: t.cpu(), params),
+                       device="cpu", **kw)
+    del params
+    err = float((gpu.logits.cpu() - cpu.logits).abs().max())
+    same = bool((gpu.tokens == cpu.tokens).all())
+    print(f"[cross-lm] qwen3-14b width 5120, 2 layers, fp32: card vs CPU "
+          f"last-position logits max|err| {err:.3g} (max|logit| "
+          f"{float(cpu.logits.abs().max()):.3g}); greedy tokens equal: "
+          f"{same} {gpu.tokens.tolist()}; {time.perf_counter() - t0:.1f} s")
+    if not (torch.allclose(gpu.logits.cpu(), cpu.logits, atol=1e-3,
+                           rtol=1e-3) and same):
+        fail("the card and the CPU disagree on the serving path")
+
+
 KERNEL_META = {
     "clustering_fwd": ("src/repro_torch/csrc/clustering_loss.cu",
                        "src/repro/kernels/clustering_loss.py:140"),
@@ -520,7 +775,11 @@ KERNEL_META = {
                       "src/repro/kernels/quantize.py:74"),
     "quantize_qdq": ("src/repro_torch/csrc/quantize.cu",
                      "src/repro/kernels/quantize.py:88"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:105"),
 }
+TRAIN_KERNELS = ("clustering_fwd", "clustering_bwd", "quantize_amax",
+                 "quantize_qdq")
 
 
 def main() -> int:
@@ -533,18 +792,27 @@ def main() -> int:
     card = phase_device()
     phase_build()
     checked = phase_kernels(card)
+    flash = phase_flash(card)
+    checked["errs"]["flash_attention"] = flash["err"]
+    checked["timings"]["flash_attention"] = flash["timing"]
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     reset_launch_counts()
     runs = phase_main_path(card)
     launches = launch_counts()
     print(f"[main] kernel launches on the main path: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
     if missing:
         fail(f"the main path never launched {missing}")
     trained, system = runs["int8+topk0.05"]
     phase_cross_check(runs["fp32"][0], system)
     phase_profile(card, trained)
+    del runs, trained, system
+
+    # the serving path reads its own counts, set to 0 just before it
+    launches["flash_attention"] = phase_serve(card)["flash_attention"]
+    phase_serve_profile(card)
+    phase_lm_cross_check()
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -1,4 +1,5 @@
-"""PyTorch port of the SemiSFL training round, for NVIDIA Hopper GPUs.
+"""PyTorch port of SemiSFL for NVIDIA Hopper GPUs: the training round of the
+CNN family and split-inference serving of the dense decoder LMs.
 
 Mirrors the layout of the JAX package ``repro`` (the reference), which it
 never imports.  Entry points run on the card (``device="cuda"``) unless the

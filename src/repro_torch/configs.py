@@ -1,10 +1,12 @@
-"""Configurations of the paper's CNN family, for the PyTorch port.
+"""Configurations of the paper's CNN family and of the dense decoder LMs,
+for the PyTorch port.
 
-A copy of what the CNN classification rig reads from the JAX package's
-``configs/base.py`` (``SemiSFLConfig``, the CNN fields of ``ArchConfig``,
-``get_config`` and the CNN branch of ``smoke_config``) and of
-``configs/paper_models.py``.  The port keeps its own copy so that it imports
-nothing of the JAX package."""
+A copy of what the CNN classification rig and the dense LM serving path
+read from the JAX package's ``configs/base.py`` (``SemiSFLConfig``, the CNN
+and dense-LM fields of ``ArchConfig``, ``get_config`` and the CNN and
+dense-LM branches of ``smoke_config``), of ``configs/paper_models.py`` and
+of ``configs/qwen3_14b.py``.  The port keeps its own copy so that it
+imports nothing of the JAX package."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
@@ -33,18 +35,43 @@ class SemiSFLConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """The CNN fields of the JAX package's ``ArchConfig``."""
+    """The CNN and dense-LM fields of the JAX package's ``ArchConfig``."""
 
     name: str
     num_layers: int
-    cnn_channels: Tuple[int, ...]
-    cnn_fc: Tuple[int, ...]
-    num_classes: int
+    arch_type: str = "cnn"              # cnn | dense
+    # --- dense decoder LM ----------------------------------------------------
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0                   # 0 -> d_model // num_heads
+    attn_bias: bool = False             # qwen2-style QKV bias
+    qk_norm: bool = False               # qwen3-style per-head RMSNorm on q,k
+    rope_kind: str = "rope"             # rope | none
+    rope_theta: float = 1_000_000.0
+    rope_pct: float = 1.0               # partial rotary
+    sliding_window: int = 0             # 0 -> full attention
+    norm: str = "rmsnorm"               # rmsnorm | layernorm
+    act: str = "silu"                   # silu | gelu | relu
+    mlp_gated: bool = True              # SwiGLU-style gate
+    dtype: str = "bfloat16"
+    modality: str = "text"
+    is_encoder_decoder: bool = False
+    # --- CNN family (the paper's own models) ----------------------------------
+    cnn_channels: Tuple[int, ...] = ()
+    cnn_fc: Tuple[int, ...] = ()
+    num_classes: int = 0
     image_size: int = 32
     # dropout on the FC-stack activations (AlexNet/VGG convention); live
     # only in train-mode forwards that are given dropout masks
     cnn_dropout: float = 0.0
     semisfl: SemiSFLConfig = field(default_factory=SemiSFLConfig)
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
 
     @property
     def split_layer(self) -> int:
@@ -79,6 +106,11 @@ _REGISTRY = {c.name: c for c in (
                    512, 512, 512),
          fc=(4096, 4096), image_size=144, split=13, num_classes=100,
          dropout=0.5),
+    # Qwen3-14B: dense GQA decoder with per-head qk RMSNorm
+    ArchConfig(name="qwen3-14b", arch_type="dense", num_layers=40,
+               d_model=5120, num_heads=40, num_kv_heads=8, head_dim=128,
+               d_ff=17408, vocab_size=151936, qk_norm=True, attn_bias=False,
+               rope_theta=1_000_000.0),
 )}
 
 
@@ -89,9 +121,29 @@ def get_config(name: str) -> ArchConfig:
 
 
 def smoke_config(name: str) -> ArchConfig:
-    """Reduced same-family variant for CPU tests (the CNN branch of the JAX
-    package's ``smoke_config``)."""
+    """Reduced same-family variant for CPU tests (the CNN and dense-LM
+    branches of the JAX package's ``smoke_config``: 2 layers, d_model <=
+    256, vocab <= 512)."""
     cfg = get_config(name)
+    if cfg.arch_type != "cnn":
+        d_model = min(cfg.d_model, 256)
+        n_heads = max(2, min(cfg.num_heads, 4))
+        n_kv = max(1, min(cfg.num_kv_heads, n_heads))
+        if n_heads % n_kv:
+            n_kv = 1
+        return replace(
+            cfg,
+            name=cfg.name + "-smoke",
+            num_layers=2,
+            d_model=d_model,
+            num_heads=n_heads,
+            num_kv_heads=n_kv,
+            head_dim=max(8, d_model // n_heads),
+            d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+            vocab_size=min(cfg.vocab_size, 512),
+            semisfl=replace(cfg.semisfl, split_layer=1, queue_len=64,
+                            proj_dim=16, proj_hidden=32, k_s_init=2, k_u=2),
+        )
     return replace(
         cfg,
         name=cfg.name + "-smoke",

@@ -1,9 +1,13 @@
 """Carry weights and state between the JAX package and this port.
 
-Both sides use the same tree structure (``{"bottom", "top", "proj"}``, conv
-layers as lists of ``{"w", "b"}``).  Only the conv weights change layout:
-JAX's HWIO against PyTorch's OIHW, with a leading client axis on stacked
-client bottoms.  Dense weights are (d_in, d_out) on both sides.
+CNN trees have the same structure on both sides (``{"bottom", "top",
+"proj"}``, conv layers as lists of ``{"w", "b"}``).  Only the conv weights
+change layout: JAX's HWIO against PyTorch's OIHW, with a leading client
+axis on stacked client bottoms.  Dense weights are (d_in, d_out) on both
+sides.  Decoder-LM trees differ in one way: JAX stacks a segment's layers
+on a leading axis (``"stack"``), the port keeps a list of per-layer trees;
+so does its KV cache.  bf16 arrays (``ml_dtypes.bfloat16`` in numpy) come
+across bit for bit.
 
 The functions take and give numpy arrays, not JAX arrays, so the port
 stays free of JAX: a caller holding JAX arrays passes
@@ -15,7 +19,8 @@ import torch
 
 from repro_torch.core.engine import SemiSFLState
 from repro_torch.core.queue import FeatureQueue
-from repro_torch.tree import tree_map
+from repro_torch.models.attention import KVCache
+from repro_torch.tree import tree_leaves, tree_map
 
 # conv weight rank -> axis order, JAX layout to port layout
 _TO_PORT = {4: (3, 2, 0, 1),            # HWIO -> OIHW
@@ -71,3 +76,65 @@ def state_from_numpy(params, teacher, momentum, queue: dict, round_: int,
         opt=params_from_numpy(momentum, device),
         queue=queue_from_numpy(device=device, **queue),
         round=int(round_), step=int(step))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (bf16 included) as a tensor on ``device``, bit for
+    bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a.view(np.int16), copy=True))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _unstack(tree) -> list:
+    """A tree whose leaves share a leading layer axis -> one tree per
+    layer."""
+    n = len(tree_leaves(tree)[0])
+    return [tree_map(lambda a, i=i: a[i], tree) for i in range(n)]
+
+
+def lm_params_from_numpy(tree, device: str | torch.device = "cpu") -> dict:
+    """The JAX ``DecoderLM.init`` tree as numpy (``{"bottom": {"embed",
+    "stack"}, "top": {"stack", "final_norm", "lm_head"}}``, each ``stack``
+    with a leading layer axis) -> the port's tree, with ``stack`` a list of
+    per-layer trees on ``device``."""
+    def half(part: dict) -> dict:
+        out = {}
+        for key, sub in part.items():
+            if key == "stack":
+                out[key] = ([] if sub is None else
+                            [tree_map(lambda a: _tensor(a, device), layer)
+                             for layer in _unstack(sub)])
+            else:
+                out[key] = tree_map(lambda a: _tensor(a, device), sub)
+        return out
+    return {"bottom": half(tree["bottom"]), "top": half(tree["top"])}
+
+
+def lm_cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
+    """The JAX ``DecoderLM.init_cache`` tree as numpy (each segment's cache
+    a ``KVCache`` of (k, v, pos) with a leading layer axis; a dense model's
+    ``prefix`` segment is None) -> the port's cache, a list of per-layer
+    :class:`KVCache` per segment."""
+    def segment(c):
+        k, v, pos = c
+        return [KVCache(_tensor(k[i], device), _tensor(v[i], device),
+                        _tensor(np.asarray(pos[i], np.int64), device))
+                for i in range(len(k))]
+    if cache["bottom"].get("prefix") is not None:
+        raise NotImplementedError("the port has no prefix layers")
+    return {"bottom": {"stack": segment(cache["bottom"]["stack"])},
+            "top": {"stack": segment(cache["top"]["stack"])}}
+
+
+def lm_cache_to_numpy(cache: dict) -> dict:
+    """The port's cache -> {segment: (k, v, pos)} numpy arrays with a
+    leading layer axis, in the JAX layout (k and v as fp32)."""
+    def segment(c):
+        return tuple(np.stack([getattr(layer, f).float().cpu().numpy()
+                               if f != "pos" else layer.pos.cpu().numpy()
+                               for layer in c]) for f in KVCache._fields)
+    return {"bottom": segment(cache["bottom"]["stack"]),
+            "top": segment(cache["top"]["stack"])}

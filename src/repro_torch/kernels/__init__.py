@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import clustering_loss as _cl
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 
@@ -21,6 +22,18 @@ def _route(x: torch.Tensor, name: str) -> str:
     if x.device.type in ("cuda", "cpu"):
         return x.device.type
     raise ValueError(f"{name}: no route for a tensor on {x.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """(B, H, Sq, hd) x (B, KVH, Skv, hd) -> (B, H, Sq, hd): forward GQA
+    attention, causal or not, with an optional sliding window.  On the card
+    any strides with a contiguous head dim go in, and the output has q's
+    layout."""
+    if _route(q, "flash_attention") == "cuda":
+        return _fa.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
 def clustering_loss(z: torch.Tensor, pseudo: torch.Tensor,
@@ -51,10 +64,10 @@ def quantize_dequantize(x: torch.Tensor, fmt: str, *,
 
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last reset."""
-    return {**_cl.LAUNCHES, **_q.LAUNCHES}
+    return {**_cl.LAUNCHES, **_q.LAUNCHES, **_fa.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_cl.LAUNCHES, _q.LAUNCHES):
+    for counts in (_cl.LAUNCHES, _q.LAUNCHES, _fa.LAUNCHES):
         for k in counts:
             counts[k] = 0

@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the port's kernels.
 
-The same maths as the JAX package's ``kernels/ref.py`` (``clustering_loss_ref``
-and ``quantize_dequantize_ref``), written in the most direct form: the full
-(B, Q) logit matrix, one amax per tensor or per leading slice.  The wrappers
+The same maths as the JAX package's ``kernels/ref.py`` (``flash_attention_ref``,
+``clustering_loss_ref`` and ``quantize_dequantize_ref``), written in the most
+direct form: the full (Sq, Skv) and (B, Q) logit matrices, one amax per
+tensor or per leading slice.  The wrappers
 in ``repro_torch.kernels`` take these for tensors on the CPU; the CUDA
 kernels are held against them on the card."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -13,6 +16,34 @@ NEG_INF = -1e30
 
 # qmax per wire format: int8 symmetric range; float8_e4m3fn finite max
 QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """q: (B, H, Sq, hd); k, v: (B, KVH, Skv, hd) -> (B, H, Sq, hd) in q's
+    dtype.  GQA by head grouping (kv head = q head // (H / KVH)); fp32
+    scores and softmax; causal is ``kv_pos <= q_pos``, the window
+    ``kv_pos > q_pos - window``, both counted from 0 on each side.  A row
+    that sees no key gives 0."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.float().reshape(b, kvh, g, sq, hd)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg,
+                          k.float()) / math.sqrt(hd)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    kv_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window:
+        mask &= kv_pos > q_pos - window
+    logits = logits.masked_fill(~mask, -math.inf)
+    w = torch.softmax(logits, dim=-1)
+    w = torch.where(mask.any(-1)[:, None], w, 0.0)
+    out = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
+    return out.reshape(b, h, sq, hd).to(q.dtype)
 
 
 def masked_contrastive(z: torch.Tensor, ref: torch.Tensor,

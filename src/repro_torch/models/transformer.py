@@ -1,0 +1,178 @@
+"""The dense split decoder LM (the JAX package's ``models/transformer.py``,
+``DecoderLM`` with dense MLP layers) and the port's model builder.
+
+Parameters are ``{"bottom": ..., "top": ...}`` from construction:
+
+  bottom = embeddings + the first ``cfg.split_layer`` blocks   (client)
+  top    = the remaining blocks + final norm + LM head          (server)
+
+Where JAX stacks a segment's layers on a leading axis and scans over them,
+the port keeps a list of per-layer parameter dicts (``"stack"``) and loops
+in Python; ``convert.lm_params_from_numpy`` unstacks the JAX tree.  MoE,
+MLA, the unscanned prefix layers, vision inputs and the long-context window
+override are not ported yet."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models.attention import (KVCache, apply_attention,
+                                          init_attention, init_kv_cache)
+from repro_torch.models.common import (apply_mlp, apply_norm, dense_init,
+                                       embed_init, init_mlp, init_norm)
+from repro_torch.models.rope import default_positions
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _lm_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["lm_head"]
+
+
+# ===========================================================================
+# Attention layer (dense MLP)
+# ===========================================================================
+
+def _init_attn_layer(cfg: ArchConfig, generator: torch.Generator,
+                     device: torch.device | str) -> dict:
+    dt = _dtype(cfg)
+    return {
+        "attn_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
+        "attn": init_attention(cfg, generator, device, dt),
+        "mlp_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
+        "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_gated, generator,
+                        device, dt),
+    }
+
+
+def _apply_attn_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+                      positions: torch.Tensor, mode: str,
+                      cache: Optional[KVCache]):
+    h = apply_norm(p["attn_norm"], x, cfg.norm)
+    attn_out, new_cache = apply_attention(p["attn"], cfg, h,
+                                          positions=positions, mode=mode,
+                                          cache=cache)
+    x = x + attn_out
+    h = apply_norm(p["mlp_norm"], x, cfg.norm)
+    return x + apply_mlp(p["mlp"], h, cfg.act, cfg.mlp_gated), new_cache
+
+
+def _run_attn_stack(stack: list, cfg: ArchConfig, x: torch.Tensor, *,
+                    positions: torch.Tensor, mode: str,
+                    caches: Optional[list]):
+    """Run x through a segment's layers in order; returns the new caches
+    (None without caches)."""
+    new_caches = [] if caches is not None else None
+    for i, p_i in enumerate(stack):
+        x, c = _apply_attn_layer(p_i, cfg, x, positions=positions, mode=mode,
+                                 cache=None if caches is None else caches[i])
+        if new_caches is not None:
+            new_caches.append(c)
+    return x, new_caches
+
+
+def _init_stacked_kv_cache(n: int, batch: int, max_len: int,
+                           cfg: ArchConfig, device: torch.device | str
+                           ) -> Optional[list]:
+    if n == 0:
+        return None
+    return [init_kv_cache(batch, max_len, cfg.num_kv_heads,
+                          cfg.resolved_head_dim, cfg.sliding_window or 0,
+                          _dtype(cfg), device) for _ in range(n)]
+
+
+# ===========================================================================
+# Model
+# ===========================================================================
+
+class DecoderLM:
+    """Decoder-only LM with dense layers, split at ``cfg.split_layer``."""
+
+    def __init__(self, cfg: ArchConfig):
+        if cfg.arch_type != "dense" or cfg.is_encoder_decoder \
+                or cfg.modality != "text":
+            raise NotImplementedError(
+                f"{cfg.name}: the port's DecoderLM takes dense text decoders "
+                "only")
+        self.cfg = cfg
+        self.split = cfg.split_layer
+
+    # -- init ---------------------------------------------------------------
+    def init(self, generator: torch.Generator,
+             device: torch.device | str) -> dict:
+        """Parameters drawn from ``generator`` (in fp32 on its device), in
+        ``cfg.dtype`` on ``device``."""
+        cfg = self.cfg
+        dt = _dtype(cfg)
+        n_b, n_t = self.split, cfg.num_layers - self.split
+        bottom = {"embed": embed_init(cfg.vocab_size, cfg.d_model, generator,
+                                      device, dt),
+                  "stack": [_init_attn_layer(cfg, generator, device)
+                            for _ in range(n_b)]}
+        top = {"stack": [_init_attn_layer(cfg, generator, device)
+                         for _ in range(n_t)],
+               "final_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
+               "lm_head": dense_init(cfg.d_model, cfg.vocab_size, generator,
+                                     device, dt)}
+        return {"bottom": bottom, "top": top}
+
+    # -- caches ---------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int,
+                   device: torch.device | str) -> dict:
+        cfg = self.cfg
+        n_b, n_t = self.split, cfg.num_layers - self.split
+        return {
+            "bottom": {"stack": _init_stacked_kv_cache(n_b, batch, max_len,
+                                                       cfg, device)},
+            "top": {"stack": _init_stacked_kv_cache(n_t, batch, max_len, cfg,
+                                                    device)},
+        }
+
+    # -- positions -------------------------------------------------------------
+    def _positions(self, batch_inputs: dict, b: int, s: int,
+                   device: torch.device) -> torch.Tensor:
+        if "positions" in batch_inputs:
+            return batch_inputs["positions"]
+        off = batch_inputs.get("pos", 0)
+        return default_positions(s, off, device).expand(b, s)
+
+    # -- apply -------------------------------------------------------------
+    def bottom_apply(self, params: dict, batch_inputs: dict, *,
+                     mode: str = "train", cache: Optional[dict] = None):
+        """Client side: embed the tokens and run the bottom layers.
+        Returns (features, new cache, extras for ``top_apply``)."""
+        tokens = batch_inputs["tokens"]
+        b, s = tokens.shape
+        x = params["embed"][tokens]
+        positions = self._positions(batch_inputs, b, s, tokens.device)
+        cache = cache or {"stack": None}
+        x, new_stack_cache = _run_attn_stack(
+            params["stack"], self.cfg, x, positions=positions, mode=mode,
+            caches=cache.get("stack"))
+        return x, {"stack": new_stack_cache}, {"positions": positions}
+
+    def top_apply(self, params: dict, features: torch.Tensor, *,
+                  extras: dict, mode: str = "train",
+                  cache: Optional[dict] = None):
+        """Server side: the top layers, the final norm and the LM head."""
+        cfg = self.cfg
+        cache = cache or {"stack": None}
+        x, new_stack_cache = _run_attn_stack(
+            params["stack"], cfg, features, positions=extras["positions"],
+            mode=mode, caches=cache.get("stack"))
+        x = apply_norm(params["final_norm"], x, cfg.norm)
+        out = {"logits": _lm_logits(params, x)}
+        return out, {"stack": new_stack_cache}
+
+
+def build_model(cfg: ArchConfig):
+    """The model class of ``cfg``: the paper's CNNs and the dense decoder
+    LMs are ported; the other families raise."""
+    if cfg.arch_type == "cnn":
+        from repro_torch.models.cnn import CNNModel
+        return CNNModel(cfg)
+    return DecoderLM(cfg)

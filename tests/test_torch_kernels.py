@@ -6,9 +6,11 @@ On the CPU the port's wrappers take the kernels' plain versions
 on the same numpy inputs.  The CUDA kernels themselves are held against the
 same plain versions on the card by ``chip_smoke.py``.
 
-Tolerances: the clustering loss to 1e-4 and dz to atol 5e-5 / rtol 2e-3,
-as tests/test_kernels.py holds the Pallas kernel (the sum over the queue
-runs in another order); the quantizer bit for bit."""
+Tolerances: flash attention to 2e-4 in fp32 and 3e-2 in bf16, the
+reference suite's ``TOLS`` (tests/test_kernels.py); the clustering loss to
+1e-4 and dz to atol 5e-5 / rtol 2e-3, as tests/test_kernels.py holds the
+Pallas kernel (the sum over the queue runs in another order); the quantizer
+bit for bit."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,13 +20,118 @@ import torch
 from repro.core.wire import quantize_grad as jax_quantize_grad
 from repro.kernels import ref as jref
 from repro.kernels.clustering_loss import clustering_loss_pallas
+from repro.kernels.flash_attention import flash_attention as flash_pallas
 from repro.kernels.quantize import quantize_dequantize_pallas
+from repro.models.attention import _chunked_attend
 from repro_torch import kernels
 from repro_torch.core.wire import quantize_grad
 from repro_torch.kernels import ref as tref
 
+FLASH_TOLS = {"float32": 2e-4, "bfloat16": 3e-2}
+
+# tests/test_kernels.py's flash-attention sweep: (b, h, kvh, s, hd)
+FLASH_SHAPES = [(1, 2, 1, 128, 64), (2, 4, 2, 256, 64), (1, 8, 8, 256, 128),
+                (2, 8, 2, 384, 80), (1, 4, 4, 256, 112)]
+
 CLUSTER_SHAPES = [(16, 64, 16, 4), (64, 256, 32, 10), (100, 512, 64, 7),
                   (32, 1000, 128, 4)]
+
+
+def _flash_case(b, h, kvh, sq, skv, hd, dtype, seed):
+    rng = np.random.RandomState(seed)
+    arrs = (rng.randn(b, h, sq, hd), rng.randn(b, kvh, skv, hd),
+            rng.randn(b, kvh, skv, hd))
+    jarrs = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    # the same rounded values on both sides
+    tarrs = [torch.from_numpy(np.array(a, np.float32)).to(
+        getattr(torch, dtype)) for a in jarrs]
+    return jarrs, tarrs
+
+
+def _check_flash(jarrs, tarrs, dtype, *, causal=True, window=0,
+                 pallas=True):
+    got = kernels.flash_attention(*tarrs, causal=causal, window=window)
+    assert got.dtype == tarrs[0].dtype
+    got = got.float().numpy()
+    tol = FLASH_TOLS[dtype]
+    want = [jref.flash_attention_ref(*jarrs, causal=causal, window=window)]
+    if pallas:
+        want.append(flash_pallas(*jarrs, causal=causal, window=window,
+                                 interpret=True))
+    for w in want:
+        np.testing.assert_allclose(got, np.asarray(w, np.float32), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("b,h,kvh,s,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_jax(b, h, kvh, s, hd, dtype):
+    """The plain version against the JAX reference and the Pallas kernel
+    in interpret mode, at tests/test_kernels.py's shapes."""
+    jarrs, tarrs = _flash_case(b, h, kvh, s, s, hd, dtype, b * 31 + h)
+    _check_flash(jarrs, tarrs, dtype)
+
+
+@pytest.mark.parametrize("window", [64, 128, 4096])
+def test_flash_attention_window_matches_jax(window):
+    jarrs, tarrs = _flash_case(1, 2, 2, 256, 256, 64, "float32", window)
+    _check_flash(jarrs, tarrs, "float32", window=window)
+
+
+def test_flash_attention_non_causal_matches_jax():
+    jarrs, tarrs = _flash_case(2, 2, 2, 128, 256, 64, "float32", 7)
+    _check_flash(jarrs, tarrs, "float32", causal=False)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (200, 200, True, 0), (77, 300, False, 0), (1000, 1000, True, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_ragged_group5_matches_jax(sq, skv, causal, window,
+                                                   dtype):
+    """Qwen3-14B's group of 5 query heads per KV head, at lengths that are
+    no multiple of a tile (the Pallas kernel does not take them; the CUDA
+    kernel does), against the JAX reference."""
+    jarrs, tarrs = _flash_case(1, 10, 2, sq, skv, 64, dtype, sq + skv)
+    _check_flash(jarrs, tarrs, dtype, causal=causal, window=window,
+                 pallas=False)
+
+
+def test_flash_attention_fully_masked_rows_are_zero():
+    """A row that sees no key gives 0, on both sides: causal over 16 keys
+    with a window of 8, rows 23 and later see none (key j needs
+    i - 8 < j <= i and j < 16)."""
+    jarrs, tarrs = _flash_case(1, 2, 1, 64, 16, 32, "float32", 3)
+    got = kernels.flash_attention(*tarrs, causal=True, window=8)
+    assert float(got[:, :, 23:].abs().max()) == 0.0
+    assert float(got[:, :, :23].abs().amax(dim=-1).min()) > 0.0
+    _check_flash(jarrs, tarrs, "float32", window=8, pallas=False)
+
+
+@pytest.mark.parametrize("s,kvh,window", [(300, 4, 0), (512, 2, 0),
+                                          (512, 2, 200)])
+def test_chunked_attend_matches_the_plain_version(s, kvh, window):
+    """The JAX model's stand-in ``_chunked_attend`` (1 and 2 q-chunks), in
+    its (B, S, H, hd) layout, against the plain version transposed to it,
+    in fp32."""
+    rng = np.random.RandomState(s + kvh)
+    q = rng.randn(2, s, 4, 64).astype(np.float32)
+    k = rng.randn(2, s, kvh, 64).astype(np.float32)
+    v = rng.randn(2, s, kvh, 64).astype(np.float32)
+    want = _chunked_attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=True, window=window)
+    t = lambda a: torch.from_numpy(a).transpose(1, 2)
+    got = tref.flash_attention_ref(t(q), t(k), t(v), causal=True,
+                                   window=window).transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=2e-4)
+
+
+def test_flash_cuda_wrapper_refuses_cpu_tensors():
+    from importlib import import_module
+    fa = import_module("repro_torch.kernels.flash_attention")
+    x = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention_cuda(x, x, x)
 
 
 def _cluster_case(b, q, d, m, seed):
@@ -142,9 +249,14 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(kernels.quantize_dequantize(x, "int8", per_slice=True),
                        tref.quantize_dequantize_ref(x, "int8",
                                                     per_slice=True))
+    q = torch.randn(1, 4, 16, 32)
+    k = torch.randn(1, 2, 16, 32)
+    assert torch.equal(kernels.flash_attention(q, k, k),
+                       tref.flash_attention_ref(q, k, k))
     assert all(v == 0 for v in kernels.launch_counts().values())
     assert set(kernels.launch_counts()) == {
-        "clustering_fwd", "clustering_bwd", "quantize_amax", "quantize_qdq"}
+        "clustering_fwd", "clustering_bwd", "quantize_amax", "quantize_qdq",
+        "flash_attention"}
 
 
 def test_wrappers_refuse_other_devices():

@@ -72,8 +72,9 @@ def test_importing_the_port_loads_no_jax():
 def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the rule is for its absence")
-    from repro_torch.configs import smoke_config
+    from repro_torch.configs import get_config, smoke_config
     from repro_torch.core.engine import SemiSFLSystem
+    from repro_torch.launch.serve import serve, serve_config
     from repro_torch.launch.train import run_training
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_training("paper-cnn", rounds=1, device="cuda")
@@ -81,6 +82,10 @@ def test_cuda_entry_points_raise_without_a_card():
         run_training("paper-cnn", rounds=1)          # the default is cuda
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SemiSFLSystem(smoke_config("paper-cnn"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve("qwen3-14b")                           # the default is cuda
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_config(get_config("qwen3-14b"), device="cuda")
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
