@@ -14,10 +14,12 @@ Phases, in order; any failure exits nonzero:
      empty queue and the training round's shape; int8/fp8 quantization bit
      for bit; flash attention at the JAX kernel tests' shapes, windows and
      non-causal case, at ragged lengths, with 5 query heads per KV head and
-     at Qwen3-14B's prefill shape), and time kernel, plain version and,
-     where one exists, the one PyTorch call that computes the same function
-     (the quantizer's versions on inputs read from HBM, as its bound
-     assumes);
+     at Qwen3-14B's prefill shape; the sLSTM scan, h and final state, at
+     the JAX kernel tests' shapes, at S = 1, from a non-fresh state, at the
+     xLSTM smoke shape and at xLSTM-1.3B's prefill shape), and time kernel,
+     plain version and, where one exists, the one PyTorch call that
+     computes the same function (the quantizer's versions on inputs read
+     from HBM, as its bound assumes);
   4. the first path: ``repro_torch.launch.train.run_training("paper-cnn",
      smoke=False, device="cuda")`` at the full config, 150 rounds with the
      ``int8+topk0.05`` wire, long enough for the teacher to become
@@ -31,12 +33,20 @@ Phases, in order; any failure exits nonzero:
   7. the second path: split-inference serving of the full Qwen3-14B
      (``repro_torch.launch.serve.serve_config``: 40 layers, width 5120,
      bf16, weights drawn on the card from seed 0), batch 4, a 2048-token
-     prompt, 32 greedy tokens, with the launch counts read just after, then
-     the same run again under ``torch.profiler``;
+     prompt, 32 greedy tokens, with its parameters counted first and the
+     launch counts read after the prefill and after the decode, then the
+     same run again under ``torch.profiler``;
   8. card against CPU on the serving path: the same fp32 weights of a
      2-layer Qwen3-14B at full width, one prefill of 256 tokens and 4
      decode steps on each;
-  9. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
+  9. the third path: split-inference serving of the full xLSTM-1.3B
+     (``serve_config``: 48 blocks in 6 groups of 7 mLSTM + 1 sLSTM, width
+     2048, bf16 with the fp32 sLSTM weights, weights drawn on the card from
+     seed 0), as phase 7;
+ 10. card against CPU on the xLSTM path: the same fp32 weights of a
+     4-block xLSTM-1.3B at full width (sLSTM every 2 blocks, split 1 + 1
+     group), one prefill of 256 tokens and 4 decode steps on each;
+ 11. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
 
 Needs one CUDA card, ``nvcc`` and this checkout's ``src/``; imports nothing
 of JAX."""
@@ -88,6 +98,20 @@ FLASH_CASES = [
     (1, 4, 2, 33, 33, 32, True, 16)]
 # the reference suite's TOLS (tests/test_kernels.py)
 FLASH_TOLS = {"float32": 2e-4, "bfloat16": 3e-2}
+
+# the sLSTM scan against its plain version: (b, s, nh, hd, from a given
+# state, forget bias).  The JAX kernel tests' shapes, S = 1, a non-fresh
+# state, the xLSTM smoke model's shape (4 heads of 64) and xLSTM-1.3B's
+# prefill shape (4 heads of 512 over the 2048-token prompt), the last two
+# with the model's forget-gate bias of 3, under which the stabilizer m grows
+# by about 3 a step.
+SLSTM_CASES = [(2, 64, 2, 32, False, 0.0), (1, 128, 4, 64, False, 0.0),
+               (2, 96, 2, 64, False, 0.0), (2, 1, 2, 64, True, 0.0),
+               (2, 64, 2, 32, True, 0.0), (4, 256, 4, 64, True, 3.0),
+               (SERVE_BATCH, SERVE_PROMPT, 4, 512, False, 3.0)]
+# as tests/test_kernels.py holds the Pallas kernel: the recurrent product
+# sums in another order
+SLSTM_TOL = dict(atol=1e-5, rtol=1e-4)
 
 
 def fail(msg: str) -> None:
@@ -458,6 +482,78 @@ def phase_flash(card: str) -> dict:
     return {"err": err, "timing": t}
 
 
+def _slstm_inputs(b, s, nh, hd, with_state, f_bias, seed):
+    """wx as the model holds it, a (B, S, 4d) tensor viewed as (B, S, 4,
+    nh, hd); r as the model draws it; a non-fresh state or None."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    wx = (randn(b, s, 4 * nh * hd) * 0.5).view(b, s, 4, nh, hd)
+    wx[:, :, 2] += f_bias
+    r = randn(nh, hd, 4 * hd) / hd ** 0.5
+    state = None
+    if with_state:
+        state = (torch.tanh(randn(b, nh, hd)), randn(b, nh, hd),
+                 torch.rand(b, nh, hd, generator=gen, device="cuda") * 2 + 0.5,
+                 randn(b, nh, hd) * 2)
+    return wx, r, state
+
+
+def phase_slstm(card: str) -> dict:
+    """The sLSTM scan against its plain version on the card, h and the
+    final (h, c, n, m), then timed at xLSTM-1.3B's prefill shape.  The
+    stabilizer m is a running sum (about 3 a step under the model's forget
+    bias), so its error is shown beside its size; the row's max_abs_err is
+    over h and the final h, c and n, whose size is about 1."""
+    import torch
+
+    from repro_torch.kernels import ref
+    sl = importlib.import_module("repro_torch.kernels.slstm_scan")
+    err = 0.0
+    for i, (b, s, nh, hd, with_state, f_bias) in enumerate(SLSTM_CASES):
+        wx, r, state = _slstm_inputs(b, s, nh, hd, with_state, f_bias, 20 + i)
+        got = sl.slstm_scan_cuda(wx, r, state)
+        want = ref.slstm_scan_ref(wx, r, state)
+        torch.cuda.synchronize()
+        outs = zip(("h", "h_T", "c_T", "n_T", "m_T"), (got[0], *got[1]),
+                   (want[0], *want[1]))
+        errs = {}
+        for name, g, w in outs:
+            errs[name] = float((g - w).abs().max())
+            if not torch.allclose(g, w, **SLSTM_TOL):
+                fail(f"slstm scan ({b}, {s}, {nh}, {hd}) state={with_state}: "
+                     f"{name} differs from the plain version by "
+                     f"{errs[name]}")
+        print(f"[kernels] slstm ({b}, {s}, 4, {nh}, {hd}) from "
+              f"{'a given' if with_state else 'the zero'} state, forget bias "
+              f"{f_bias}: max|err| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f" (max|m_T| {float(want[1][3].abs().max()):.4g}; tol "
+              f"atol {SLSTM_TOL['atol']} rtol {SLSTM_TOL['rtol']})")
+        err = max(err, *(errs[k] for k in ("h", "h_T", "c_T", "n_T")))
+
+    # the serving path's shape, from its last case's inputs
+    b, s, nh, hd = wx.shape[0], wx.shape[1], wx.shape[3], wx.shape[4]
+    n_bytes = (wx.numel() + r.numel() + b * s * nh * hd + 4 * b * nh * hd) * 4
+    n_flops = 2 * b * s * nh * hd * 4 * hd
+    t = dict(
+        ms=time_ms(lambda: sl.slstm_scan_cuda(wx, r), iters=5, warmup=1),
+        plain_ms=time_ms(lambda: ref.slstm_scan_ref(wx, r), iters=2,
+                         warmup=1),
+        library_ms=None,
+        bound=bound_ms(n_bytes, n_flops))
+    print(f"[timing] slstm_scan at wx {tuple(wx.shape)} fp32 "
+          f"({n_flops:.4g} operations, {n_bytes / 1e6:.1f} MB): kernel "
+          f"{t['ms'][0]:.4f} ms (events {t['ms'][1]:.4f}), plain "
+          f"{t['plain_ms'][0]:.4f} ms (events {t['plain_ms'][1]:.4f}), "
+          f"library n/a (no single PyTorch call), bound {t['bound'][0]:.4f} "
+          f"ms ({t['bound'][1]}); kernel at "
+          f"{n_flops / t['ms'][0] / 1e9:.1f} GFLOP/s on {card}")
+    for key in ("ms", "plain_ms"):
+        t[key] = t[key][0]
+    return {"err": err, "timing": t}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -632,81 +728,126 @@ def phase_profile(card: str, trained) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 7-8: serving Qwen3-14B
+# phases 7-10: serving Qwen3-14B and xLSTM-1.3B
 # ---------------------------------------------------------------------------
 
-def _serve_full(log):
+# each serving path: arch -> (its ported kernel's count and profiler name,
+# the config cut in depth for the card-vs-CPU check, the log tag)
+SERVE_PATHS = {
+    "qwen3-14b": ("flash_attention", "flash_kernel",
+                  lambda cfg: replace(cfg, num_layers=2), "serve-qwen3"),
+    "xlstm-1.3b": ("slstm_scan", "slstm_scan_kernel",
+                   lambda cfg: replace(cfg, num_layers=4, xlstm=replace(
+                       cfg.xlstm, slstm_period=2)), "serve-xlstm"),
+}
+
+
+def _launches_per_prefill(cfg) -> int:
+    """The ported kernel runs once per attention layer (Qwen3) or once per
+    sLSTM block (xLSTM) in a prefill."""
+    return (cfg.num_layers // cfg.xlstm.slstm_period if cfg.xlstm
+            else cfg.num_layers)
+
+
+def _serve_full(arch: str, log):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_config
-    return serve_config(get_config("qwen3-14b"), SERVE_BATCH, SERVE_PROMPT,
+    return serve_config(get_config(arch), SERVE_BATCH, SERVE_PROMPT,
                         SERVE_TOKENS, seed=0, device="cuda", log=log)
 
 
-def phase_serve(card: str) -> dict:
-    """The full Qwen3-14B through the port's serving entry point, with every
-    kernel's launch count set to 0 just before and read just after."""
+def phase_serve(card: str, arch: str) -> dict:
+    """The full model through the port's serving entry point: its
+    parameters counted first, the previous path's memory freed and the
+    peak-memory counter reset, every kernel's launch count set to 0 just
+    before the run and read once the prefill has been logged and again
+    just after.  The path's kernel must run once per layer (Qwen3) or sLSTM
+    block (xLSTM) in the prefill and never in decode."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    cfg = get_config("qwen3-14b")
+    from repro_torch.models.transformer import build_model
+    from repro_torch.tree import tree_leaves
+    kernel, _, _, tag = SERVE_PATHS[arch]
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    weights = tree_leaves(model.init(torch.Generator("cuda").manual_seed(0),
+                                     "cuda"))
+    print(f"[{tag}] {arch} as the model builds it: "
+          f"{sum(t.numel() for t in weights) / 1e9:.4f} B parameters, "
+          f"{sum(t.numel() * t.element_size() for t in weights) / 2**30:.3f}"
+          f" GiB")
+    del weights
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    after_log = []
+
+    def log(msg):
+        after_log.append(launch_counts())
+        print(f"[{tag}] {msg}")
     t0 = time.perf_counter()
     reset_launch_counts()
-    res = _serve_full(lambda m: print(f"[serve] {m}"))
+    res = _serve_full(arch, log)
     launches = launch_counts()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     toks = res.tokens
-    print(f"[serve] qwen3-14b at full width, {cfg.num_layers} layers "
-          f"(split {cfg.split_layer} + {cfg.num_layers - cfg.split_layer}), "
-          f"bf16, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
-          f"{SERVE_TOKENS} tokens: prefill {res.prefill_s:.6f} s "
+    prefill_n = after_log[0][kernel]
+    decode_n = launches[kernel] - prefill_n
+    print(f"[{tag}] {arch} at full width, {cfg.num_layers} layers (split "
+          f"{model.split} + {cfg.num_layers - model.split}), {cfg.dtype}, "
+          f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_TOKENS} "
+          f"tokens: prefill {res.prefill_s:.6f} s "
           f"({SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.1f} prompt tok/s), "
           f"decode {SERVE_TOKENS - 1} steps in {res.decode_s:.6f} s "
           f"({(SERVE_TOKENS - 1) * SERVE_BATCH / res.decode_s:.1f} tok/s, "
           f"{res.decode_s / (SERVE_TOKENS - 1) * 1e3:.3f} ms per step), "
           f"{wall:.2f} s with weight init; peak device memory "
           f"{peak / 2**30:.2f} GiB; on {card}")
-    print(f"[serve] launches on the serving path: {launches}; flash "
-          f"attention launches per prefill {launches['flash_attention']}")
-    print(f"[serve] tokens of sequence 0: {toks[0].tolist()}")
+    print(f"[{tag}] launches on the serving path: {launches}; {kernel} "
+          f"launches in the prefill {prefill_n}, in the {SERVE_TOKENS - 1} "
+          f"decode steps {decode_n}")
+    print(f"[{tag}] tokens of sequence 0: {toks[0].tolist()}")
     if not bool(torch.isfinite(res.logits.float()).all()):
-        fail("serving gave non-finite prefill logits")
+        fail(f"serving {arch} gave non-finite prefill logits")
     if toks.shape != (SERVE_BATCH, SERVE_TOKENS) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
-        fail(f"serving gave tokens of shape {toks.shape} in "
+        fail(f"serving {arch} gave tokens of shape {toks.shape} in "
              f"[{toks.min()}, {toks.max()}]")
-    if launches["flash_attention"] != cfg.num_layers:
-        fail(f"one prefill launched flash attention "
-             f"{launches['flash_attention']} times, want {cfg.num_layers}")
+    want = _launches_per_prefill(cfg)
+    if prefill_n != want or decode_n != 0:
+        fail(f"serving {arch} launched {kernel} {prefill_n} times in the "
+             f"prefill and {decode_n} in decode, want {want} and 0")
     return launches
 
 
-def phase_serve_profile(card: str) -> None:
+def phase_serve_profile(card: str, arch: str) -> None:
     """The same serving run under ``torch.profiler``: device busy time,
     idle share and device time by kernel, for the whole run and for each
     of its two spans (``serve.prefill``, ``serve.decode``: device ops are
-    assigned to the span in which they start)."""
+    assigned to the span in which they start), with the share of each
+    span's device time in the path's ported kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    _, kernel, _, tag = SERVE_PATHS[arch]
+    tag += "-profile"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = _serve_full(lambda _: None)
+        res = _serve_full(arch, lambda _: None)
         wall = time.perf_counter() - t0
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
                       and not e.key.startswith("serve.")),
                      key=_dev_us, reverse=True)
     busy = sum(_dev_us(e) for e in kernels) / 1e6
-    flash = sum(_dev_us(e) for e in kernels if "flash_kernel" in e.key) / 1e6
-    print(f"[serve-profile] under the profiler: prefill {res.prefill_s:.6f} "
+    ours = sum(_dev_us(e) for e in kernels if kernel in e.key) / 1e6
+    print(f"[{tag}] under the profiler: prefill {res.prefill_s:.6f} "
           f"s, decode {res.decode_s:.6f} s, serve_config {wall:.6f} s "
           f"(weight init included); device busy {busy:.6f} s (idle share "
-          f"{1 - busy / wall:.4f} of serve_config's wall); flash attention "
-          f"{flash:.6f} s; {sum(e.count for e in kernels)} device ops; on "
+          f"{1 - busy / wall:.4f} of serve_config's wall); {kernel} "
+          f"{ours:.6f} s; {sum(e.count for e in kernels)} device ops; on "
           f"{card}")
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA
@@ -723,47 +864,64 @@ def phase_serve_profile(card: str) -> None:
             acc = by_name.setdefault(e.name, [0.0, 0])
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
-        print(f"[serve-profile] span {span}: host {span_wall:.6f} s, "
+        span_ours = sum(ms for name, (ms, _) in by_name.items()
+                        if kernel in name) / 1e3
+        print(f"[{tag}] span {span}: host {span_wall:.6f} s, "
               f"device busy {span_busy:.6f} s (idle share "
-              f"{1 - span_busy / span_wall:.4f}), {len(inside)} device ops")
+              f"{1 - span_busy / span_wall:.4f}), {len(inside)} device ops; "
+              f"{kernel} {span_ours:.6f} s "
+              f"({span_ours / max(span_busy, 1e-12):.4f} of the device time)")
         for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
-                                    )[:6]:
-            print(f"[serve-profile]   {span} device {ms:10.3f} ms x{n:<6d} "
+                                    )[:8]:
+            print(f"[{tag}]   {span} device {ms:10.3f} ms x{n:<6d} "
                   f"{name[:90]}")
 
 
-def phase_lm_cross_check() -> None:
-    """One prefill of 256 tokens and 4 decode steps of a 2-layer Qwen3-14B
-    at full width, in fp32 with TF32 off, on the card and on the CPU from
-    the same weights (drawn on the card, copied to the CPU).  cuBLAS and
-    the CPU sum in other orders and the flash kernel against its plain
-    version too, so the logits are held to 1e-3 (phase 5's tolerance); the
-    greedy tokens must be equal."""
+def phase_serve_cross_check(arch: str) -> None:
+    """One prefill of 256 tokens and 4 decode steps of the model cut in
+    depth (Qwen3-14B to 2 layers; xLSTM-1.3B to 4 blocks with an sLSTM
+    block every 2, so 2 groups split 1 + 1) at full width, in fp32 with
+    TF32 off, on the card and on the CPU from the same weights (drawn on
+    the card, copied to the CPU).  cuBLAS and the CPU sum in other orders
+    and the path's kernel against its plain version too, so the logits
+    are held to 1e-3 (phase 5's tolerance); the greedy tokens must be
+    equal, and the card's prefill must run the kernel once per layer or
+    sLSTM block."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import serve_config
-    from repro_torch.models.transformer import DecoderLM
-    from repro_torch.tree import tree_map
-    cfg = replace(get_config("qwen3-14b"), num_layers=2, dtype="float32")
-    params = DecoderLM(cfg).init(torch.Generator("cuda").manual_seed(1),
-                                 "cuda")
+    from repro_torch.models.transformer import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    kernel, _, cut, tag = SERVE_PATHS[arch]
+    cfg = replace(cut(get_config(arch)), dtype="float32")
+    params = build_model(cfg).init(torch.Generator("cuda").manual_seed(1),
+                                   "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
     kw = dict(batch=2, prompt_len=256, gen_tokens=5, seed=0,
               log=lambda _: None)
     t0 = time.perf_counter()
+    reset_launch_counts()
     gpu = serve_config(cfg, params=params, device="cuda", **kw)
+    n_kernel = launch_counts()[kernel]
     cpu = serve_config(cfg, params=tree_map(lambda t: t.cpu(), params),
                        device="cpu", **kw)
     del params
     err = float((gpu.logits.cpu() - cpu.logits).abs().max())
     same = bool((gpu.tokens == cpu.tokens).all())
-    print(f"[cross-lm] qwen3-14b width 5120, 2 layers, fp32: card vs CPU "
+    print(f"[cross-{tag}] {arch} width {cfg.d_model}, {cfg.num_layers} "
+          f"layers, {n_params / 1e9:.3f} B parameters, fp32: card vs CPU "
           f"last-position logits max|err| {err:.3g} (max|logit| "
           f"{float(cpu.logits.abs().max()):.3g}); greedy tokens equal: "
-          f"{same} {gpu.tokens.tolist()}; {time.perf_counter() - t0:.1f} s")
+          f"{same} {gpu.tokens.tolist()}; {kernel} launches on the card "
+          f"{n_kernel}; {time.perf_counter() - t0:.1f} s")
+    if n_kernel != _launches_per_prefill(cfg):
+        fail(f"the card's {arch} prefill launched {kernel} {n_kernel} "
+             f"times, want {_launches_per_prefill(cfg)}")
     if not (torch.allclose(gpu.logits.cpu(), cpu.logits, atol=1e-3,
                            rtol=1e-3) and same):
-        fail("the card and the CPU disagree on the serving path")
+        fail(f"the card and the CPU disagree on the {arch} serving path")
 
 
 KERNEL_META = {
@@ -777,6 +935,8 @@ KERNEL_META = {
                      "src/repro/kernels/quantize.py:88"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:105"),
+    "slstm_scan": ("src/repro_torch/csrc/slstm_scan.cu",
+                   "src/repro/kernels/slstm_scan.py:77"),
 }
 TRAIN_KERNELS = ("clustering_fwd", "clustering_bwd", "quantize_amax",
                  "quantize_qdq")
@@ -789,12 +949,20 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    t0 = time.perf_counter()
+    lap = lambda what: print(f"[clock] {what} done at "
+                             f"{time.perf_counter() - t0:.1f} s")
     card = phase_device()
     phase_build()
+    lap("build")
     checked = phase_kernels(card)
     flash = phase_flash(card)
     checked["errs"]["flash_attention"] = flash["err"]
     checked["timings"]["flash_attention"] = flash["timing"]
+    slstm = phase_slstm(card)
+    checked["errs"]["slstm_scan"] = slstm["err"]
+    checked["timings"]["slstm_scan"] = slstm["timing"]
+    lap("kernel checks")
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     reset_launch_counts()
@@ -808,11 +976,14 @@ def main() -> int:
     phase_cross_check(runs["fp32"][0], system)
     phase_profile(card, trained)
     del runs, trained, system
+    lap("training path")
 
-    # the serving path reads its own counts, set to 0 just before it
-    launches["flash_attention"] = phase_serve(card)["flash_attention"]
-    phase_serve_profile(card)
-    phase_lm_cross_check()
+    # each serving path reads its own counts, set to 0 just before it
+    for arch, (kernel, *_) in SERVE_PATHS.items():
+        launches[kernel] = phase_serve(card, arch)[kernel]
+        phase_serve_profile(card, arch)
+        phase_serve_cross_check(arch)
+        lap(f"{arch} serving path")
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -1,16 +1,29 @@
-"""Configurations of the paper's CNN family and of the dense decoder LMs,
-for the PyTorch port.
+"""Configurations of the paper's CNN family, the dense decoder LMs and
+xLSTM, for the PyTorch port.
 
-A copy of what the CNN classification rig and the dense LM serving path
-read from the JAX package's ``configs/base.py`` (``SemiSFLConfig``, the CNN
-and dense-LM fields of ``ArchConfig``, ``get_config`` and the CNN and
-dense-LM branches of ``smoke_config``), of ``configs/paper_models.py`` and
-of ``configs/qwen3_14b.py``.  The port keeps its own copy so that it
+A copy of what the CNN classification rig and the LM serving paths read
+from the JAX package's ``configs/base.py`` (``SemiSFLConfig``,
+``XLSTMConfig``, the CNN, dense-LM and xLSTM fields of ``ArchConfig``,
+``get_config`` and the CNN, dense-LM and xLSTM branches of
+``smoke_config``), of ``configs/paper_models.py``, ``configs/qwen3_14b.py``
+and ``configs/xlstm_1_3b.py``.  The port keeps its own copy so that it
 imports nothing of the JAX package."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block-stack configuration (mLSTM + periodic sLSTM)."""
+
+    # one sLSTM block every `slstm_period` blocks (the rest are mLSTM);
+    # xLSTM[7:1] from the paper -> period 8.
+    slstm_period: int = 8
+    mlstm_proj_factor: float = 2.0
+    slstm_ff_factor: float = 4.0 / 3.0
+    mlstm_head_dim: int = 512  # qk head dim after expansion / num_heads
 
 
 @dataclass(frozen=True)
@@ -35,11 +48,12 @@ class SemiSFLConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """The CNN and dense-LM fields of the JAX package's ``ArchConfig``."""
+    """The CNN, dense-LM and xLSTM fields of the JAX package's
+    ``ArchConfig``."""
 
     name: str
     num_layers: int
-    arch_type: str = "cnn"              # cnn | dense
+    arch_type: str = "cnn"              # cnn | dense | ssm
     # --- dense decoder LM ----------------------------------------------------
     d_model: int = 0
     num_heads: int = 0
@@ -56,6 +70,9 @@ class ArchConfig:
     norm: str = "rmsnorm"               # rmsnorm | layernorm
     act: str = "silu"                   # silu | gelu | relu
     mlp_gated: bool = True              # SwiGLU-style gate
+    # --- block-stack structure -------------------------------------------------
+    block_kind: str = "attn"            # attn | xlstm
+    xlstm: Optional[XLSTMConfig] = None
     dtype: str = "bfloat16"
     modality: str = "text"
     is_encoder_decoder: bool = False
@@ -111,6 +128,15 @@ _REGISTRY = {c.name: c for c in (
                d_model=5120, num_heads=40, num_kv_heads=8, head_dim=128,
                d_ff=17408, vocab_size=151936, qk_norm=True, attn_bias=False,
                rope_theta=1_000_000.0),
+    # xLSTM-1.3B (arXiv:2405.04517): 48 blocks, one sLSTM every 8, the rest
+    # mLSTM; d_ff 0, the blocks carry their own up-projections
+    ArchConfig(name="xlstm-1.3b", arch_type="ssm", num_layers=48,
+               d_model=2048, num_heads=4, num_kv_heads=4, head_dim=512,
+               d_ff=0, vocab_size=50304, block_kind="xlstm",
+               xlstm=XLSTMConfig(slstm_period=8, mlstm_proj_factor=2.0,
+                                 slstm_ff_factor=4.0 / 3.0,
+                                 mlstm_head_dim=512),
+               rope_kind="none", norm="layernorm", act="gelu"),
 )}
 
 
@@ -121,9 +147,9 @@ def get_config(name: str) -> ArchConfig:
 
 
 def smoke_config(name: str) -> ArchConfig:
-    """Reduced same-family variant for CPU tests (the CNN and dense-LM
-    branches of the JAX package's ``smoke_config``: 2 layers, d_model <=
-    256, vocab <= 512)."""
+    """Reduced same-family variant for CPU tests (the CNN, dense-LM and
+    xLSTM branches of the JAX package's ``smoke_config``: 2 layers, or one
+    mLSTM/sLSTM group of 4 for xLSTM, d_model <= 256, vocab <= 512)."""
     cfg = get_config(name)
     if cfg.arch_type != "cnn":
         d_model = min(cfg.d_model, 256)
@@ -131,8 +157,7 @@ def smoke_config(name: str) -> ArchConfig:
         n_kv = max(1, min(cfg.num_kv_heads, n_heads))
         if n_heads % n_kv:
             n_kv = 1
-        return replace(
-            cfg,
+        kw = dict(
             name=cfg.name + "-smoke",
             num_layers=2,
             d_model=d_model,
@@ -144,6 +169,11 @@ def smoke_config(name: str) -> ArchConfig:
             semisfl=replace(cfg.semisfl, split_layer=1, queue_len=64,
                             proj_dim=16, proj_hidden=32, k_s_init=2, k_u=2),
         )
+        if cfg.xlstm is not None:
+            kw["xlstm"] = replace(cfg.xlstm, slstm_period=2,
+                                  mlstm_head_dim=64)
+            kw["num_layers"] = 4
+        return replace(cfg, **kw)
     return replace(
         cfg,
         name=cfg.name + "-smoke",

@@ -6,7 +6,10 @@ change layout: JAX's HWIO against PyTorch's OIHW, with a leading client
 axis on stacked client bottoms.  Dense weights are (d_in, d_out) on both
 sides.  Decoder-LM trees differ in one way: JAX stacks a segment's layers
 on a leading axis (``"stack"``), the port keeps a list of per-layer trees;
-so does its KV cache.  bf16 arrays (``ml_dtypes.bfloat16`` in numpy) come
+so does its KV cache.  xLSTM trees are stacked twice in JAX (``"groups"``
+on a group axis, each group's ``"mlstm"`` blocks on a second one); the port
+keeps a list of groups, each with a list of mLSTM blocks, and so does its
+recurrent cache.  bf16 arrays (``ml_dtypes.bfloat16`` in numpy) come
 across bit for bit.
 
 The functions take and give numpy arrays, not JAX arrays, so the port
@@ -20,6 +23,7 @@ import torch
 from repro_torch.core.engine import SemiSFLState
 from repro_torch.core.queue import FeatureQueue
 from repro_torch.models.attention import KVCache
+from repro_torch.models.xlstm import MLSTMCache, SLSTMCache
 from repro_torch.tree import tree_leaves, tree_map
 
 # conv weight rank -> axis order, JAX layout to port layout
@@ -96,33 +100,55 @@ def _unstack(tree) -> list:
 
 
 def lm_params_from_numpy(tree, device: str | torch.device = "cpu") -> dict:
-    """The JAX ``DecoderLM.init`` tree as numpy (``{"bottom": {"embed",
-    "stack"}, "top": {"stack", "final_norm", "lm_head"}}``, each ``stack``
-    with a leading layer axis) -> the port's tree, with ``stack`` a list of
-    per-layer trees on ``device``."""
+    """The JAX ``DecoderLM.init`` or ``XLSTMModel.init`` tree as numpy ->
+    the port's tree on ``device``.  A ``stack`` (leading layer axis)
+    becomes a list of per-layer trees; ``groups`` (leading group axis, and
+    a second block axis on each group's ``mlstm``) a list of per-group
+    ``{"mlstm": [per-block trees], "slstm": tree}``."""
+    to_t = lambda sub: tree_map(lambda a: _tensor(a, device), sub)
+
     def half(part: dict) -> dict:
         out = {}
         for key, sub in part.items():
             if key == "stack":
                 out[key] = ([] if sub is None else
-                            [tree_map(lambda a: _tensor(a, device), layer)
-                             for layer in _unstack(sub)])
+                            [to_t(layer) for layer in _unstack(sub)])
+            elif key == "groups":
+                out[key] = ([] if sub is None else
+                            [{"mlstm": [to_t(b) for b in _unstack(g["mlstm"])],
+                              "slstm": to_t(g["slstm"])}
+                             for g in _unstack(sub)])
             else:
-                out[key] = tree_map(lambda a: _tensor(a, device), sub)
+                out[key] = to_t(sub)
         return out
     return {"bottom": half(tree["bottom"]), "top": half(tree["top"])}
 
 
 def lm_cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
-    """The JAX ``DecoderLM.init_cache`` tree as numpy (each segment's cache
-    a ``KVCache`` of (k, v, pos) with a leading layer axis; a dense model's
-    ``prefix`` segment is None) -> the port's cache, a list of per-layer
-    :class:`KVCache` per segment."""
+    """The JAX ``init_cache`` tree as numpy -> the port's cache on
+    ``device``.  ``DecoderLM``: each segment's ``KVCache`` of (k, v, pos)
+    with a leading layer axis (a dense model's ``prefix`` segment is None)
+    -> a list of per-layer :class:`KVCache`.  ``XLSTMModel``: each
+    segment's ``{"mlstm": (C, n, m) on (groups, blocks, ...), "slstm": (h,
+    c, n, m) on (groups, ...)}`` -> ``{"groups": [{"mlstm": [MLSTMCache],
+    "slstm": SLSTMCache}]}``."""
+    t = lambda a: _tensor(a, device)
+
     def segment(c):
         k, v, pos = c
-        return [KVCache(_tensor(k[i], device), _tensor(v[i], device),
-                        _tensor(np.asarray(pos[i], np.int64), device))
+        return [KVCache(t(k[i]), t(v[i]), t(np.asarray(pos[i], np.int64)))
                 for i in range(len(k))]
+
+    def xlstm_segment(c):
+        mc, sc = c["mlstm"], c["slstm"]
+        return {"groups": [
+            {"mlstm": [MLSTMCache(*(t(a[g, j]) for a in mc))
+                       for j in range(mc[0].shape[1])],
+             "slstm": SLSTMCache(*(t(a[g]) for a in sc))}
+            for g in range(mc[0].shape[0])]}
+
+    if "stack" not in cache["bottom"]:
+        return {seg: xlstm_segment(cache[seg]) for seg in ("bottom", "top")}
     if cache["bottom"].get("prefix") is not None:
         raise NotImplementedError("the port has no prefix layers")
     return {"bottom": {"stack": segment(cache["bottom"]["stack"])},
@@ -130,11 +156,27 @@ def lm_cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
 
 
 def lm_cache_to_numpy(cache: dict) -> dict:
-    """The port's cache -> {segment: (k, v, pos)} numpy arrays with a
-    leading layer axis, in the JAX layout (k and v as fp32)."""
+    """The port's cache -> numpy in the JAX layout: for ``DecoderLM``
+    {segment: (k, v, pos)} with a leading layer axis (k and v as fp32); for
+    ``XLSTMModel`` {segment: {"mlstm": (C, n, m), "slstm": (h, c, n, m)}}
+    with leading (groups, blocks) and (groups,) axes."""
+    a = lambda t: t.float().cpu().numpy()
+
     def segment(c):
         return tuple(np.stack([getattr(layer, f).float().cpu().numpy()
                                if f != "pos" else layer.pos.cpu().numpy()
                                for layer in c]) for f in KVCache._fields)
+
+    def xlstm_segment(c):
+        groups = c["groups"]
+        return {"mlstm": tuple(np.stack([np.stack([a(blk[i])
+                                                   for blk in g["mlstm"]])
+                                         for g in groups])
+                               for i in range(len(MLSTMCache._fields))),
+                "slstm": tuple(np.stack([a(g["slstm"][i]) for g in groups])
+                               for i in range(len(SLSTMCache._fields)))}
+
+    if "groups" in cache["bottom"]:
+        return {seg: xlstm_segment(cache[seg]) for seg in ("bottom", "top")}
     return {"bottom": segment(cache["bottom"]["stack"]),
             "top": segment(cache["top"]["stack"])}

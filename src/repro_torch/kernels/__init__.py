@@ -10,12 +10,15 @@ Nothing here imports a kernel's toolchain or builds a library when the
 module is imported; the first CUDA call builds (``kernels.build``)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import clustering_loss as _cl
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
+from repro_torch.kernels import slstm_scan as _sl
 
 
 def _route(x: torch.Tensor, name: str) -> str:
@@ -62,12 +65,25 @@ def quantize_dequantize(x: torch.Tensor, fmt: str, *,
     return ref.quantize_dequantize_ref(x, fmt, per_slice=per_slice)
 
 
+def slstm_scan(wx: torch.Tensor, r: torch.Tensor,
+               state: Optional[ref.SLSTMState] = None
+               ) -> tuple[torch.Tensor, ref.SLSTMState]:
+    """The sLSTM recurrence: wx (B, S, 4, nh, hd) gate inputs [z, i, f, o]
+    and r (nh, hd, 4 hd), fp32, from ``state`` = (h, c, n, m), each (B, nh,
+    hd), or from zeros and m = -1e30.  Returns h (B, S, nh, hd) and the
+    final (h, c, n, m).  On the card wx may be any view whose unit dim is
+    contiguous."""
+    if _route(wx, "slstm_scan") == "cuda":
+        return _sl.slstm_scan_cuda(wx, r, state)
+    return ref.slstm_scan_ref(wx, r, state)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last reset."""
-    return {**_cl.LAUNCHES, **_q.LAUNCHES, **_fa.LAUNCHES}
+    return {**_cl.LAUNCHES, **_q.LAUNCHES, **_fa.LAUNCHES, **_sl.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_cl.LAUNCHES, _q.LAUNCHES, _fa.LAUNCHES):
+    for counts in (_cl.LAUNCHES, _q.LAUNCHES, _fa.LAUNCHES, _sl.LAUNCHES):
         for k in counts:
             counts[k] = 0

@@ -1,14 +1,16 @@
 """Plain PyTorch versions of the port's kernels.
 
 The same maths as the JAX package's ``kernels/ref.py`` (``flash_attention_ref``,
-``clustering_loss_ref`` and ``quantize_dequantize_ref``), written in the most
-direct form: the full (Sq, Skv) and (B, Q) logit matrices, one amax per
-tensor or per leading slice.  The wrappers
+``clustering_loss_ref``, ``quantize_dequantize_ref`` and ``slstm_scan_ref``),
+written in the most direct form: the full (Sq, Skv) and (B, Q) logit
+matrices, one amax per tensor or per leading slice, one Python step per
+time step of the sLSTM recurrence.  The wrappers
 in ``repro_torch.kernels`` take these for tensors on the CPU; the CUDA
 kernels are held against them on the card."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -119,3 +121,43 @@ def qdq_from_amax(xf: torch.Tensor, amax: torch.Tensor,
     else:
         q = (xf / scale).to(torch.float8_e4m3fn).float()
     return q * scale
+
+
+SLSTMState = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def slstm_scan_ref(wx: torch.Tensor, r: torch.Tensor,
+                   state: Optional[SLSTMState] = None
+                   ) -> tuple[torch.Tensor, SLSTMState]:
+    """Sequential sLSTM recurrence.  wx: (B, S, 4, nh, hd) gate inputs
+    [z, i, f, o]; r: (nh, hd, 4*hd) per-head recurrent weights, gate-major
+    columns [z | i | f | o], each hd wide; ``state``: the initial (h, c, n,
+    m), each (B, nh, hd), or None for h = c = n = 0 and m = -1e30.
+
+    Returns h (B, S, nh, hd) in wx's dtype and the final (h, c, n, m) in
+    fp32.  Exponential input and forget gates with the m stabilizer, as the
+    JAX package's ``models/xlstm.py::slstm_step`` computes them:
+
+      m' = max(f~ + m, i~),  i = exp(i~ - m'),  f = exp(f~ + m - m'),
+      c' = f c + i tanh(z~),  n' = f n + i,  h' = sigmoid(o~) c' / max(n', 1e-6)
+    """
+    b, s, _, nh, hd = wx.shape
+    if state is None:
+        z = torch.zeros(b, nh, hd, device=wx.device)
+        state = (z, z, z, torch.full_like(z, NEG_INF))
+    h, c, n, m = (t.float() for t in state)
+    rf = r.float()
+    hs = []
+    for t in range(s):
+        rec = torch.einsum("bhd,hdk->bhk", h, rf)            # (b, nh, 4 hd)
+        rec = rec.reshape(b, nh, 4, hd).transpose(1, 2)       # (b, 4, nh, hd)
+        zt, it, ft, ot = (wx[:, t].float() + rec).unbind(1)
+        m_new = torch.maximum(ft + m, it)
+        i_g = torch.exp(it - m_new)
+        f_g = torch.exp(ft + m - m_new)
+        c = f_g * c + i_g * torch.tanh(zt)
+        n = f_g * n + i_g
+        h = torch.sigmoid(ot) * c / n.clamp(min=1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, 1).to(wx.dtype), (h, c, n, m)

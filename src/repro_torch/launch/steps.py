@@ -1,10 +1,13 @@
-"""Split-inference serving steps of the dense decoder LM: the JAX
-package's ``launch/steps.py::make_prefill_step`` and ``make_decode_step``
-as plain functions, with no step plan, mesh or sharding.
+"""Split-inference serving steps of the decoder LMs (dense and xLSTM): the
+JAX package's ``launch/steps.py::make_prefill_step`` and
+``make_decode_step`` as plain functions, with no step plan, mesh or
+sharding.
 
 Each step runs the bottom (client) half, hands its features to the top
-(server) half, and returns the cache of both halves.  The caches are
-written in place (``models/attention.py``)."""
+(server) half, and returns the cache of both halves.  The dense model's KV
+caches are written in place (``models/attention.py``); xLSTM's recurrent
+states are returned anew.  xLSTM takes no positions and ignores the decode
+step's."""
 from __future__ import annotations
 
 from typing import Callable

@@ -1,5 +1,6 @@
-"""The dense split decoder LM (the JAX package's ``models/transformer.py``,
-``DecoderLM`` with dense MLP layers) and the port's model builder.
+"""The split decoder LMs (the JAX package's ``models/transformer.py``:
+``DecoderLM`` with dense MLP layers, and ``XLSTMModel``) and the port's
+model builder.
 
 Parameters are ``{"bottom": ..., "top": ...}`` from construction:
 
@@ -7,10 +8,11 @@ Parameters are ``{"bottom": ..., "top": ...}`` from construction:
   top    = the remaining blocks + final norm + LM head          (server)
 
 Where JAX stacks a segment's layers on a leading axis and scans over them,
-the port keeps a list of per-layer parameter dicts (``"stack"``) and loops
-in Python; ``convert.lm_params_from_numpy`` unstacks the JAX tree.  MoE,
-MLA, the unscanned prefix layers, vision inputs and the long-context window
-override are not ported yet."""
+the port keeps a list of per-layer parameter dicts (``"stack"``, or
+``"groups"`` for xLSTM) and loops in Python; ``convert.lm_params_from_numpy``
+unstacks the JAX tree.  MoE, MLA, Mamba2 hybrids, the unscanned prefix
+layers, vision inputs and the long-context window override are not ported
+yet."""
 from __future__ import annotations
 
 from typing import Optional
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.models import xlstm as xl
 from repro_torch.models.attention import (KVCache, apply_attention,
                                           init_attention, init_kv_cache)
 from repro_torch.models.common import (apply_mlp, apply_norm, dense_init,
@@ -169,10 +172,107 @@ class DecoderLM:
         return out, {"stack": new_stack_cache}
 
 
+class XLSTMModel:
+    """xlstm-1.3b: groups of (period - 1) mLSTM blocks + 1 sLSTM block, the
+    split snapped to a group boundary.  ``groups`` is a list of per-group
+    dicts ``{"mlstm": [per-block params], "slstm": params}``; the caches
+    follow the same structure.  The blocks take no positions."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+        per = cfg.xlstm.slstm_period
+        self.n_groups = cfg.num_layers // per
+        g = max(1, round(cfg.split_layer / per))
+        self.split_groups = min(g, self.n_groups - 1)
+        self.split = self.split_groups * per
+
+    def _init_groups(self, n: int, generator: torch.Generator,
+                     device: torch.device | str) -> list:
+        cfg, dt = self.cfg, _dtype(self.cfg)
+        per = cfg.xlstm.slstm_period
+        return [{"mlstm": [xl.init_mlstm(cfg, generator, device, dt)
+                           for _ in range(per - 1)],
+                 "slstm": xl.init_slstm(cfg, generator, device, dt)}
+                for _ in range(n)]
+
+    def init(self, generator: torch.Generator,
+             device: torch.device | str) -> dict:
+        """Parameters drawn from ``generator`` (in fp32 on its device), in
+        ``cfg.dtype`` on ``device`` but for the fp32 sLSTM ``w``, ``r`` and
+        ``b`` and mLSTM ``w_if`` and ``b_if``."""
+        cfg = self.cfg
+        dt = _dtype(cfg)
+        bottom = {"embed": embed_init(cfg.vocab_size, cfg.d_model, generator,
+                                      device, dt),
+                  "groups": self._init_groups(self.split_groups, generator,
+                                              device)}
+        top = {"groups": self._init_groups(self.n_groups - self.split_groups,
+                                           generator, device),
+               "final_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
+               "lm_head": dense_init(cfg.d_model, cfg.vocab_size, generator,
+                                     device, dt)}
+        return {"bottom": bottom, "top": top}
+
+    def _group_cache(self, n: int, batch: int,
+                     device: torch.device | str) -> dict:
+        cfg = self.cfg
+        per = cfg.xlstm.slstm_period
+        return {"groups": [
+            {"mlstm": [xl.init_mlstm_cache(batch, cfg, device)
+                       for _ in range(per - 1)],
+             "slstm": xl.init_slstm_cache(batch, cfg, device)}
+            for _ in range(n)]}
+
+    def init_cache(self, batch: int, max_len: int,
+                   device: torch.device | str) -> dict:
+        """The recurrent state of every block; its size does not depend on
+        ``max_len``."""
+        return {
+            "bottom": self._group_cache(self.split_groups, batch, device),
+            "top": self._group_cache(self.n_groups - self.split_groups, batch,
+                                     device),
+        }
+
+    def _run_groups(self, groups: list, x: torch.Tensor, *, mode: str,
+                    cache: Optional[dict]):
+        cfg = self.cfg
+        if cache is None:
+            cache = self._group_cache(len(groups), x.shape[0], x.device)
+        new_groups = []
+        for g_p, g_c in zip(groups, cache["groups"]):
+            new_m = []
+            for m_p, m_c in zip(g_p["mlstm"], g_c["mlstm"]):
+                x, c = xl.apply_mlstm_block(m_p, cfg, x, mode=mode, cache=m_c)
+                new_m.append(c)
+            x, new_s = xl.apply_slstm_block(g_p["slstm"], cfg, x, mode=mode,
+                                            cache=g_c["slstm"])
+            new_groups.append({"mlstm": new_m, "slstm": new_s})
+        return x, {"groups": new_groups}
+
+    def bottom_apply(self, params: dict, batch_inputs: dict, *,
+                     mode: str = "train", cache: Optional[dict] = None):
+        """Client side: embed the tokens and run the bottom groups."""
+        x = params["embed"][batch_inputs["tokens"]]
+        x, new_cache = self._run_groups(params["groups"], x, mode=mode,
+                                        cache=cache)
+        return x, new_cache, {}
+
+    def top_apply(self, params: dict, features: torch.Tensor, *,
+                  extras: dict, mode: str = "train",
+                  cache: Optional[dict] = None):
+        """Server side: the top groups, the final norm and the LM head."""
+        x, new_cache = self._run_groups(params["groups"], features, mode=mode,
+                                        cache=cache)
+        x = apply_norm(params["final_norm"], x, self.cfg.norm)
+        return {"logits": _lm_logits(params, x)}, new_cache
+
+
 def build_model(cfg: ArchConfig):
-    """The model class of ``cfg``: the paper's CNNs and the dense decoder
-    LMs are ported; the other families raise."""
+    """The model class of ``cfg``: the paper's CNNs, the dense decoder LMs
+    and xLSTM are ported; the other families raise."""
     if cfg.arch_type == "cnn":
         from repro_torch.models.cnn import CNNModel
         return CNNModel(cfg)
+    if cfg.block_kind == "xlstm":
+        return XLSTMModel(cfg)
     return DecoderLM(cfg)

@@ -10,7 +10,11 @@ Tolerances: flash attention to 2e-4 in fp32 and 3e-2 in bf16, the
 reference suite's ``TOLS`` (tests/test_kernels.py); the clustering loss to
 1e-4 and dz to atol 5e-5 / rtol 2e-3, as tests/test_kernels.py holds the
 Pallas kernel (the sum over the queue runs in another order); the quantizer
-bit for bit."""
+bit for bit; the sLSTM scan to atol 1e-5 / rtol 1e-4, as
+tests/test_kernels.py holds the Pallas kernel (the recurrent product sums
+in another order)."""
+from dataclasses import replace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +25,10 @@ from repro.core.wire import quantize_grad as jax_quantize_grad
 from repro.kernels import ref as jref
 from repro.kernels.clustering_loss import clustering_loss_pallas
 from repro.kernels.flash_attention import flash_attention as flash_pallas
+from repro.configs import smoke_config as jax_smoke_config
 from repro.kernels.quantize import quantize_dequantize_pallas
+from repro.kernels.slstm_scan import slstm_scan as slstm_pallas
+from repro.models import xlstm as jxl
 from repro.models.attention import _chunked_attend
 from repro_torch import kernels
 from repro_torch.core.wire import quantize_grad
@@ -253,10 +260,14 @@ def test_cpu_tensors_take_the_plain_versions():
     k = torch.randn(1, 2, 16, 32)
     assert torch.equal(kernels.flash_attention(q, k, k),
                        tref.flash_attention_ref(q, k, k))
+    wx, r = torch.randn(2, 8, 4, 2, 16), torch.randn(2, 16, 64) * 0.25
+    got, want = kernels.slstm_scan(wx, r), tref.slstm_scan_ref(wx, r)
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
     assert all(v == 0 for v in kernels.launch_counts().values())
     assert set(kernels.launch_counts()) == {
         "clustering_fwd", "clustering_bwd", "quantize_amax", "quantize_qdq",
-        "flash_attention"}
+        "flash_attention", "slstm_scan"}
 
 
 def test_wrappers_refuse_other_devices():
@@ -265,3 +276,115 @@ def test_wrappers_refuse_other_devices():
         kernels.quantize_dequantize(x, "int8")
     with pytest.raises(ValueError, match="unknown wire format"):
         kernels.quantize_dequantize(torch.ones(4), "int4")
+
+
+# ---------------------------------------------------------------------------
+# sLSTM scan
+# ---------------------------------------------------------------------------
+
+SLSTM_TOL = dict(atol=1e-5, rtol=1e-4)
+
+# tests/test_kernels.py's sLSTM sweep: (b, s, nh, hd); nh >= 2, so that a
+# mix-up of heads and gates shows
+SLSTM_SHAPES = [(2, 64, 2, 32), (1, 128, 4, 64), (2, 96, 2, 64)]
+
+
+def _slstm_case(b, s, nh, hd, seed):
+    rng = np.random.RandomState(seed)
+    wx = (rng.randn(b, s, 4, nh, hd) * 0.5).astype(np.float32)
+    r = (rng.randn(nh, hd, 4 * hd) / np.sqrt(hd)).astype(np.float32)
+    return wx, r
+
+
+def _slstm_state(b, nh, hd, seed):
+    """A non-fresh (h, c, n, m): what some earlier steps could leave."""
+    rng = np.random.RandomState(seed)
+    h = np.tanh(rng.randn(b, nh, hd)).astype(np.float32)
+    c = rng.randn(b, nh, hd).astype(np.float32)
+    n = (rng.rand(b, nh, hd) * 2 + 0.5).astype(np.float32)
+    m = (rng.randn(b, nh, hd) * 2).astype(np.float32)
+    return h, c, n, m
+
+
+@pytest.mark.parametrize("b,s,nh,hd", SLSTM_SHAPES)
+def test_slstm_scan_matches_jax(b, s, nh, hd):
+    """The plain version from zeros against the JAX reference and the
+    Pallas kernel in interpret mode, at tests/test_kernels.py's shapes."""
+    wx, r = _slstm_case(b, s, nh, hd, s)
+    got, _ = kernels.slstm_scan(torch.from_numpy(wx), torch.from_numpy(r))
+    want_ref = jref.slstm_scan_ref(jnp.asarray(wx), jnp.asarray(r))
+    want_pl = slstm_pallas(jnp.asarray(wx), jnp.asarray(r), interpret=True)
+    assert got.shape == (b, s, nh, hd) and got.dtype == torch.float32
+    for w in (want_ref, want_pl):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **SLSTM_TOL)
+
+
+def _jax_slstm_cfg(nh, hd):
+    return replace(jax_smoke_config("xlstm-1.3b"), d_model=nh * hd,
+                   num_heads=nh, num_kv_heads=nh, head_dim=hd)
+
+
+@pytest.mark.parametrize("s", [1, 37])
+def test_slstm_scan_state_matches_jax_steps(s):
+    """From a non-fresh state, h at every step and the final (h, c, n, m)
+    against a JAX loop of ``models/xlstm.py::slstm_step``, whose state is
+    (B, d) with head-major units and whose wx is (B, 4d) [z | i | f | o]."""
+    b, nh, hd = 2, 2, 32
+    wx, r = _slstm_case(b, s, nh, hd, 5 + s)
+    state = _slstm_state(b, nh, hd, 6)
+    jcfg = _jax_slstm_cfg(nh, hd)
+    carry = jxl.SLSTMCache(*(jnp.asarray(a.reshape(b, nh * hd))
+                             for a in state))
+    step = jax.jit(lambda c, w: jxl.slstm_step({"r": jnp.asarray(r)}, jcfg,
+                                               c, w))
+    want_h = []
+    for t in range(s):
+        carry, h = step(carry, jnp.asarray(wx[:, t].reshape(b, 4 * nh * hd)))
+        want_h.append(np.asarray(h).reshape(b, nh, hd))
+    got_h, got_state = kernels.slstm_scan(
+        torch.from_numpy(wx), torch.from_numpy(r),
+        tuple(torch.from_numpy(a) for a in state))
+    np.testing.assert_allclose(got_h.numpy(), np.stack(want_h, 1),
+                               **SLSTM_TOL)
+    for g, w in zip(got_state, carry):
+        np.testing.assert_allclose(g.numpy(),
+                                   np.asarray(w).reshape(b, nh, hd),
+                                   **SLSTM_TOL)
+
+
+def test_slstm_scan_matches_apply_slstm_prefill():
+    """The JAX model's prefill recurrence, ``apply_slstm(mode="prefill")``
+    from a non-fresh cache, against the plain version fed the same wx (the
+    model's fp32 input projection of the same x) in its (B, S, 4, nh, hd)
+    view: h and the final cache."""
+    b, s, nh, hd = 2, 48, 2, 32
+    d = nh * hd
+    jcfg = _jax_slstm_cfg(nh, hd)
+    rng = np.random.RandomState(8)
+    x = rng.randn(b, s, d).astype(np.float32)
+    w = (rng.randn(d, 4 * d) / np.sqrt(d)).astype(np.float32)
+    bias = np.concatenate([np.zeros(2 * d), np.full(d, 3.0),
+                           np.zeros(d)]).astype(np.float32)
+    r = (rng.randn(nh, hd, 4 * hd) / np.sqrt(hd)).astype(np.float32)
+    state = _slstm_state(b, nh, hd, 9)
+    p = {"w": jnp.asarray(w), "b": jnp.asarray(bias), "r": jnp.asarray(r)}
+    cache = jxl.SLSTMCache(*(jnp.asarray(a.reshape(b, d)) for a in state))
+    want_h, want_cache = jax.jit(lambda xx, cc: jxl.apply_slstm(
+        p, jcfg, xx, mode="prefill", cache=cc))(jnp.asarray(x), cache)
+    wx = torch.from_numpy(x) @ torch.from_numpy(w) + torch.from_numpy(bias)
+    got_h, got_state = kernels.slstm_scan(
+        wx.view(b, s, 4, nh, hd), torch.from_numpy(r),
+        tuple(torch.from_numpy(a) for a in state))
+    np.testing.assert_allclose(got_h.reshape(b, s, d).numpy(),
+                               np.asarray(want_h), **SLSTM_TOL)
+    for g, w_ in zip(got_state, want_cache):
+        np.testing.assert_allclose(g.reshape(b, d).numpy(), np.asarray(w_),
+                                   **SLSTM_TOL)
+
+
+def test_slstm_cuda_wrapper_refuses_cpu_tensors():
+    from importlib import import_module
+    sl = import_module("repro_torch.kernels.slstm_scan")
+    with pytest.raises(ValueError, match="CUDA device"):
+        sl.slstm_scan_cuda(torch.zeros(1, 4, 4, 2, 32),
+                           torch.zeros(2, 32, 128))

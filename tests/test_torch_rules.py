@@ -86,6 +86,8 @@ def test_cuda_entry_points_raise_without_a_card():
         serve("qwen3-14b")                           # the default is cuda
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_config(get_config("qwen3-14b"), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_config(get_config("xlstm-1.3b"))       # the default is cuda
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
