@@ -16,10 +16,13 @@ Phases, in order; any failure exits nonzero:
      non-causal case, at ragged lengths, with 5 query heads per KV head and
      at Qwen3-14B's prefill shape; the sLSTM scan, h and final state, at
      the JAX kernel tests' shapes, at S = 1, from a non-fresh state, at the
-     xLSTM smoke shape and at xLSTM-1.3B's prefill shape), and time kernel,
-     plain version and, where one exists, the one PyTorch call that
-     computes the same function (the quantizer's versions on inputs read
-     from HBM, as its bound assumes);
+     xLSTM smoke shape and at xLSTM-1.3B's prefill shape; the Mamba2 scan,
+     y and final state, at the JAX kernel tests' shapes, at S = 1 and
+     ragged S, on bf16 strided slices of a conv output, where a chunk's
+     decay passes exp's fp32 range, and at Zamba2-7B's prefill shape), and
+     time kernel, plain version and, where one exists, the one PyTorch call
+     that computes the same function (the quantizer's versions on inputs
+     read from HBM, as its bound assumes);
   4. the first path: ``repro_torch.launch.train.run_training("paper-cnn",
      smoke=False, device="cuda")`` at the full config, 150 rounds with the
      ``int8+topk0.05`` wire, long enough for the teacher to become
@@ -46,7 +49,15 @@ Phases, in order; any failure exits nonzero:
  10. card against CPU on the xLSTM path: the same fp32 weights of a
      4-block xLSTM-1.3B at full width (sLSTM every 2 blocks, split 1 + 1
      group), one prefill of 256 tokens and 4 decode steps on each;
- 11. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
+ 11. the fourth path: split-inference serving of the full Zamba2-7B
+     (``serve_config``: 81 Mamba2 layers, the weight-shared attention +
+     MLP block after every 6, split 18 + 63, width 3584, bf16, weights
+     drawn on the card from seed 0), as phase 7, with 81 Mamba2-scan and 13
+     flash-attention launches required in the prefill and none in decode;
+ 12. card against CPU on the Zamba2 path: the same fp32 weights of a
+     4-layer Zamba2-7B at full width (shared block every 2 layers, split
+     2 + 2), one prefill of 256 tokens and 4 decode steps on each;
+ 13. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
 
 Needs one CUDA card, ``nvcc`` and this checkout's ``src/``; imports nothing
 of JAX."""
@@ -113,6 +124,28 @@ SLSTM_CASES = [(2, 64, 2, 32, False, 0.0), (1, 128, 4, 64, False, 0.0),
 # sums in another order
 SLSTM_TOL = dict(atol=1e-5, rtol=1e-4)
 
+# the Mamba2 scan against its plain version: (b, s, nh, hd, n, dtype,
+# inputs).  "test": tests/test_kernels.py's distributions (dt in [0.01,
+# 0.51], A in [-1, -0.1]), at its shapes, at S = 1 and at ragged S;
+# "decay": dt in [2, 4] and A = -1, so that the decay over one of the
+# kernel's 64-step chunks passes 88 (exp of it overflows fp32); "model": x,
+# B and C bf16 slices of one (B, S, nh hd + 2N) SiLU conv output, dt =
+# softplus of N(0, 1), A = -1 and D = 1, as the model at random init hands
+# them over.  The last is Zamba2-7B's prefill shape.
+MAMBA2_CASES = [(1, 64, 2, 32, 16, "float32", "test"),
+                (2, 128, 4, 64, 64, "float32", "test"),
+                (1, 256, 2, 64, 64, "float32", "test"),
+                (2, 1, 2, 32, 16, "float32", "test"),
+                (2, 300, 2, 32, 16, "float32", "test"),
+                (1, 1000, 3, 64, 64, "float32", "test"),
+                (2, 333, 4, 64, 64, "bfloat16", "model"),
+                (2, 256, 2, 64, 64, "float32", "decay"),
+                (SERVE_BATCH, SERVE_PROMPT, 112, 64, 64, "bfloat16", "model")]
+# as tests/test_kernels.py holds the Pallas kernel: |err| <= 5e-5 max|y|;
+# a bf16 y is rounded once on each side from fp32 values that differ in
+# their last bits, so it may also differ by one bf16 ulp (2^-7 of |y|)
+MAMBA2_TOL = 5e-5
+
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
@@ -162,8 +195,21 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    dev = sum(_dev_us(e) for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA)
+    # the profiler can lose some of a kernel's records (on the H100 it kept
+    # 4 of 10 launches of the Mamba2 scan after earlier profiled phases);
+    # every call launches each kernel the same number of times, so a kernel
+    # is counted at the next multiple of ``iters`` at its mean duration
+    dev, lost = 0.0, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.count == 0:
+            continue
+        calls = -(-e.count // iters) * iters
+        if calls != e.count:
+            lost.append(f"{e.key[:60]} ({e.count} of {calls})")
+        dev += _dev_us(e) / e.count * calls
+    if lost:
+        print("[timing] torch.profiler lost records of "
+              + "; ".join(lost) + "; counted at their mean duration")
     if dev <= 0:
         print("[timing] torch.profiler saw no device time; using the CUDA "
               "event time")
@@ -554,6 +600,97 @@ def phase_slstm(card: str) -> dict:
     return {"err": err, "timing": t}
 
 
+def _mamba2_inputs(b, s, nh, hd, n, dtype, kind, seed):
+    """x, dt, A, B, C, D for one case; x, B and C are views of one (B, S,
+    nh hd + 2N) tensor, as the model's conv output hands them over."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    rand = lambda *shape: torch.rand(*shape, generator=gen, device="cuda")
+    d_in = nh * hd
+    conv = randn(b, s, d_in + 2 * n)
+    if kind == "model":
+        conv = F.silu(conv)
+        dt = F.softplus(randn(b, s, nh))
+        A, D = -torch.ones(nh, device="cuda"), torch.ones(nh, device="cuda")
+    elif kind == "decay":
+        dt = rand(b, s, nh) * 2 + 2
+        A, D = -torch.ones(nh, device="cuda"), rand(nh)
+    else:
+        dt = rand(b, s, nh) * 0.5 + 0.01
+        A, D = -(rand(nh) * 0.9 + 0.1), rand(nh)
+    conv = conv.to(getattr(torch, dtype))
+    x = conv[..., :d_in].reshape(b, s, nh, hd)
+    return (x, dt, A, conv[..., d_in:d_in + n], conv[..., d_in + n:], D)
+
+
+def phase_mamba2(card: str) -> dict:
+    """The Mamba2 scan against its plain version on the card, y and the
+    final state, then timed at Zamba2-7B's prefill shape."""
+    import torch
+
+    from repro_torch.kernels import ref
+    m2 = importlib.import_module("repro_torch.kernels.mamba2_scan")
+    err = 0.0
+    for i, (b, s, nh, hd, n, dtype, kind) in enumerate(MAMBA2_CASES):
+        args = _mamba2_inputs(b, s, nh, hd, n, dtype, kind, 40 + i)
+        y, state = m2.mamba2_scan_cuda(*args)
+        y_r, state_r = ref.mamba2_scan_ref(*args)
+        torch.cuda.synchronize()
+        if y.dtype != args[0].dtype or y.shape != y_r.shape \
+                or state.shape != (b, nh, hd, n):
+            fail(f"mamba2 scan ({b}, {s}, {nh}, {hd}, {n}): y {y.dtype} "
+                 f"{tuple(y.shape)}, state {tuple(state.shape)}")
+        errs = {}
+        for name, g, w in (("y", y.float(), y_r.float()),
+                           ("state", state, state_r)):
+            if not bool(torch.isfinite(g).all()):
+                fail(f"mamba2 scan {kind} ({b}, {s}, {nh}, {hd}, {n}): "
+                     f"non-finite {name}")
+            scale = float(w.abs().max())
+            errs[name] = float((g - w).abs().max())
+            rtol = 2 ** -7 if (name, dtype) == ("y", "bfloat16") else 0.0
+            if not torch.allclose(g, w, atol=MAMBA2_TOL * scale, rtol=rtol):
+                fail(f"mamba2 scan {kind} ({b}, {s}, {nh}, {hd}, {n}) "
+                     f"{dtype}: {name} differs from the plain version by "
+                     f"{errs[name]} (max|{name}| {scale})")
+            errs[f"max|{name}|"] = scale
+        cum = (args[1][:, :64] * args[2]).sum(1).min()
+        print(f"[kernels] mamba2 {kind} x ({b}, {s}, {nh}, {hd}) N {n} "
+              f"{dtype}: max|err| y {errs['y']:.3g} (max|y| "
+              f"{errs['max|y|']:.4g}), state {errs['state']:.3g} (max|state| "
+              f"{errs['max|state|']:.4g}); decay over the first 64 steps "
+              f"down to {float(cum):.4g}; tol {MAMBA2_TOL} of max|.|"
+              + (", plus 2^-7 of |y|" if dtype == "bfloat16" else ""))
+        err = max(err, errs["y"], errs["state"])
+
+    # the serving path's shape, from its last case's inputs
+    x, dt, A, B, C, D = args
+    b, s, nh, hd = x.shape
+    n = B.shape[-1]
+    el = x.element_size()
+    n_bytes = (2 * x.numel() * el + dt.numel() * 4 + 2 * b * s * n * el
+               + b * nh * hd * n * 4 + 2 * nh * 4)
+    n_flops = 4 * b * s * nh * hd * n
+    t = dict(
+        ms=time_ms(lambda: m2.mamba2_scan_cuda(*args), iters=10, warmup=2),
+        plain_ms=time_ms(lambda: ref.mamba2_scan_ref(*args), iters=2,
+                         warmup=1),
+        library_ms=None,
+        bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
+    print(f"[timing] mamba2_scan at x {tuple(x.shape)} N {n} bf16 "
+          f"({n_flops:.4g} inter-chunk operations, {n_bytes / 1e6:.1f} MB): "
+          f"kernel {t['ms'][0]:.4f} ms (events {t['ms'][1]:.4f}), plain "
+          f"{t['plain_ms'][0]:.4f} ms (events {t['plain_ms'][1]:.4f}), "
+          f"library n/a (no single PyTorch call), bound {t['bound'][0]:.4f} "
+          f"ms ({t['bound'][1]}); kernel at "
+          f"{n_bytes / t['ms'][0] / 1e6:.1f} GB/s on {card}")
+    for key in ("ms", "plain_ms"):
+        t[key] = t[key][0]
+    return {"err": err, "timing": t}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -728,25 +865,39 @@ def phase_profile(card: str, trained) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 7-10: serving Qwen3-14B and xLSTM-1.3B
+# phases 7-12: serving Qwen3-14B, xLSTM-1.3B and Zamba2-7B
 # ---------------------------------------------------------------------------
 
-# each serving path: arch -> (its ported kernel's count and profiler name,
-# the config cut in depth for the card-vs-CPU check, the log tag)
+# each serving path: arch -> ({its ported kernels' count name: profiler
+# name}, the config cut in depth for the card-vs-CPU check, the log tag)
 SERVE_PATHS = {
-    "qwen3-14b": ("flash_attention", "flash_kernel",
+    "qwen3-14b": ({"flash_attention": "flash_kernel"},
                   lambda cfg: replace(cfg, num_layers=2), "serve-qwen3"),
-    "xlstm-1.3b": ("slstm_scan", "slstm_scan_kernel",
+    "xlstm-1.3b": ({"slstm_scan": "slstm_scan_kernel"},
                    lambda cfg: replace(cfg, num_layers=4, xlstm=replace(
                        cfg.xlstm, slstm_period=2)), "serve-xlstm"),
+    "zamba2-7b": ({"mamba2_scan": "mamba2_scan_kernel",
+                   "flash_attention": "flash_kernel"},
+                  lambda cfg: replace(cfg, num_layers=4,
+                                      shared_attn_period=2), "serve-zamba2"),
 }
 
 
-def _launches_per_prefill(cfg) -> int:
-    """The ported kernel runs once per attention layer (Qwen3) or once per
-    sLSTM block (xLSTM) in a prefill."""
-    return (cfg.num_layers // cfg.xlstm.slstm_period if cfg.xlstm
-            else cfg.num_layers)
+def _launches_per_prefill(cfg) -> dict:
+    """Each ported kernel's launches in a prefill: flash attention once per
+    attention layer (Qwen3) or application of the shared block (Zamba2:
+    after every period-th Mamba2 layer, on each side of the split), the
+    sLSTM scan once per sLSTM block, the Mamba2 scan once per Mamba2
+    layer."""
+    if cfg.xlstm:
+        return {"slstm_scan": cfg.num_layers // cfg.xlstm.slstm_period}
+    if cfg.ssm:
+        from repro_torch.models.transformer import build_model
+        split, per = build_model(cfg).split, cfg.shared_attn_period
+        return {"mamba2_scan": cfg.num_layers,
+                "flash_attention": split // per
+                + (cfg.num_layers - split) // per}
+    return {"flash_attention": cfg.num_layers}
 
 
 def _serve_full(arch: str, log):
@@ -761,15 +912,16 @@ def phase_serve(card: str, arch: str) -> dict:
     parameters counted first, the previous path's memory freed and the
     peak-memory counter reset, every kernel's launch count set to 0 just
     before the run and read once the prefill has been logged and again
-    just after.  The path's kernel must run once per layer (Qwen3) or sLSTM
-    block (xLSTM) in the prefill and never in decode."""
+    just after.  Each of the path's kernels must run as often as
+    :func:`_launches_per_prefill` says in the prefill and never in
+    decode."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import build_model
     from repro_torch.tree import tree_leaves
-    kernel, _, _, tag = SERVE_PATHS[arch]
+    kernels, _, tag = SERVE_PATHS[arch]
     cfg = get_config(arch)
     model = build_model(cfg)
     weights = tree_leaves(model.init(torch.Generator("cuda").manual_seed(0),
@@ -793,8 +945,6 @@ def phase_serve(card: str, arch: str) -> dict:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     toks = res.tokens
-    prefill_n = after_log[0][kernel]
-    decode_n = launches[kernel] - prefill_n
     print(f"[{tag}] {arch} at full width, {cfg.num_layers} layers (split "
           f"{model.split} + {cfg.num_layers - model.split}), {cfg.dtype}, "
           f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_TOKENS} "
@@ -805,9 +955,7 @@ def phase_serve(card: str, arch: str) -> dict:
           f"{res.decode_s / (SERVE_TOKENS - 1) * 1e3:.3f} ms per step), "
           f"{wall:.2f} s with weight init; peak device memory "
           f"{peak / 2**30:.2f} GiB; on {card}")
-    print(f"[{tag}] launches on the serving path: {launches}; {kernel} "
-          f"launches in the prefill {prefill_n}, in the {SERVE_TOKENS - 1} "
-          f"decode steps {decode_n}")
+    print(f"[{tag}] launches on the serving path: {launches}")
     print(f"[{tag}] tokens of sequence 0: {toks[0].tolist()}")
     if not bool(torch.isfinite(res.logits.float()).all()):
         fail(f"serving {arch} gave non-finite prefill logits")
@@ -816,9 +964,16 @@ def phase_serve(card: str, arch: str) -> dict:
         fail(f"serving {arch} gave tokens of shape {toks.shape} in "
              f"[{toks.min()}, {toks.max()}]")
     want = _launches_per_prefill(cfg)
-    if prefill_n != want or decode_n != 0:
-        fail(f"serving {arch} launched {kernel} {prefill_n} times in the "
-             f"prefill and {decode_n} in decode, want {want} and 0")
+    for kernel in kernels:
+        prefill_n = after_log[0][kernel]
+        decode_n = launches[kernel] - prefill_n
+        print(f"[{tag}] {kernel} launches in the prefill {prefill_n} (want "
+              f"{want[kernel]}), in the {SERVE_TOKENS - 1} decode steps "
+              f"{decode_n} (want 0)")
+        if prefill_n != want[kernel] or decode_n != 0:
+            fail(f"serving {arch} launched {kernel} {prefill_n} times in "
+                 f"the prefill and {decode_n} in decode, want "
+                 f"{want[kernel]} and 0")
     return launches
 
 
@@ -827,28 +982,29 @@ def phase_serve_profile(card: str, arch: str) -> None:
     idle share and device time by kernel, for the whole run and for each
     of its two spans (``serve.prefill``, ``serve.decode``: device ops are
     assigned to the span in which they start), with the share of each
-    span's device time in the path's ported kernel."""
+    span's device time in each of the path's ported kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    _, kernel, _, tag = SERVE_PATHS[arch]
+    kernels, _, tag = SERVE_PATHS[arch]
     tag += "-profile"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = _serve_full(arch, lambda _: None)
         wall = time.perf_counter() - t0
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
-                      and not e.key.startswith("serve.")),
-                     key=_dev_us, reverse=True)
-    busy = sum(_dev_us(e) for e in kernels) / 1e6
-    ours = sum(_dev_us(e) for e in kernels if kernel in e.key) / 1e6
+    by_key = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
+                     and not e.key.startswith("serve.")),
+                    key=_dev_us, reverse=True)
+    busy = sum(_dev_us(e) for e in by_key) / 1e6
+    ours = {k: sum(_dev_us(e) for e in by_key if name in e.key) / 1e6
+            for k, name in kernels.items()}
     print(f"[{tag}] under the profiler: prefill {res.prefill_s:.6f} "
           f"s, decode {res.decode_s:.6f} s, serve_config {wall:.6f} s "
           f"(weight init included); device busy {busy:.6f} s (idle share "
-          f"{1 - busy / wall:.4f} of serve_config's wall); {kernel} "
-          f"{ours:.6f} s; {sum(e.count for e in kernels)} device ops; on "
-          f"{card}")
+          f"{1 - busy / wall:.4f} of serve_config's wall); "
+          + ", ".join(f"{k} {v:.6f} s" for k, v in ours.items())
+          + f"; {sum(e.count for e in by_key)} device ops; on {card}")
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and not e.name.startswith("serve.")]
@@ -864,13 +1020,17 @@ def phase_serve_profile(card: str, arch: str) -> None:
             acc = by_name.setdefault(e.name, [0.0, 0])
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
-        span_ours = sum(ms for name, (ms, _) in by_name.items()
-                        if kernel in name) / 1e3
+        shares = []
+        for k, name in kernels.items():
+            span_ours = sum(ms for n, (ms, _) in by_name.items()
+                            if name in n) / 1e3
+            shares.append(f"{k} {span_ours:.6f} s "
+                          f"({span_ours / max(span_busy, 1e-12):.4f} of the "
+                          f"device time)")
         print(f"[{tag}] span {span}: host {span_wall:.6f} s, "
               f"device busy {span_busy:.6f} s (idle share "
               f"{1 - span_busy / span_wall:.4f}), {len(inside)} device ops; "
-              f"{kernel} {span_ours:.6f} s "
-              f"({span_ours / max(span_busy, 1e-12):.4f} of the device time)")
+              + "; ".join(shares))
         for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                     )[:8]:
             print(f"[{tag}]   {span} device {ms:10.3f} ms x{n:<6d} "
@@ -880,13 +1040,14 @@ def phase_serve_profile(card: str, arch: str) -> None:
 def phase_serve_cross_check(arch: str) -> None:
     """One prefill of 256 tokens and 4 decode steps of the model cut in
     depth (Qwen3-14B to 2 layers; xLSTM-1.3B to 4 blocks with an sLSTM
-    block every 2, so 2 groups split 1 + 1) at full width, in fp32 with
-    TF32 off, on the card and on the CPU from the same weights (drawn on
-    the card, copied to the CPU).  cuBLAS and the CPU sum in other orders
-    and the path's kernel against its plain version too, so the logits
-    are held to 1e-3 (phase 5's tolerance); the greedy tokens must be
-    equal, and the card's prefill must run the kernel once per layer or
-    sLSTM block."""
+    block every 2, so 2 groups split 1 + 1; Zamba2-7B to 4 Mamba2 layers
+    with the shared block every 2, split 2 + 2) at full width, in fp32
+    with TF32 off, on the card and on the CPU from the same weights (drawn
+    on the card, copied to the CPU).  cuBLAS and the CPU sum in other
+    orders and the path's kernels against their plain versions too, so the
+    logits are held to 1e-3 (phase 5's tolerance); the greedy tokens must
+    be equal, and the card's prefill must run each of the path's kernels
+    as often as :func:`_launches_per_prefill` says."""
     import torch
 
     from repro_torch.configs import get_config
@@ -894,7 +1055,7 @@ def phase_serve_cross_check(arch: str) -> None:
     from repro_torch.launch.serve import serve_config
     from repro_torch.models.transformer import build_model
     from repro_torch.tree import tree_leaves, tree_map
-    kernel, _, cut, tag = SERVE_PATHS[arch]
+    kernels, cut, tag = SERVE_PATHS[arch]
     cfg = replace(cut(get_config(arch)), dtype="float32")
     params = build_model(cfg).init(torch.Generator("cuda").manual_seed(1),
                                    "cuda")
@@ -904,7 +1065,7 @@ def phase_serve_cross_check(arch: str) -> None:
     t0 = time.perf_counter()
     reset_launch_counts()
     gpu = serve_config(cfg, params=params, device="cuda", **kw)
-    n_kernel = launch_counts()[kernel]
+    counts = {k: launch_counts()[k] for k in kernels}
     cpu = serve_config(cfg, params=tree_map(lambda t: t.cpu(), params),
                        device="cpu", **kw)
     del params
@@ -914,11 +1075,11 @@ def phase_serve_cross_check(arch: str) -> None:
           f"layers, {n_params / 1e9:.3f} B parameters, fp32: card vs CPU "
           f"last-position logits max|err| {err:.3g} (max|logit| "
           f"{float(cpu.logits.abs().max()):.3g}); greedy tokens equal: "
-          f"{same} {gpu.tokens.tolist()}; {kernel} launches on the card "
-          f"{n_kernel}; {time.perf_counter() - t0:.1f} s")
-    if n_kernel != _launches_per_prefill(cfg):
-        fail(f"the card's {arch} prefill launched {kernel} {n_kernel} "
-             f"times, want {_launches_per_prefill(cfg)}")
+          f"{same} {gpu.tokens.tolist()}; launches on the card {counts}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    want = _launches_per_prefill(cfg)
+    if counts != want:
+        fail(f"the card's {arch} prefill launched {counts}, want {want}")
     if not (torch.allclose(gpu.logits.cpu(), cpu.logits, atol=1e-3,
                            rtol=1e-3) and same):
         fail(f"the card and the CPU disagree on the {arch} serving path")
@@ -937,6 +1098,8 @@ KERNEL_META = {
                         "src/repro/kernels/flash_attention.py:105"),
     "slstm_scan": ("src/repro_torch/csrc/slstm_scan.cu",
                    "src/repro/kernels/slstm_scan.py:77"),
+    "mamba2_scan": ("src/repro_torch/csrc/mamba2_scan.cu",
+                    "src/repro/kernels/mamba2_scan.py:88"),
 }
 TRAIN_KERNELS = ("clustering_fwd", "clustering_bwd", "quantize_amax",
                  "quantize_qdq")
@@ -962,6 +1125,9 @@ def main() -> int:
     slstm = phase_slstm(card)
     checked["errs"]["slstm_scan"] = slstm["err"]
     checked["timings"]["slstm_scan"] = slstm["timing"]
+    mamba2 = phase_mamba2(card)
+    checked["errs"]["mamba2_scan"] = mamba2["err"]
+    checked["timings"]["mamba2_scan"] = mamba2["timing"]
     lap("kernel checks")
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -978,9 +1144,13 @@ def main() -> int:
     del runs, trained, system
     lap("training path")
 
-    # each serving path reads its own counts, set to 0 just before it
-    for arch, (kernel, *_) in SERVE_PATHS.items():
-        launches[kernel] = phase_serve(card, arch)[kernel]
+    # each serving path reads its own counts, set to 0 just before it; a
+    # kernel that runs on two paths (flash attention: Qwen3-14B, Zamba2-7B)
+    # is listed with its count from the first
+    for arch, (kernels, *_) in SERVE_PATHS.items():
+        counts = phase_serve(card, arch)
+        for kernel in kernels:
+            launches[kernel] = launches[kernel] or counts[kernel]
         phase_serve_profile(card, arch)
         phase_serve_cross_check(arch)
         lap(f"{arch} serving path")

@@ -1,12 +1,13 @@
-"""Configurations of the paper's CNN family, the dense decoder LMs and
-xLSTM, for the PyTorch port.
+"""Configurations of the paper's CNN family, the dense decoder LMs, xLSTM
+and the Zamba2 hybrid, for the PyTorch port.
 
 A copy of what the CNN classification rig and the LM serving paths read
 from the JAX package's ``configs/base.py`` (``SemiSFLConfig``,
-``XLSTMConfig``, the CNN, dense-LM and xLSTM fields of ``ArchConfig``,
-``get_config`` and the CNN, dense-LM and xLSTM branches of
-``smoke_config``), of ``configs/paper_models.py``, ``configs/qwen3_14b.py``
-and ``configs/xlstm_1_3b.py``.  The port keeps its own copy so that it
+``XLSTMConfig``, ``SSMConfig``, the CNN, dense-LM, xLSTM and hybrid fields
+of ``ArchConfig``, ``get_config`` and the CNN, dense-LM, xLSTM and SSM
+branches of ``smoke_config``), of ``configs/paper_models.py``,
+``configs/qwen3_14b.py``, ``configs/xlstm_1_3b.py`` and
+``configs/zamba2_7b.py``.  The port keeps its own copy so that it
 imports nothing of the JAX package."""
 from __future__ import annotations
 
@@ -24,6 +25,16 @@ class XLSTMConfig:
     mlstm_proj_factor: float = 2.0
     slstm_ff_factor: float = 4.0 / 3.0
     mlstm_head_dim: int = 512  # qk head dim after expansion / num_heads
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2-style selective state space configuration."""
+
+    state_dim: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
 
 
 @dataclass(frozen=True)
@@ -48,12 +59,12 @@ class SemiSFLConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """The CNN, dense-LM and xLSTM fields of the JAX package's
+    """The CNN, dense-LM, xLSTM and hybrid fields of the JAX package's
     ``ArchConfig``."""
 
     name: str
     num_layers: int
-    arch_type: str = "cnn"              # cnn | dense | ssm
+    arch_type: str = "cnn"              # cnn | dense | ssm | hybrid
     # --- dense decoder LM ----------------------------------------------------
     d_model: int = 0
     num_heads: int = 0
@@ -71,7 +82,11 @@ class ArchConfig:
     act: str = "silu"                   # silu | gelu | relu
     mlp_gated: bool = True              # SwiGLU-style gate
     # --- block-stack structure -------------------------------------------------
-    block_kind: str = "attn"            # attn | xlstm
+    block_kind: str = "attn"            # attn | mamba2 | xlstm
+    # hybrid (zamba2): one weight-shared attention block applied after every
+    # `shared_attn_period` mamba blocks.
+    shared_attn_period: int = 0
+    ssm: Optional[SSMConfig] = None
     xlstm: Optional[XLSTMConfig] = None
     dtype: str = "bfloat16"
     modality: str = "text"
@@ -137,6 +152,15 @@ _REGISTRY = {c.name: c for c in (
                                  slstm_ff_factor=4.0 / 3.0,
                                  mlstm_head_dim=512),
                rope_kind="none", norm="layernorm", act="gelu"),
+    # Zamba2-7B (arXiv:2411.15242): 81 Mamba2 layers, one weight-shared
+    # attention + MLP block applied after every 6 of them
+    ArchConfig(name="zamba2-7b", arch_type="hybrid", num_layers=81,
+               d_model=3584, num_heads=32, num_kv_heads=32, head_dim=112,
+               d_ff=14336, vocab_size=32000, block_kind="mamba2",
+               shared_attn_period=6,
+               ssm=SSMConfig(state_dim=64, head_dim=64, expand=2,
+                             conv_width=4),
+               rope_theta=10_000.0),
 )}
 
 
@@ -147,9 +171,10 @@ def get_config(name: str) -> ArchConfig:
 
 
 def smoke_config(name: str) -> ArchConfig:
-    """Reduced same-family variant for CPU tests (the CNN, dense-LM and
-    xLSTM branches of the JAX package's ``smoke_config``: 2 layers, or one
-    mLSTM/sLSTM group of 4 for xLSTM, d_model <= 256, vocab <= 512)."""
+    """Reduced same-family variant for CPU tests (the CNN, dense-LM, xLSTM
+    and SSM branches of the JAX package's ``smoke_config``: 2 layers, or one
+    mLSTM/sLSTM group of 4 for xLSTM, or 4 Mamba2 layers with the shared
+    block every 2 for Zamba2, d_model <= 256, vocab <= 512)."""
     cfg = get_config(name)
     if cfg.arch_type != "cnn":
         d_model = min(cfg.d_model, 256)
@@ -169,6 +194,12 @@ def smoke_config(name: str) -> ArchConfig:
             semisfl=replace(cfg.semisfl, split_layer=1, queue_len=64,
                             proj_dim=16, proj_hidden=32, k_s_init=2, k_u=2),
         )
+        if cfg.ssm is not None:
+            kw["ssm"] = replace(cfg.ssm, state_dim=16, head_dim=32)
+            if cfg.shared_attn_period:
+                kw["num_layers"] = 4
+                kw["shared_attn_period"] = 2
+                kw["semisfl"] = replace(kw["semisfl"], split_layer=2)
         if cfg.xlstm is not None:
             kw["xlstm"] = replace(cfg.xlstm, slstm_period=2,
                                   mlstm_head_dim=64)

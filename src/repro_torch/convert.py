@@ -9,8 +9,11 @@ on a leading axis (``"stack"``), the port keeps a list of per-layer trees;
 so does its KV cache.  xLSTM trees are stacked twice in JAX (``"groups"``
 on a group axis, each group's ``"mlstm"`` blocks on a second one); the port
 keeps a list of groups, each with a list of mLSTM blocks, and so does its
-recurrent cache.  bf16 arrays (``ml_dtypes.bfloat16`` in numpy) come
-across bit for bit.
+recurrent cache.  The Zamba2 hybrid's ``stack`` is unstacked likewise and
+its ``shared_attn`` block is one tree on each side; its cache holds a
+segment's SSM caches on a leading layer axis and its shared-block KV caches
+on a leading application axis in JAX, lists in the port.  bf16 arrays
+(``ml_dtypes.bfloat16`` in numpy) come across bit for bit.
 
 The functions take and give numpy arrays, not JAX arrays, so the port
 stays free of JAX: a caller holding JAX arrays passes
@@ -23,6 +26,7 @@ import torch
 from repro_torch.core.engine import SemiSFLState
 from repro_torch.core.queue import FeatureQueue
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SSMCache
 from repro_torch.models.xlstm import MLSTMCache, SLSTMCache
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -100,11 +104,13 @@ def _unstack(tree) -> list:
 
 
 def lm_params_from_numpy(tree, device: str | torch.device = "cpu") -> dict:
-    """The JAX ``DecoderLM.init`` or ``XLSTMModel.init`` tree as numpy ->
-    the port's tree on ``device``.  A ``stack`` (leading layer axis)
-    becomes a list of per-layer trees; ``groups`` (leading group axis, and
-    a second block axis on each group's ``mlstm``) a list of per-group
-    ``{"mlstm": [per-block trees], "slstm": tree}``."""
+    """The JAX ``DecoderLM.init``, ``HybridMamba.init`` or
+    ``XLSTMModel.init`` tree as numpy -> the port's tree on ``device``.  A
+    ``stack`` (leading layer axis) becomes a list of per-layer trees;
+    ``groups`` (leading group axis, and a second block axis on each
+    group's ``mlstm``) a list of per-group ``{"mlstm": [per-block trees],
+    "slstm": tree}``; any other subtree (``embed``, ``shared_attn``, ...)
+    comes across as it is."""
     to_t = lambda sub: tree_map(lambda a: _tensor(a, device), sub)
 
     def half(part: dict) -> dict:
@@ -128,7 +134,10 @@ def lm_cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
     """The JAX ``init_cache`` tree as numpy -> the port's cache on
     ``device``.  ``DecoderLM``: each segment's ``KVCache`` of (k, v, pos)
     with a leading layer axis (a dense model's ``prefix`` segment is None)
-    -> a list of per-layer :class:`KVCache`.  ``XLSTMModel``: each
+    -> a list of per-layer :class:`KVCache`.  ``HybridMamba``: each
+    segment's ``{"ssm": (conv, state) on a layer axis, "shared_kv": (k, v,
+    pos) on an application axis}`` -> ``{"ssm": [SSMCache], "shared_kv":
+    [KVCache]}``.  ``XLSTMModel``: each
     segment's ``{"mlstm": (C, n, m) on (groups, blocks, ...), "slstm": (h,
     c, n, m) on (groups, ...)}`` -> ``{"groups": [{"mlstm": [MLSTMCache],
     "slstm": SLSTMCache}]}``."""
@@ -147,6 +156,14 @@ def lm_cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
              "slstm": SLSTMCache(*(t(a[g]) for a in sc))}
             for g in range(mc[0].shape[0])]}
 
+    def hybrid_segment(c):
+        conv, state = c["ssm"]
+        return {"ssm": [SSMCache(t(conv[i]), t(state[i]))
+                        for i in range(len(conv))],
+                "shared_kv": segment(c["shared_kv"])}
+
+    if "ssm" in cache["bottom"]:
+        return {seg: hybrid_segment(cache[seg]) for seg in ("bottom", "top")}
     if "stack" not in cache["bottom"]:
         return {seg: xlstm_segment(cache[seg]) for seg in ("bottom", "top")}
     if cache["bottom"].get("prefix") is not None:
@@ -158,6 +175,8 @@ def lm_cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
 def lm_cache_to_numpy(cache: dict) -> dict:
     """The port's cache -> numpy in the JAX layout: for ``DecoderLM``
     {segment: (k, v, pos)} with a leading layer axis (k and v as fp32); for
+    ``HybridMamba`` {segment: {"ssm": (conv, state), "shared_kv": (k, v,
+    pos)}} with leading layer and application axes (as fp32 but pos); for
     ``XLSTMModel`` {segment: {"mlstm": (C, n, m), "slstm": (h, c, n, m)}}
     with leading (groups, blocks) and (groups,) axes."""
     a = lambda t: t.float().cpu().numpy()
@@ -176,6 +195,13 @@ def lm_cache_to_numpy(cache: dict) -> dict:
                 "slstm": tuple(np.stack([a(g["slstm"][i]) for g in groups])
                                for i in range(len(SLSTMCache._fields)))}
 
+    def hybrid_segment(c):
+        return {"ssm": tuple(np.stack([a(layer[i]) for layer in c["ssm"]])
+                             for i in range(len(SSMCache._fields))),
+                "shared_kv": segment(c["shared_kv"])}
+
+    if "ssm" in cache["bottom"]:
+        return {seg: hybrid_segment(cache[seg]) for seg in ("bottom", "top")}
     if "groups" in cache["bottom"]:
         return {seg: xlstm_segment(cache[seg]) for seg in ("bottom", "top")}
     return {"bottom": segment(cache["bottom"]["stack"]),

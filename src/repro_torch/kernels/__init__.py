@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import clustering_loss as _cl
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba2_scan as _m2
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels import slstm_scan as _sl
@@ -78,12 +79,29 @@ def slstm_scan(wx: torch.Tensor, r: torch.Tensor,
     return ref.slstm_scan_ref(wx, r, state)
 
 
+def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 (SSD) selective scan from a zero state: x (B, S, nh, hd),
+    dt (B, S, nh) fp32, A and D (nh,) fp32, B and C (B, S, N) shared by all
+    heads.  Returns y (B, S, nh, hd) in x's dtype and the final state (B,
+    nh, hd, N) in fp32.  On the card x, B, C and dt may be any views whose
+    last dim is contiguous."""
+    if _route(x, "mamba2_scan") == "cuda":
+        return _m2.mamba2_scan_cuda(x, dt, A, B, C, D)
+    return ref.mamba2_scan_ref(x, dt, A, B, C, D)
+
+
+_COUNTS = (_cl.LAUNCHES, _q.LAUNCHES, _fa.LAUNCHES, _sl.LAUNCHES,
+           _m2.LAUNCHES)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last reset."""
-    return {**_cl.LAUNCHES, **_q.LAUNCHES, **_fa.LAUNCHES, **_sl.LAUNCHES}
+    return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_cl.LAUNCHES, _q.LAUNCHES, _fa.LAUNCHES, _sl.LAUNCHES):
+    for counts in _COUNTS:
         for k in counts:
             counts[k] = 0

@@ -7,7 +7,8 @@ a changed source is rebuilt and an unchanged one is loaded as it is.  The
 sources are compiled without ``--use_fast_math``: the quantizer must be
 bit-exact, which needs IEEE division and round-half-to-even, and flash
 attention's ``expf`` of masked scores and the sLSTM's of its -1e30
-stabilizer must give 0, not NaN.  A build or
+stabilizer must give 0, not NaN, and the Mamba2 scan's decays must
+underflow to 0.  A build or
 load failure raises; nothing falls back."""
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("clustering_loss", "flash_attention", "quantize", "slstm_scan")
+SOURCES = ("clustering_loss", "flash_attention", "mamba2_scan", "quantize",
+           "slstm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the port's kernels.
 
 The same maths as the JAX package's ``kernels/ref.py`` (``flash_attention_ref``,
-``clustering_loss_ref``, ``quantize_dequantize_ref`` and ``slstm_scan_ref``),
-written in the most direct form: the full (Sq, Skv) and (B, Q) logit
-matrices, one amax per tensor or per leading slice, one Python step per
-time step of the sLSTM recurrence.  The wrappers
+``clustering_loss_ref``, ``quantize_dequantize_ref``, ``slstm_scan_ref`` and
+``mamba2_scan_ref``), written in the most direct form: the full (Sq, Skv)
+and (B, Q) logit matrices, one amax per tensor or per leading slice, one
+Python step per time step of the sLSTM and Mamba2 recurrences.  The wrappers
 in ``repro_torch.kernels`` take these for tensors on the CPU; the CUDA
 kernels are held against them on the card."""
 from __future__ import annotations
@@ -161,3 +161,32 @@ def slstm_scan_ref(wx: torch.Tensor, r: torch.Tensor,
         m = m_new
         hs.append(h)
     return torch.stack(hs, 1).to(wx.dtype), (h, c, n, m)
+
+
+def mamba2_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSM recurrence from a zero state, in fp32.
+
+    x: (b, S, nh, hd); dt: (b, S, nh); A, D: (nh,); B, C: (b, S, N), one
+    group shared by all heads::
+
+      h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t^T;  y_t = h_t . C_t + D x_t
+
+    Returns y (b, S, nh, hd) in x's dtype and the final h (b, nh, hd, N) in
+    fp32, the layout of the model's decode cache."""
+    b, s, nh, hd = x.shape
+    n = B.shape[-1]
+    Af, Df = A.float(), D.float()
+    h = torch.zeros(b, nh, hd, n, device=x.device)
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].float()                              # (b, nh)
+        xt = x[:, t].float()                                # (b, nh, hd)
+        alpha = torch.exp(dtt * Af)
+        xdt = xt * dtt[..., None]
+        h = h * alpha[..., None, None] + torch.einsum(
+            "bhd,bn->bhdn", xdt, B[:, t].float())
+        y = torch.einsum("bhdn,bn->bhd", h, C[:, t].float())
+        ys.append(y + Df[None, :, None] * xt)
+    return torch.stack(ys, 1).to(x.dtype), h

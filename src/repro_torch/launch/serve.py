@@ -1,12 +1,14 @@
 """Split-inference serving launcher for the PyTorch port: batched prefill
 then greedy decode through the bottom (client) / top (server) split of a
-decoder LM, dense (``qwen3-14b``) or xLSTM (``xlstm-1.3b``) (the JAX
-package's ``launch/serve.py``), on the card unless ``device="cpu"`` is
-asked for:
+decoder LM, dense (``qwen3-14b``), xLSTM (``xlstm-1.3b``) or the Mamba2
+hybrid (``zamba2-7b``) (the JAX package's ``launch/serve.py``), on the card
+unless ``device="cpu"`` is asked for:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
       --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --device cpu
 
 ``serve`` keeps the JAX launcher's defaults (the smoke config of the

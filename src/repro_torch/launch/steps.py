@@ -1,13 +1,14 @@
-"""Split-inference serving steps of the decoder LMs (dense and xLSTM): the
-JAX package's ``launch/steps.py::make_prefill_step`` and
-``make_decode_step`` as plain functions, with no step plan, mesh or
+"""Split-inference serving steps of the decoder LMs (dense, xLSTM and the
+Zamba2 hybrid): the JAX package's ``launch/steps.py::make_prefill_step``
+and ``make_decode_step`` as plain functions, with no step plan, mesh or
 sharding.
 
 Each step runs the bottom (client) half, hands its features to the top
-(server) half, and returns the cache of both halves.  The dense model's KV
-caches are written in place (``models/attention.py``); xLSTM's recurrent
-states are returned anew.  xLSTM takes no positions and ignores the decode
-step's."""
+(server) half, and returns the cache of both halves.  KV caches (the dense
+model's, Zamba2's shared block's) are written in place
+(``models/attention.py``); the recurrent states of xLSTM and of Zamba2's
+Mamba2 layers are returned anew.  xLSTM takes no positions and ignores the
+decode step's."""
 from __future__ import annotations
 
 from typing import Callable

@@ -1,6 +1,6 @@
 """The split decoder LMs (the JAX package's ``models/transformer.py``:
-``DecoderLM`` with dense MLP layers, and ``XLSTMModel``) and the port's
-model builder.
+``DecoderLM`` with dense MLP layers, ``HybridMamba`` and ``XLSTMModel``)
+and the port's model builder.
 
 Parameters are ``{"bottom": ..., "top": ...}`` from construction:
 
@@ -10,9 +10,8 @@ Parameters are ``{"bottom": ..., "top": ...}`` from construction:
 Where JAX stacks a segment's layers on a leading axis and scans over them,
 the port keeps a list of per-layer parameter dicts (``"stack"``, or
 ``"groups"`` for xLSTM) and loops in Python; ``convert.lm_params_from_numpy``
-unstacks the JAX tree.  MoE, MLA, Mamba2 hybrids, the unscanned prefix
-layers, vision inputs and the long-context window override are not ported
-yet."""
+unstacks the JAX tree.  MoE, MLA, the unscanned prefix layers, vision
+inputs and the long-context window override are not ported yet."""
 from __future__ import annotations
 
 from typing import Optional
@@ -26,6 +25,7 @@ from repro_torch.models.attention import (KVCache, apply_attention,
 from repro_torch.models.common import (apply_mlp, apply_norm, dense_init,
                                        embed_init, init_mlp, init_norm)
 from repro_torch.models.rope import default_positions
+from repro_torch.models.ssm import apply_ssm, init_ssm, init_ssm_cache
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -172,6 +172,120 @@ class DecoderLM:
         return out, {"stack": new_stack_cache}
 
 
+class HybridMamba(DecoderLM):
+    """zamba2: Mamba2 layers, with one weight-shared attention + MLP block
+    applied after every ``shared_attn_period``-th layer.  ``stack`` is a
+    list of per-layer ``{"norm", "ssm"}``; each side of the split owns its
+    replica of the shared block (``shared_attn``), untied across the split
+    as in JAX.  A segment's cache is ``{"ssm": [SSMCache per layer],
+    "shared_kv": [KVCache per application of the shared block]}``."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+        # snap the split to a period boundary so that each side applies the
+        # shared block a whole number of times
+        per = self._period()
+        self.split = max(per, (cfg.split_layer // per) * per)
+        self.split = min(self.split, max(per, cfg.num_layers - per))
+
+    def _period(self) -> int:
+        return self.cfg.shared_attn_period or self.cfg.num_layers
+
+    def _init_mamba_stack(self, n: int, generator: torch.Generator,
+                          device: torch.device | str) -> list:
+        cfg, dt = self.cfg, _dtype(self.cfg)
+        return [{"norm": init_norm(cfg.d_model, cfg.norm, device, dt),
+                 "ssm": init_ssm(cfg, generator, device, dt)}
+                for _ in range(n)]
+
+    def init(self, generator: torch.Generator,
+             device: torch.device | str) -> dict:
+        """Parameters drawn from ``generator`` (in fp32 on its device), in
+        ``cfg.dtype`` on ``device`` but for the fp32 ``A_log``, ``D`` and
+        ``dt_bias`` of each Mamba2 layer."""
+        cfg = self.cfg
+        dt = _dtype(cfg)
+        n_b, n_t = self.split, cfg.num_layers - self.split
+        bottom = {"embed": embed_init(cfg.vocab_size, cfg.d_model, generator,
+                                      device, dt),
+                  "stack": self._init_mamba_stack(n_b, generator, device),
+                  "shared_attn": _init_attn_layer(cfg, generator, device)}
+        top = {"stack": self._init_mamba_stack(n_t, generator, device),
+               "shared_attn": _init_attn_layer(cfg, generator, device),
+               "final_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
+               "lm_head": dense_init(cfg.d_model, cfg.vocab_size, generator,
+                                     device, dt)}
+        return {"bottom": bottom, "top": top}
+
+    def _seg_cache(self, n: int, batch: int, max_len: int,
+                   device: torch.device | str) -> dict:
+        cfg = self.cfg
+        n_apps = n // self._period()
+        return {"ssm": [init_ssm_cache(batch, cfg, _dtype(cfg), device)
+                        for _ in range(n)],
+                "shared_kv": _init_stacked_kv_cache(max(n_apps, 1), batch,
+                                                    max_len, cfg, device)}
+
+    def init_cache(self, batch: int, max_len: int,
+                   device: torch.device | str) -> dict:
+        """Each segment's SSM caches and shared-block KV caches (the
+        long-context ring buffers are not ported)."""
+        n_b, n_t = self.split, self.cfg.num_layers - self.split
+        return {"bottom": self._seg_cache(n_b, batch, max_len, device),
+                "top": self._seg_cache(n_t, batch, max_len, device)}
+
+    def _run_segment(self, params: dict, x: torch.Tensor, *,
+                     positions: torch.Tensor, mode: str,
+                     cache: Optional[dict], layer0: int):
+        cfg = self.cfg
+        per = self._period()
+        n = len(params["stack"])
+        cache = cache or {}
+        ssm_caches = cache.get("ssm") or [
+            init_ssm_cache(x.shape[0], cfg, _dtype(cfg), x.device)
+            for _ in range(n)]
+        shared_kv = cache.get("shared_kv")
+        new_ssm = []
+        for idx, p_i in enumerate(params["stack"]):
+            h = apply_norm(p_i["norm"], x, cfg.norm)
+            out, c = apply_ssm(p_i["ssm"], cfg, h, mode=mode,
+                               cache=ssm_caches[idx])
+            x = x + out
+            new_ssm.append(c)
+            if (layer0 + idx + 1) % per == 0:
+                app = (layer0 + idx + 1) // per - 1 - layer0 // per
+                # the JAX model's do_shared: the same computation as an
+                # attention layer with a dense MLP
+                x, kv = _apply_attn_layer(
+                    params["shared_attn"], cfg, x, positions=positions,
+                    mode=mode,
+                    cache=None if shared_kv is None else shared_kv[app])
+                if shared_kv is not None:
+                    shared_kv[app] = kv
+        return x, {"ssm": new_ssm, "shared_kv": shared_kv}
+
+    def bottom_apply(self, params: dict, batch_inputs: dict, *,
+                     mode: str = "train", cache: Optional[dict] = None):
+        """Client side: embed the tokens and run the bottom layers."""
+        tokens = batch_inputs["tokens"]
+        b, s = tokens.shape
+        x = params["embed"][tokens]
+        positions = self._positions(batch_inputs, b, s, tokens.device)
+        x, new_cache = self._run_segment(params, x, positions=positions,
+                                         mode=mode, cache=cache, layer0=0)
+        return x, new_cache, {"positions": positions}
+
+    def top_apply(self, params: dict, features: torch.Tensor, *,
+                  extras: dict, mode: str = "train",
+                  cache: Optional[dict] = None):
+        """Server side: the top layers, the final norm and the LM head."""
+        x, new_cache = self._run_segment(
+            params, features, positions=extras["positions"], mode=mode,
+            cache=cache, layer0=self.split)
+        x = apply_norm(params["final_norm"], x, self.cfg.norm)
+        return {"logits": _lm_logits(params, x)}, new_cache
+
+
 class XLSTMModel:
     """xlstm-1.3b: groups of (period - 1) mLSTM blocks + 1 sLSTM block, the
     split snapped to a group boundary.  ``groups`` is a list of per-group
@@ -268,11 +382,13 @@ class XLSTMModel:
 
 
 def build_model(cfg: ArchConfig):
-    """The model class of ``cfg``: the paper's CNNs, the dense decoder LMs
-    and xLSTM are ported; the other families raise."""
+    """The model class of ``cfg``: the paper's CNNs, the dense decoder LMs,
+    the Zamba2 hybrid and xLSTM are ported; the other families raise."""
     if cfg.arch_type == "cnn":
         from repro_torch.models.cnn import CNNModel
         return CNNModel(cfg)
+    if cfg.block_kind == "mamba2":
+        return HybridMamba(cfg)
     if cfg.block_kind == "xlstm":
         return XLSTMModel(cfg)
     return DecoderLM(cfg)

@@ -12,7 +12,8 @@ reference suite's ``TOLS`` (tests/test_kernels.py); the clustering loss to
 Pallas kernel (the sum over the queue runs in another order); the quantizer
 bit for bit; the sLSTM scan to atol 1e-5 / rtol 1e-4, as
 tests/test_kernels.py holds the Pallas kernel (the recurrent product sums
-in another order)."""
+in another order); the Mamba2 scan to 5e-5 of max|y|, as
+tests/test_kernels.py holds the Pallas kernel."""
 from dataclasses import replace
 
 import jax
@@ -25,9 +26,11 @@ from repro.core.wire import quantize_grad as jax_quantize_grad
 from repro.kernels import ref as jref
 from repro.kernels.clustering_loss import clustering_loss_pallas
 from repro.kernels.flash_attention import flash_attention as flash_pallas
+from repro.kernels.mamba2_scan import mamba2_scan as mamba2_pallas
 from repro.configs import smoke_config as jax_smoke_config
 from repro.kernels.quantize import quantize_dequantize_pallas
 from repro.kernels.slstm_scan import slstm_scan as slstm_pallas
+from repro.models import ssm as jssm
 from repro.models import xlstm as jxl
 from repro.models.attention import _chunked_attend
 from repro_torch import kernels
@@ -264,10 +267,14 @@ def test_cpu_tensors_take_the_plain_versions():
     got, want = kernels.slstm_scan(wx, r), tref.slstm_scan_ref(wx, r)
     assert torch.equal(got[0], want[0])
     assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    ssd = [torch.randn(2, 8, 2, 16), torch.rand(2, 8, 2), -torch.rand(2),
+           torch.randn(2, 8, 4), torch.randn(2, 8, 4), torch.rand(2)]
+    got, want = kernels.mamba2_scan(*ssd), tref.mamba2_scan_ref(*ssd)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert all(v == 0 for v in kernels.launch_counts().values())
     assert set(kernels.launch_counts()) == {
         "clustering_fwd", "clustering_bwd", "quantize_amax", "quantize_qdq",
-        "flash_attention", "slstm_scan"}
+        "flash_attention", "slstm_scan", "mamba2_scan"}
 
 
 def test_wrappers_refuse_other_devices():
@@ -388,3 +395,97 @@ def test_slstm_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         sl.slstm_scan_cuda(torch.zeros(1, 4, 4, 2, 32),
                            torch.zeros(2, 32, 128))
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) scan
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's Mamba2 sweep (b, s, nh, hd, n), S = 1 and a
+# ragged S = 300 (the Pallas kernel halves its chunk of 128 down to 4)
+MAMBA2_SHAPES = [(1, 64, 2, 32, 16), (2, 128, 4, 64, 64),
+                 (1, 256, 2, 64, 64), (2, 1, 2, 32, 16), (2, 300, 2, 32, 16)]
+# as tests/test_kernels.py holds the Pallas kernel: |err| / max|y|
+MAMBA2_TOL = 5e-5
+
+
+def _mamba2_case(b, s, nh, hd, n, seed):
+    """tests/test_kernels.py's inputs, in fp32 numpy."""
+    rng = np.random.RandomState(seed)
+    f = lambda a: np.asarray(a, np.float32)
+    return (f(rng.randn(b, s, nh, hd)), f(rng.rand(b, s, nh) * 0.5 + 0.01),
+            f(-(rng.rand(nh) * 0.9 + 0.1)), f(rng.randn(b, s, n)),
+            f(rng.randn(b, s, n)), f(rng.rand(nh)))
+
+
+def _rel_close(got, want, tol=MAMBA2_TOL):
+    want = np.asarray(want, np.float32)
+    scale = float(np.abs(want).max()) + 1e-6
+    np.testing.assert_allclose(np.asarray(got, np.float32) / scale,
+                               want / scale, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("b,s,nh,hd,n", MAMBA2_SHAPES)
+def test_mamba2_scan_matches_jax(b, s, nh, hd, n):
+    """The plain version from zeros against the JAX reference and the
+    Pallas kernel in interpret mode."""
+    arrs = _mamba2_case(b, s, nh, hd, n, s)
+    got, state = kernels.mamba2_scan(*(torch.from_numpy(a) for a in arrs))
+    assert got.shape == (b, s, nh, hd) and got.dtype == torch.float32
+    assert state.shape == (b, nh, hd, n) and state.dtype == torch.float32
+    jarrs = [jnp.asarray(a) for a in arrs]
+    for want in (jref.mamba2_scan_ref(*jarrs),
+                 mamba2_pallas(*jarrs, interpret=True)):
+        _rel_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("s", [1, 64, 300])
+def test_mamba2_scan_state_matches_the_jax_model(s):
+    """The final state against ``models/ssm.py::_final_state`` (the second
+    scan the JAX model's prefill runs for decode, chunk 256 halved until it
+    divides S) and y against ``ssd_chunked``, the model's prefill scan."""
+    b, nh, hd, n = 2, 2, 32, 16
+    arrs = _mamba2_case(b, s, nh, hd, n, 40 + s)
+    got_y, got_state = kernels.mamba2_scan(*(torch.from_numpy(a)
+                                             for a in arrs))
+    x, dt, A, B, C, D = (jnp.asarray(a) for a in arrs)
+    _rel_close(got_state.numpy(), jssm._final_state(x, dt, A, B))
+    _rel_close(got_y.numpy(), jssm.ssd_chunked(x, dt, A, B, C, D, 256))
+
+
+def test_mamba2_scan_reads_strided_bf16_views():
+    """x, B and C as the model hands them over: bf16 slices of one (B, S,
+    d_in + 2N) conv output.  The plain version computes in fp32 and rounds
+    y once to bf16, as the JAX reference does on the same rounded values."""
+    b, s, nh, hd, n = 2, 48, 2, 32, 16
+    d_in = nh * hd
+    rng = np.random.RandomState(7)
+    conv = torch.from_numpy(rng.randn(b, s, d_in + 2 * n).astype(
+        np.float32)).to(torch.bfloat16)
+    x = conv[..., :d_in].reshape(b, s, nh, hd)
+    B, C = conv[..., d_in:d_in + n], conv[..., d_in + n:]
+    assert not x.is_contiguous() and not B.is_contiguous()
+    dt = torch.from_numpy((rng.rand(b, s, nh) * 0.5 + 0.01).astype(
+        np.float32))
+    A = torch.from_numpy(-(rng.rand(nh) * 0.9 + 0.1).astype(np.float32))
+    D = torch.from_numpy(rng.rand(nh).astype(np.float32))
+    got, state = kernels.mamba2_scan(x, dt, A, B, C, D)
+    assert got.dtype == torch.bfloat16
+    want, want_state = tref.mamba2_scan_ref(
+        x.contiguous(), dt, A, B.contiguous(), C.contiguous(), D)
+    assert torch.equal(got, want) and torch.equal(state, want_state)
+    jy = jref.mamba2_scan_ref(*(jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16) if t.dtype == torch.bfloat16 else
+        jnp.asarray(t.numpy()) for t in (x, dt, A, B, C, D)))
+    # one bf16 rounding of y on each side: at most one bf16 ulp apart
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jy, np.float32), rtol=2 ** -7,
+                               atol=1e-6)
+
+
+def test_mamba2_cuda_wrapper_refuses_cpu_tensors():
+    from importlib import import_module
+    m2 = import_module("repro_torch.kernels.mamba2_scan")
+    arrs = [torch.from_numpy(a) for a in _mamba2_case(1, 4, 2, 32, 16, 0)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        m2.mamba2_scan_cuda(*arrs)

@@ -88,6 +88,8 @@ def test_cuda_entry_points_raise_without_a_card():
         serve_config(get_config("qwen3-14b"), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_config(get_config("xlstm-1.3b"))       # the default is cuda
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve("zamba2-7b")                           # the default is cuda
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
