@@ -12,9 +12,13 @@ Phases, in order; any failure exits nonzero:
   3. hold each kernel against its plain PyTorch version on the card
      (clustering loss and dz at the shapes of the JAX kernel tests, an
      empty queue and the training round's shape; int8/fp8 quantization bit
-     for bit; flash attention at the JAX kernel tests' shapes, windows and
-     non-causal case, at ragged lengths, with 5 query heads per KV head and
-     at Qwen3-14B's prefill shape; the sLSTM scan, h and final state, at
+     for bit; flash attention, fp32 through the CUDA-core kernel and bf16
+     through the wgmma one, at the JAX kernel tests' shapes, windows and
+     non-causal case, at ragged lengths, with 5 query heads per KV head,
+     then in bf16 off the 128-row tiles, with a window across tile edges,
+     groups of 5 and 8, a peaked softmax and every head dim, and at
+     Qwen3-14B's and Zamba2-7B's prefill shapes; the sLSTM scan, h and
+     final state, at
      the JAX kernel tests' shapes, at S = 1, from a non-fresh state, at the
      xLSTM smoke shape and at xLSTM-1.3B's prefill shape; the Mamba2 scan,
      y and final state, at the JAX kernel tests' shapes, at S = 1 and
@@ -37,8 +41,9 @@ Phases, in order; any failure exits nonzero:
      (``repro_torch.launch.serve.serve_config``: 40 layers, width 5120,
      bf16, weights drawn on the card from seed 0), batch 4, a 2048-token
      prompt, 32 greedy tokens, with its parameters counted first and the
-     launch counts read after the prefill and after the decode, then the
-     same run again under ``torch.profiler``;
+     launch counts read after the prefill and after the decode (40 flash
+     launches in the prefill, all of them the wgmma kernel's, none in
+     decode), then the same run again under ``torch.profiler``;
   8. card against CPU on the serving path: the same fp32 weights of a
      2-layer Qwen3-14B at full width, one prefill of 256 tokens and 4
      decode steps on each;
@@ -53,7 +58,8 @@ Phases, in order; any failure exits nonzero:
      (``serve_config``: 81 Mamba2 layers, the weight-shared attention +
      MLP block after every 6, split 18 + 63, width 3584, bf16, weights
      drawn on the card from seed 0), as phase 7, with 81 Mamba2-scan and 13
-     flash-attention launches required in the prefill and none in decode;
+     flash-attention launches (all of them the wgmma kernel's) required in
+     the prefill and none in decode;
  12. card against CPU on the Zamba2 path: the same fp32 weights of a
      4-layer Zamba2-7B at full width (shared block every 2 layers, split
      2 + 2), one prefill of 256 tokens and 4 decode steps on each;
@@ -107,6 +113,24 @@ FLASH_CASES = [
     (2, 2, 2, 128, 256, 64, False, 0), (1, 10, 2, 200, 200, 128, True, 0),
     (2, 10, 2, 1000, 1000, 128, True, 0), (1, 5, 1, 77, 300, 96, False, 0),
     (1, 4, 2, 33, 33, 32, True, 16)]
+# bf16 only, for what the wgmma kernel can get wrong: (b, h, kvh, sq, skv,
+# hd, causal, window, q scale).  Sq and Skv off the 128-row tiles (1000,
+# 129, 77 over 300 non-causal, 300 over 77 causal), a window of 200 across
+# tile edges, groups of 5 and 8, a peaked softmax (q scaled by 8, so that P
+# rounds near 1); phase 3 adds every head dim and Zamba2-7B's shape.
+FLASH_BF16_CASES = [
+    (1, 4, 4, 1000, 1000, 128, True, 0, 1.0),
+    (2, 4, 2, 129, 129, 128, True, 0, 1.0),
+    (1, 5, 1, 77, 300, 128, False, 0, 1.0),
+    (1, 4, 2, 300, 77, 112, True, 0, 1.0),
+    (1, 4, 2, 1000, 1000, 128, True, 200, 1.0),
+    (1, 4, 2, 1000, 1000, 112, True, 200, 1.0),
+    (1, 10, 2, 512, 512, 128, True, 0, 1.0),
+    (1, 16, 2, 384, 384, 112, True, 0, 1.0),
+    (1, 4, 2, 512, 512, 128, True, 0, 8.0),
+    (1, 4, 1, 700, 700, 112, True, 0, 8.0)]
+# Zamba2-7B's shared attention block: 32 heads of 112, no GQA
+ZAMBA_HEADS, ZAMBA_HD = 32, 112
 # the reference suite's TOLS (tests/test_kernels.py)
 FLASH_TOLS = {"float32": 2e-4, "bfloat16": 3e-2}
 
@@ -247,6 +271,9 @@ def phase_device():
 
 def phase_build():
     from repro_torch.kernels import build
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60)
+    print(f"[build] {nvcc.stdout.strip().splitlines()[-1]}")
     t0 = time.time()
     reports = build.build_all()
     print(f"[build] {len(reports)} libraries built in "
@@ -454,19 +481,70 @@ def _attn_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(mask.sum())
 
 
-def phase_flash(card: str) -> dict:
-    """Flash attention against its plain version on the card, then timed at
-    the serving path's prefill shape in the model's layout."""
+def _time_flash(card: str, model: str, h: int, kvh: int, hd: int,
+                check) -> dict:
+    """Check, then time, the bf16 kernel at ``model``'s prefill shape in the
+    model's layout: (B, S, heads, hd) projections handed over as (B, heads,
+    S, hd) views, causal.  Kernel, plain version, one
+    ``scaled_dot_product_attention`` call and the bound; printed, never a
+    reason to fail."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    b, s, bf = SERVE_BATCH, SERVE_PROMPT, torch.bfloat16
+    view = lambda n: torch.randn(b, s, n, hd, generator=gen, device="cuda"
+                                 ).to(bf).transpose(1, 2)
+    q, k, v = view(h), view(kvh), view(kvh)
+    err = check(q, k, v, f"{model} prefill shape bf16 q {tuple(q.shape)} kv "
+                f"{tuple(k.shape)} (strided views)", FLASH_TOLS["bfloat16"])[1]
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    n_flops = 4 * b * h * hd * _attn_pairs(s, s, True, 0)
+    t = dict(
+        ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v), iters=20,
+                   warmup=3),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5,
+                         warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters=20, warmup=3),
+        bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
+    print(f"[timing] flash_attention at {model}'s prefill, q "
+          f"{tuple(q.shape)} kv {tuple(k.shape)} bf16 causal "
+          f"({n_flops:.4g} operations, {n_bytes / 1e6:.1f} MB): kernel "
+          f"{t['ms'][0]:.4f} ms (events {t['ms'][1]:.4f}), plain "
+          f"{t['plain_ms'][0]:.4f} ms (events {t['plain_ms'][1]:.4f}), "
+          f"library (scaled_dot_product_attention) {t['library_ms'][0]:.4f} "
+          f"ms (events {t['library_ms'][1]:.4f}), bound {t['bound'][0]:.4f} "
+          f"ms ({t['bound'][1]}); kernel at "
+          f"{n_flops / t['ms'][0] / 1e9:.1f} TFLOP/s, "
+          f"{t['bound'][0] / t['ms'][0]:.3f} of the bound, "
+          f"{t['ms'][0] / t['library_ms'][0]:.2f}x the library's time; "
+          f"on {card}")
+    for key in ("ms", "plain_ms", "library_ms"):
+        t[key] = t[key][0]
+    return {"err": err, "timing": t}
+
+
+def phase_flash(card: str) -> dict:
+    """Flash attention against its plain version on the card: every
+    ``FLASH_CASES`` entry in fp32 (the CUDA-core kernel) and bf16 (the
+    wgmma kernel), the bf16-only cases and every head dim in bf16, rows
+    that see no key in both types; then checked and timed at Qwen3-14B's
+    and Zamba2-7B's prefill shapes.  Each bf16 check must launch the wgmma
+    kernel once."""
+    import torch
+
+    from repro_torch.kernels import ref
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     gen = torch.Generator(device="cuda").manual_seed(12)
     randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    bf = torch.bfloat16
     err = 0.0
 
     def check(q, k, v, what, tol, causal=True, window=0):
+        before = fa.LAUNCHES["flash_attention_wgmma"]
         got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -475,57 +553,47 @@ def phase_flash(card: str) -> dict:
         if got.dtype != q.dtype or got.stride() != q.stride():
             fail(f"flash {what}: output {got.dtype} {got.stride()}, want "
                  f"{q.dtype} {q.stride()}")
+        if fa.LAUNCHES["flash_attention_wgmma"] - before != (q.dtype == bf):
+            fail(f"flash {what}: the wgmma kernel ran "
+                 f"{fa.LAUNCHES['flash_attention_wgmma'] - before} times")
         if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
             fail(f"flash attention {what} differs from the plain version by "
                  f"{e}")
         return got, e
 
+    def case(dt, tol, b, h, kvh, sq, skv, hd, causal, window, scale=1.0):
+        q = (randn(b, h, sq, hd) * scale).to(dt)
+        k, v = randn(b, kvh, skv, hd).to(dt), randn(b, kvh, skv, hd).to(dt)
+        what = (f"{dt} q ({b}, {h}, {sq}, {hd}) kv ({kvh}, {skv}) "
+                f"causal={causal} window={window}"
+                + (f" q x {scale:g}" if scale != 1.0 else ""))
+        return check(q, k, v, what, tol, causal, window)[1]
+
+    for dname, tol in FLASH_TOLS.items():
+        for c in FLASH_CASES:
+            err = max(err, case(getattr(torch, dname), tol, *c))
+    tol = FLASH_TOLS["bfloat16"]
+    for c in FLASH_BF16_CASES:
+        err = max(err, case(bf, tol, *c))
+    for hd in fa.HEAD_DIMS:
+        err = max(err, case(bf, tol, 1, 4, 2, 300, 300, hd, True, 0))
+    # causal over 16 keys with a window of 8: rows 23 on see no key -> 0
     for dname, tol in FLASH_TOLS.items():
         dt = getattr(torch, dname)
-        for b, h, kvh, sq, skv, hd, causal, window in FLASH_CASES:
-            q = randn(b, h, sq, hd).to(dt)
-            k, v = randn(b, kvh, skv, hd).to(dt), randn(b, kvh, skv, hd).to(dt)
-            what = (f"{dname} q ({b}, {h}, {sq}, {hd}) kv ({kvh}, {skv}) "
-                    f"causal={causal} window={window}")
-            err = max(err, check(q, k, v, what, tol, causal, window)[1])
-    # causal over 16 keys with a window of 8: rows 23 on see no key -> 0
-    q, k = randn(1, 2, 64, 32), randn(1, 1, 16, 32)
-    got, _ = check(q, k, k, "rows that see no key", FLASH_TOLS["float32"],
-                   window=8)
-    if float(got[:, :, 23:].abs().max()) != 0.0:
-        fail("flash attention: a row that sees no key is not 0")
+        q, k = randn(1, 2, 64, 32).to(dt), randn(1, 1, 16, 32).to(dt)
+        got, _ = check(q, k, k, f"{dname} rows that see no key", tol,
+                       window=8)
+        if float(got[:, :, 23:].abs().max()) != 0.0:
+            fail(f"flash attention ({dname}): a row that sees no key is "
+                 "not 0")
 
-    # the serving path's shape, in the model's layout: (B, S, heads, hd)
-    # projections handed over as (B, heads, S, hd) views
-    b, h, kvh, s, hd = SERVE_BATCH, 40, 8, SERVE_PROMPT, 128
-    bf = torch.bfloat16
-    q = randn(b, s, h, hd).to(bf).transpose(1, 2)
-    k = randn(b, s, kvh, hd).to(bf).transpose(1, 2)
-    v = randn(b, s, kvh, hd).to(bf).transpose(1, 2)
-    err = max(err, check(q, k, v, f"serve shape bf16 q {tuple(q.shape)} kv "
-                         f"{tuple(k.shape)} (strided views)",
-                         FLASH_TOLS["bfloat16"])[1])
-    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    n_flops = 4 * b * h * hd * _attn_pairs(s, s, True, 0)
-    t = dict(
-        ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v), iters=10,
-                   warmup=2),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5,
-                         warmup=1),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters=10, warmup=2),
-        bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
-    print(f"[timing] flash_attention at q {tuple(q.shape)} kv "
-          f"{tuple(k.shape)} bf16 causal ({n_flops:.4g} operations, "
-          f"{n_bytes / 1e6:.1f} MB): kernel {t['ms'][0]:.4f} ms (events "
-          f"{t['ms'][1]:.4f}), plain {t['plain_ms'][0]:.4f} ms (events "
-          f"{t['plain_ms'][1]:.4f}), library (scaled_dot_product_attention) "
-          f"{t['library_ms'][0]:.4f} ms (events {t['library_ms'][1]:.4f}), "
-          f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}); kernel at "
-          f"{n_flops / t['ms'][0] / 1e9:.1f} TFLOP/s on {card}")
-    for key in ("ms", "plain_ms", "library_ms"):
-        t[key] = t[key][0]
-    return {"err": err, "timing": t}
+    # the serving paths' shapes; the first is the kernel's row in the
+    # ``kernels`` line
+    qwen = _time_flash(card, "Qwen3-14B", 40, 8, 128, check)
+    zamba = _time_flash(card, "Zamba2-7B", ZAMBA_HEADS, ZAMBA_HEADS,
+                        ZAMBA_HD, check)
+    return {"err": max(err, qwen["err"], zamba["err"]),
+            "timing": qwen["timing"]}
 
 
 def _slstm_inputs(b, s, nh, hd, with_state, f_bias, seed):
@@ -870,14 +938,18 @@ def phase_profile(card: str, trained) -> None:
 
 # each serving path: arch -> ({its ported kernels' count name: profiler
 # name}, the config cut in depth for the card-vs-CPU check, the log tag)
+# (each "flash_kernel" name matches both flash kernels; the bf16 prefills
+# must launch the wgmma one, the fp32 cross-checks the CUDA-core one)
 SERVE_PATHS = {
-    "qwen3-14b": ({"flash_attention": "flash_kernel"},
+    "qwen3-14b": ({"flash_attention": "flash_kernel",
+                   "flash_attention_wgmma": "flash_kernel_wgmma"},
                   lambda cfg: replace(cfg, num_layers=2), "serve-qwen3"),
     "xlstm-1.3b": ({"slstm_scan": "slstm_scan_kernel"},
                    lambda cfg: replace(cfg, num_layers=4, xlstm=replace(
                        cfg.xlstm, slstm_period=2)), "serve-xlstm"),
     "zamba2-7b": ({"mamba2_scan": "mamba2_scan_kernel",
-                   "flash_attention": "flash_kernel"},
+                   "flash_attention": "flash_kernel",
+                   "flash_attention_wgmma": "flash_kernel_wgmma"},
                   lambda cfg: replace(cfg, num_layers=4,
                                       shared_attn_period=2), "serve-zamba2"),
 }
@@ -888,16 +960,20 @@ def _launches_per_prefill(cfg) -> dict:
     attention layer (Qwen3) or application of the shared block (Zamba2:
     after every period-th Mamba2 layer, on each side of the split), the
     sLSTM scan once per sLSTM block, the Mamba2 scan once per Mamba2
-    layer."""
+    layer; in bf16 every flash launch is the wgmma kernel's, in fp32
+    none."""
     if cfg.xlstm:
         return {"slstm_scan": cfg.num_layers // cfg.xlstm.slstm_period}
+    want = {"flash_attention": cfg.num_layers}
     if cfg.ssm:
         from repro_torch.models.transformer import build_model
         split, per = build_model(cfg).split, cfg.shared_attn_period
-        return {"mamba2_scan": cfg.num_layers,
+        want = {"mamba2_scan": cfg.num_layers,
                 "flash_attention": split // per
                 + (cfg.num_layers - split) // per}
-    return {"flash_attention": cfg.num_layers}
+    want["flash_attention_wgmma"] = (want["flash_attention"]
+                                     if cfg.dtype == "bfloat16" else 0)
+    return want
 
 
 def _serve_full(arch: str, log):

@@ -8,48 +8,613 @@
 //   o[b, h, i] = sum_j softmax_j(s[i, j]) v[b, h / G, j],
 //   s[i, j]    = (q[b, h, i] . k[b, h / G, j]) / sqrt(hd),
 // with G = H / KVH (any integer, 5 for Qwen3-14B's 40 over 8 heads) and no
-// replicated K/V; key j is masked unless j < Skv, j <= i (causal) and
-// j > i - window (window > 0).  Scores, the online softmax (running max
-// from -1e30, p zeroed where masked) and the accumulators are fp32; a row
-// that sees no key outputs 0 (l == 0 -> 1); inputs are fp32 or bf16, the
-// output is in the input's type.
+// replicated K/V; key j is masked unless j < Skv, j <= i (causal, top-left:
+// positions counted from 0 on both sides) and j > i - window (window > 0).
+// Scores, the online softmax (running max from -1e30, masked keys weigh 0)
+// and the accumulators are fp32; a row that sees no key outputs 0
+// (l == 0 -> 1); the output is in the input's type.  Every tensor is
+// addressed as (B, H, S, hd) through its batch, head and sequence strides
+// (the head dim contiguous), so the model hands in views of its (B, S, H,
+// hd) projections and gets the output in that layout, with no transposed
+// copies.  Ragged Sq and Skv are masked here: a prompt of any length goes
+// through.  Two kernels, chosen by the inputs' type:
 //
-// Design: one block of 128 threads per (q tile of 64 rows, head, batch).
-// The block holds its Q tile in shared memory, walks the key tiles of 64
-// that can be unmasked for it (those wholly above the causal diagonal or
-// wholly before the window are skipped; a row none of whose keys are
-// visited keeps l == 0 and outputs 0, as a fully masked row does), stages
-// each K/V tile in shared memory as fp32, and keeps the 64 x hd output
-// accumulator in registers: each thread owns 4 query rows and, of the
-// scores, 8 key columns; of the output, hd / 8 feature columns.  The 8
-// threads of a row are neighbouring lanes of one warp, so the row max and
-// sum are three shuffles.  P goes through shared memory (in the K tile's
-// space, which is free by then) to the P.V product.  Ragged Sq and Skv are
-// masked here, so a prompt of any length goes through the kernel.
+// flash_kernel_wgmma<HD> (bf16, the serving paths).  One block per (q tile
+// of 128 rows, head, batch), a head's tiles launched together, heaviest
+// causal tile first; two consumer warpgroups of 64 rows each and one
+// producer warpgroup (setmaxnreg moves its registers to the consumers).
+// One producer thread loads the Q tile once and the K and V tiles of 128
+// keys into a ring of two stages in shared memory with TMA (4-d tensor
+// maps over (hd, S, H, B) from the tensors' own strides, 128-byte swizzle,
+// boxes of 64 columns; rows and columns out of bounds come in as zeros,
+// which covers ragged Sq and Skv and head dims that are no multiple of
+// 64), each stage behind a "full" mbarrier per tensor and an "empty" one
+// the consumers release.  Each
+// consumer warpgroup computes S = Q K^T with wgmma (m64n128k16, bf16 in,
+// fp32 accumulate, both operands K-major in shared memory), runs the online
+// softmax on the accumulator fragment in registers (a row lies in the 4
+// threads of a quad: the row max takes 2 shuffles, the row sum is reduced
+// once at the end; the mask is applied only on tiles that hold a masked
+// key; exp2f with log2 e folded into the fp32 scale), rounds P to bf16 in
+// registers (the accumulator layout of the first product is the A-fragment
+// layout of the second) and adds P V with wgmma (A from registers, V in
+// shared memory in its MN-major form, in pieces of at most 64 columns, one
+// per swizzle atom).  P in bf16 is the model's own arithmetic: the JAX
+// attention casts its softmax weights to v's type before the product.
 //
-// Strides: every tensor is addressed as (B, H, S, hd) through its batch,
-// head and sequence strides (the head dim must be contiguous), so the model
-// hands in views of its (B, S, H, hd) projections and gets the output in
-// that layout, with no transposed copies.
+// flash_kernel<HD> (fp32: the card-against-CPU checks).  A simple
+// CUDA-core kernel: one block of 128 threads per (q tile of 64 rows, head,
+// batch) stages the K/V tiles of 64 keys in shared memory as fp32, keeps
+// the 64 x hd accumulator in registers (4 rows x hd / 8 columns a thread;
+// a row is 8 neighbouring lanes, so the row max and sum take three
+// shuffles), and sends P through shared memory to the P.V product.  A
+// wgmma on fp32 data would be TF32, which misses the fp32 tolerance.
 //
-// What bounds it: at Qwen3-14B's prefill shape, q (4, 40, 2048, 128) and
-// k, v (4, 8, 2048, 128) in bf16, causal, it does about 1.7e11 operations
-// on 0.2 GB, far above the card's ridge point, so operations bound it:
-// 0.17 ms at the 989 TFLOP/s bf16 tensor-core rate.  This simple kernel
-// multiplies in fp32 on the CUDA cores (67 TFLOP/s at most, and shared
-// memory loads feed every two to three multiply-adds), so it sits well
-// off that bound; wgmma, TMA and warp specialisation are later work.
+// What bounds them: at Qwen3-14B's prefill shape, q (4, 40, 2048, 128) and
+// k, v (4, 8, 2048, 128) in bf16, causal, attention does about 1.7e11
+// operations on 0.2 GB, far above the card's ridge point, so operations
+// bound it: 0.17 ms at the 989 TFLOP/s bf16 tensor-core rate.  The wgmma
+// kernel runs both products on the tensor cores and overlaps the loads with
+// them; what keeps it off the bound is the softmax between the products,
+// which runs on the CUDA cores while the warpgroup's tensor-core work
+// waits (only the other warpgroup's products overlap it; FA3's ping-pong
+// and intra-warpgroup pipelining are later work), and the masked upper
+// halves of the diagonal tiles (6 % more products than the mask leaves at
+// S 2048).  The fp32 kernel multiplies on the CUDA cores, where the same
+// work in fp32 would take 2.6 ms at 67 TFLOP/s, and shared-memory loads
+// feed every two to three of its multiply-adds.
 //
-// Built without --use_fast_math: expf of scores far below the running max
-// must give 0, and the masked -1e30 scores must never make a NaN.
+// Built without --use_fast_math: exp of scores far below the running max
+// must give 0, and masked scores (-inf in the wgmma kernel, -1e30 in the
+// fp32 one) must never make a NaN.
 //
-// No allocation and no synchronisation here: the entry point launches on
-// the caller's stream and returns cudaGetLastError().
+// No allocation and no synchronisation here: each entry point launches on
+// the caller's stream and returns cudaGetLastError() (or, for a tensor map
+// cuTensorMapEncodeTiled refuses, the negated CUresult).
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
+                   // through the runtime, so only cudart is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
+
+struct Strides {
+  long long b, h, s;  // in elements; the head dim is contiguous
+};
+
+// ===========================================================================
+// bf16: wgmma, TMA and mbarriers
+// ===========================================================================
+
+constexpr int kWgRows = 128;               // query rows per block
+constexpr int kWgKeys = 128;               // keys per K/V tile
+constexpr int kChunk = 64;                 // head-dim columns per 128-byte row
+constexpr int kStages = 2;                 // K/V ring depth
+constexpr int kConsumerWarps = 8;          // two warpgroups
+constexpr int kWgThreads = (kConsumerWarps + 4) * 32;  // + the producer's
+// registers a thread after setmaxnreg: the producer warpgroup gives up what
+// the consumers take (128 x 24 + 256 x 240 <= 65,536)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kBoxBytes = kWgKeys * kChunk * 2;  // one 128 x 64 bf16 box
+constexpr int kAtomBytes = 8 * 128;        // 8 rows of the 128-byte swizzle
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Returns once the phase of parity `parity` has completed.  A wait of more
+// than 2^35 clocks (over 15 s: a load or an arrival that never comes) traps,
+// so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+// one box of the tensor map at coordinates (c0, c1, c2, c3) into `dst`,
+// completing `bar`'s transaction count
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* tm,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled tile whose
+// 8-row swizzle atoms lie kAtomBytes apart.  Both byte offsets are set to
+// the atom stride: a K-major operand reads only the stride between 8-row
+// groups (its k16 step lies inside one 128-byte row), and an MN-major one
+// of at most 64 columns reads only the stride between its two 8-row K
+// groups (its columns lie inside one atom).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  constexpr uint64_t kStride = kAtomBytes >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kStride << 16) |
+         (kStride << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Tell the compiler that wgmma may have read or written these registers up
+// to here, so that it neither reads an accumulator before the wait nor
+// reuses an operand's register while the product is in flight.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (64 x N, fp32) += A (64 x 16, bf16 in registers) . B (16 x N): B in
+// shared memory, MN-major (V rows: the N head-dim columns contiguous).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t desc_b);
+
+// d (64 x 128, fp32) = [d +] A (64 x 16) . B (16 x 128): A and B in
+// shared memory, both K-major (Q rows and K rows, the head dim contiguous).
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t desc_a,
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   __nv_bfloat16* __restrict__ o, int H, int B, int group,
+                   int Sq, int Skv, Strides os, int causal, int window,
+                   float scale_log2) {
+  static_assert(HD % 16 == 0 && HD <= 2 * kChunk, "head dim");
+  constexpr int kChunks = (HD + kChunk - 1) / kChunk;  // boxes per row tile
+  constexpr int kTileBytes = kChunks * kBoxBytes;      // Q, K or V tile
+  constexpr int kSteps = HD / 16;         // k16 steps of Q K^T over hd
+  constexpr int kPSteps = kWgKeys / 16;   // k16 steps of P V over the keys
+  constexpr int kOut = HD / 2;            // O floats a thread holds
+  constexpr int kS = kWgKeys / 2;         // S floats a thread holds
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_q, bar_k[kStages], bar_v[kStages],
+      bar_empty[kStages];
+  // the swizzle atoms must start on 1024-byte boundaries
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sq = smem;                              // [kChunks][128][64]
+  uint8_t* sk = sq + kTileBytes;                   // [kStages] tiles
+  uint8_t* sv = sk + kStages * kTileBytes;         // [kStages] tiles
+
+  // block -> (q tile, head, batch), the q tile fastest and reversed: a
+  // head's tiles run together, so its K/V stays in L2 while they read it,
+  // and within a head the tiles that visit the most keys under the causal
+  // mask start first, so the last wave holds the lightest ones
+  const int n_qt = (Sq + kWgRows - 1) / kWgRows;
+  int bid = blockIdx.x;
+  const int q0 = (n_qt - 1 - bid % n_qt) * kWgRows;
+  bid /= n_qt;
+  const int head = bid % H;
+  const int batch = bid / H;
+  const int kv_head = head / group;
+
+  // the key tiles that can hold an unmasked key for some row of this tile;
+  // none when a window ends before the keys do
+  int k_end = Skv;
+  if (causal) k_end = min(k_end, q0 + kWgRows);
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / kWgKeys;
+  const int n_tiles = max(0, (k_end + kWgKeys - 1) / kWgKeys - t_begin);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&bar_empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // the producer warpgroup; one thread loads Q once, then each K/V tile
+    // into the next free stage
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (warp == kConsumerWarps && lane == 0) {
+      mbar_expect_tx(&bar_q, kTileBytes);
+      for (int c = 0; c < kChunks; ++c)
+        tma_load_4d(sq + c * kBoxBytes, &tm_q, &bar_q, c * kChunk, q0, head,
+                    batch);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const int k0 = (t_begin + i) * kWgKeys;
+        mbar_wait(&bar_empty[s], ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(&bar_k[s], kTileBytes);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(sk + s * kTileBytes + c * kBoxBytes, &tm_k, &bar_k[s],
+                      c * kChunk, k0, kv_head, batch);
+        mbar_expect_tx(&bar_v[s], kTileBytes);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(sv + s * kTileBytes + c * kBoxBytes, &tm_v, &bar_v[s],
+                      c * kChunk, k0, kv_head, batch);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    // a consumer: warpgroup wg owns rows q0 + 64 wg .. + 63; in the wgmma
+    // fragments a thread holds rows r and r + 8 and, of each 8 columns, the
+    // two at 2 (lane % 4)
+    const int wg = warp / 4;
+    const int wg_row0 = q0 + wg * 64;
+    const int row = wg_row0 + (warp % 4) * 16 + lane / 4;
+    const int col = 2 * (lane % 4);
+
+    float acc[kOut];
+#pragma unroll
+    for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
+    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+
+    const uint32_t q_addr = smem_u32(sq) + wg * 64 * 128;
+    mbar_wait(&bar_q, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const uint32_t parity = (i / kStages) & 1;
+      const int k0 = (t_begin + i) * kWgKeys;
+
+      // S = Q K^T
+      float sc[kS];
+      const uint32_t k_addr = smem_u32(sk + s * kTileBytes);
+      mbar_wait(&bar_k[s], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n128(sc, smem_desc(q_addr + off), smem_desc(k_addr + off),
+                      kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<kS>(sc);
+
+      // the mask, only where this warpgroup's rows meet a masked key
+      const bool ragged = k0 + kWgKeys > Skv;
+      const bool diag = causal && k0 + kWgKeys - 1 > wg_row0;
+      const bool edge = window > 0 && k0 <= wg_row0 + 63 - window;
+      if (ragged || diag || edge) {
+#pragma unroll
+        for (int j = 0; j < kS / 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + col + (e & 1);
+            const int r = row + (e >> 1) * 8;
+            const bool ok = key < Skv && (!causal || key <= r) &&
+                            (window <= 0 || key > r - window);
+            if (!ok) sc[4 * j + e] = -INFINITY;
+          }
+      }
+
+      // online softmax: the running max of the raw scores over the quad
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < kS / 4; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float alpha[2], bias[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = exp2f((m[h] - mx[h]) * scale_log2);
+        bias[h] = -mx[h] * scale_log2;
+        m[h] = mx[h];
+      }
+      // P = exp(scale (s - m)), summed in fp32 and rounded to bf16 as the A
+      // fragments of P V: keys 16 kk .. are the n8 blocks 2 kk and 2 kk + 1
+      uint32_t p[kPSteps][4];
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < kPSteps; ++kk) {
+        float e[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          e[t] = exp2f(fmaf(sc[8 * kk + t], scale_log2, bias[(t >> 1) & 1]));
+        rs[0] += (e[0] + e[1]) + (e[4] + e[5]);
+        rs[1] += (e[2] + e[3]) + (e[6] + e[7]);
+        p[kk][0] = pack_bf16(e[0], e[1]);
+        p[kk][1] = pack_bf16(e[2], e[3]);
+        p[kk][2] = pack_bf16(e[4], e[5]);
+        p[kk][3] = pack_bf16(e[6], e[7]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + rs[h];
+#pragma unroll
+      for (int j = 0; j < kOut / 4; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+
+      // O += P V, one wgmma per swizzle atom of V's columns
+      const uint32_t v_addr = smem_u32(sv + s * kTileBytes);
+      mbar_wait(&bar_v[s], parity);
+      fence_regs<kOut>(acc);
+      fence_regs<kPSteps * 4>(&p[0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kPSteps; ++kk) {
+        const uint32_t off = kk * 2 * kAtomBytes;  // 16 key rows
+        wgmma_rs<(HD < kChunk ? HD : kChunk)>(acc, p[kk],
+                                              smem_desc(v_addr + off));
+        if constexpr (HD > kChunk)
+          wgmma_rs<HD - kChunk>(acc + kChunk / 2, p[kk],
+                                smem_desc(v_addr + kBoxBytes + off));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<kOut>(acc);
+      fence_regs<kPSteps * 4>(&p[0][0]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar_empty[s]);
+    }
+
+    // O / l in bf16, rows < Sq only, through the output's strides
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      l[h] = 1.f / (l[h] == 0.f ? 1.f : l[h]);
+    }
+    __nv_bfloat16* ob = o + batch * os.b + head * os.h;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r >= Sq) continue;
+      __nv_bfloat16* orow = ob + r * os.s + col;
+#pragma unroll
+      for (int j = 0; j < kOut / 4; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack_bf16(
+            acc[4 * j + 2 * h] * l[h], acc[4 * j + 2 * h + 1] * l[h]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-d map over (hd, S, heads, B) of a bf16 tensor with the given
+// (batch, head, sequence) strides in elements, read in boxes of 64 columns
+// x 128 rows with the 128-byte swizzle; out-of-bounds elements read as 0.
+CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* base,
+                  int hd, int S, int heads, int B, const long long* st) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2,
+                                 (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {kChunk, kWgRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 int B, int H, int KVH, int Sq, int Skv, const long long* st,
+                 int causal, int window, cudaStream_t stream) {
+  static_assert(kWgRows == kWgKeys, "Q and K/V share their box");
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v;
+  CUresult r = make_map(&tm_q, encode, q, HD, Sq, H, B, st);
+  if (r == CUDA_SUCCESS) r = make_map(&tm_k, encode, k, HD, Skv, KVH, B,
+                                      st + 3);
+  if (r == CUDA_SUCCESS) r = make_map(&tm_v, encode, v, HD, Skv, KVH, B,
+                                      st + 6);
+  if (r != CUDA_SUCCESS) return -(int)r;
+  constexpr int kTile = (HD + kChunk - 1) / kChunk * kBoxBytes;
+  constexpr int bytes = (1 + 2 * kStages) * kTile + 1024;  // + alignment
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks =
+      (long long)((Sq + kWgRows - 1) / kWgRows) * H * B;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_kernel_wgmma<HD><<<(unsigned)blocks, kWgThreads, bytes, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), H, B, H / KVH, Sq,
+      Skv, Strides{st[9], st[10], st[11]}, causal, window,
+      (float)(1.4426950408889634 / sqrt((double)HD)));
+  return (int)cudaGetLastError();
+}
+
+// ===========================================================================
+// fp32: the CUDA-core kernel
+// ===========================================================================
 
 constexpr int kBlockQ = 64;           // query rows per block
 constexpr int kBlockK = 64;           // keys per tile
@@ -63,15 +628,6 @@ constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kBlockQ == kBlockK, "the transposed tiles share kPad");
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // max / sum over the 8 neighbouring lanes of one query row
 __device__ __forceinline__ float row_max(float x) {
   for (int off = 1; off < kLanesPerRow; off <<= 1)
@@ -84,10 +640,6 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-struct Strides {
-  long long b, h, s;  // in elements; the head dim is contiguous
-};
-
 template <int HD>
 constexpr int smem_floats() {
   // Q^T [HD][kPad], K^T [max(HD, kBlockK)][kPad] (also P^T [kBlockK][kPad]),
@@ -95,11 +647,11 @@ constexpr int smem_floats() {
   return HD * kPad + (HD > kBlockK ? HD : kBlockK) * kPad + kBlockK * HD;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int group, int Sq,
-             int Skv, Strides qs, Strides ks, Strides vs, Strides os,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int group,
+             int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os,
              int causal, int window, float sm_scale) {
   static_assert(HD % kLanesPerRow == 0, "head dim must be a multiple of 8");
   constexpr int kOut = HD / kLanesPerRow;  // output columns per thread
@@ -116,14 +668,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = (tid / kLanesPerRow) * kRows;  // this thread's first row
   const int col = tid % kLanesPerRow;             // its first column
 
-  const T* qb = q + batch * qs.b + head * qs.h;
-  const T* kb = k + batch * ks.b + kv_head * ks.h;
-  const T* vb = v + batch * vs.b + kv_head * vs.h;
-  T* ob = o + batch * os.b + head * os.h;
+  const float* qb = q + batch * qs.b + head * qs.h;
+  const float* kb = k + batch * ks.b + kv_head * ks.h;
+  const float* vb = v + batch * vs.b + kv_head * vs.h;
+  float* ob = o + batch * os.b + head * os.h;
 
   for (int i = tid; i < kBlockQ * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
-    q_t[d * kPad + r] = q0 + r < Sq ? to_float(qb[(q0 + r) * qs.s + d]) : 0.f;
+    q_t[d * kPad + r] = q0 + r < Sq ? qb[(q0 + r) * qs.s + d] : 0.f;
   }
 
   float acc[kRows][kOut];
@@ -148,8 +700,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kBlockK * HD; i += kThreads) {
       const int r = i / HD, d = i % HD;
       const bool in = k0 + r < Skv;
-      k_t[d * kPad + r] = in ? to_float(kb[(k0 + r) * ks.s + d]) : 0.f;
-      v_s[r * HD + d] = in ? to_float(vb[(k0 + r) * vs.s + d]) : 0.f;
+      k_t[d * kPad + r] = in ? kb[(k0 + r) * ks.s + d] : 0.f;
+      v_s[r * HD + d] = in ? vb[(k0 + r) * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -231,51 +783,47 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
-      store(&ob[qi * os.s + col + c * kLanesPerRow], acc[i][c] / denom);
+      ob[qi * os.s + col + c * kLanesPerRow] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int group, int Sq, int Skv,
-                   const long long* st, int causal, int window,
-                   cudaStream_t stream) {
+
+template <int HD>
+int launch_fp32(const void* q, const void* k, const void* v, void* o, int B,
+                int H, int KVH, int Sq, int Skv, const long long* st,
+                int causal, int window, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return err;
+      flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), group, Sq, Skv,
+  flash_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H / KVH, Sq, Skv,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
       window, (float)(1.0 / sqrt((double)HD)));
-  return cudaGetLastError();
+  return (int)cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      void* o, int B, int H, int group, int Sq, int Skv,
-                      const long long* st, int causal, int window,
-                      cudaStream_t s) {
-  switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, group, Sq, Skv, st, causal, window, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, group, Sq, Skv, st, causal, window, s);
-    case 80: return launch<T, 80>(q, k, v, o, B, H, group, Sq, Skv, st, causal, window, s);
-    case 96: return launch<T, 96>(q, k, v, o, B, H, group, Sq, Skv, st, causal, window, s);
-    case 112: return launch<T, 112>(q, k, v, o, B, H, group, Sq, Skv, st, causal, window, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, group, Sq, Skv, st, causal, window, s);
-    default: return cudaErrorInvalidValue;
-  }
+using Launch = int (*)(const void*, const void*, const void*, void*, int,
+                       int, int, int, int, const long long*, int, int,
+                       cudaStream_t);
+
+template <int HD>
+Launch pick(bool bf16) {
+  if (bf16) return launch_wgmma<HD>;
+  return launch_fp32<HD>;
 }
 
 }  // namespace
 
 // q, o: (B, H, Sq, hd); k, v: (B, KVH, Skv, hd), each addressed through
 // strides[3 * t .. 3 * t + 2] = its (batch, head, sequence) strides in
-// elements, t = q, k, v, o.  dtype: 0 = float32, 1 = bfloat16.
+// elements, t = q, k, v, o.  dtype: 0 = float32 (flash_kernel), 1 =
+// bfloat16 (flash_kernel_wgmma, which also needs q, k and v 16-byte aligned
+// with strides that are multiples of 8 elements: the tensor maps' rule,
+// checked by the wrapper).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int B,
                                    int H, int KVH, int Sq, int Skv, int hd,
@@ -284,11 +832,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || KVH < 1 || H % KVH ||
       Sq < 1 || Skv < 1 || window < 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int group = H / KVH;
-  if (dtype == 1)
-    return (int)launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, group, Sq,
-                                         Skv, strides, causal, window, s);
-  return (int)launch_hd<float>(hd, q, k, v, o, B, H, group, Sq, Skv,
-                               strides, causal, window, s);
+  const bool bf16 = dtype == 1;
+  Launch fn = nullptr;
+  switch (hd) {
+    case 32: fn = pick<32>(bf16); break;
+    case 64: fn = pick<64>(bf16); break;
+    case 80: fn = pick<80>(bf16); break;
+    case 96: fn = pick<96>(bf16); break;
+    case 112: fn = pick<112>(bf16); break;
+    case 128: fn = pick<128>(bf16); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return fn(q, k, v, o, B, H, KVH, Sq, Skv, strides, causal, window,
+            static_cast<cudaStream_t>(stream));
 }

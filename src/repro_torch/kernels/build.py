@@ -6,7 +6,7 @@ Each ``src/repro_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 a changed source is rebuilt and an unchanged one is loaded as it is.  The
 sources are compiled without ``--use_fast_math``: the quantizer must be
 bit-exact, which needs IEEE division and round-half-to-even, and flash
-attention's ``expf`` of masked scores and the sLSTM's of its -1e30
+attention's exponent of masked scores and the sLSTM's of its -1e30
 stabilizer must give 0, not NaN, and the Mamba2 scan's decays must
 underflow to 0.  A build or
 load failure raises; nothing falls back."""

@@ -3,24 +3,32 @@ bound with ctypes.
 
 Counterpart of the JAX package's ``kernels/flash_attention.py``
 (``flash_attention``): q (B, H, Sq, hd), k and v (B, KVH, Skv, hd), causal
-or not, an optional sliding window, fp32 or bf16.  The kernel reads every
-tensor through its strides, so a (B, H, S, hd) view of a (B, S, H, hd)
-tensor goes in as it is; the output is allocated with q's strides, so such
-a caller gets it back in its own layout.  Any Sq and Skv: the ragged edges
+or not, an optional sliding window, fp32 or bf16.  The dtype picks the
+kernel: bf16 goes to ``flash_kernel_wgmma`` (both products on the tensor
+cores, K/V staged by TMA), fp32 to the CUDA-core ``flash_kernel`` (a wgmma
+on fp32 data would be TF32).  Neither stands in for the other: a bf16
+tensor the wgmma kernel cannot read raises.  Both read every tensor
+through its strides, so a (B, H, S, hd) view of a (B, S, H, hd) tensor
+goes in as it is; the output is allocated with q's strides, so such a
+caller gets it back in its own layout.  Any Sq and Skv: the ragged edges
 are masked in the kernel.  One launch per call."""
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = {"flash_attention": 0}
+# "flash_attention" counts every launch, "flash_attention_wgmma" those of
+# the bf16 kernel
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 HEAD_DIMS = (32, 64, 80, 96, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_AXES = ("batch", "head", "sequence")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -32,6 +40,42 @@ def _lib() -> ctypes.CDLL:
                                         _I, _I, _P, _I, _I, _P]
     lib.flash_attention_fwd.restype = _I
     return lib
+
+
+def _strides(t: torch.Tensor) -> tuple:
+    """t's (batch, head, sequence) strides in elements, a dim of size 1
+    given its contiguous stride: any stride addresses it, and the tensor
+    map wants one it accepts."""
+    _, h, s, hd = t.shape
+    return tuple(c if n == 1 else st for n, st, c in zip(
+        t.shape[:3], t.stride()[:3], (h * s * hd, s * hd, hd)))
+
+
+def wgmma_layout_problem(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> Optional[str]:
+    """Why the bf16 kernel's TMA tensor maps cannot read q, k or v, each
+    (B, heads, S, hd), or None: each must be bf16, its head dim one of
+    ``HEAD_DIMS`` and contiguous, its base 16-byte aligned, and every
+    stride of a dim longer than 1 a positive multiple of 16 bytes.  It
+    reads shapes, strides, addresses and dtypes only, so it runs on
+    ``meta`` tensors without a card."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            return f"{name} is {t.dtype}, not torch.bfloat16"
+        if t.dim() != 4 or t.shape[3] not in HEAD_DIMS:
+            return (f"{name}'s head dim of {tuple(t.shape)} is not in "
+                    f"{HEAD_DIMS}")
+        if t.stride(3) != 1:
+            return f"{name}'s head dim is not contiguous"
+        if t.data_ptr() % 16:
+            return (f"{name}'s base address is {t.data_ptr() % 16} bytes "
+                    "past a 16-byte boundary")
+        for axis, n, s in zip(_AXES, t.shape, t.stride()):
+            if n > 1 and (s <= 0 or s * t.element_size() % 16
+                          or s * t.element_size() >= 1 << 40):
+                return (f"{name}'s {axis} stride of {s} elements is not a "
+                        "positive multiple of 16 bytes below 2^40")
+    return None
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,24 +105,37 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sq < 1 or k.shape[2] < 1 or window < 0:
         raise ValueError("flash attention needs Sq, Skv >= 1 and a "
                          "window >= 0")
+    if q.dtype == torch.bfloat16:
+        problem = wgmma_layout_problem(q, k, v)
+        if problem:
+            raise ValueError(f"flash attention, bf16 (wgmma) kernel: "
+                             f"{problem}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
-    """Launch the kernel: (B, H, Sq, hd) x (B, KVH, Skv, hd) -> (B, H, Sq,
-    hd) in q's dtype, as ``ref.flash_attention_ref`` computes it."""
+    """Launch the kernel of q's dtype: (B, H, Sq, hd) x (B, KVH, Skv, hd)
+    -> (B, H, Sq, hd) in q's dtype, as ``ref.flash_attention_ref``
+    computes it (the bf16 kernel rounds P to bf16 before P V, as the JAX
+    model does)."""
     _check(q, k, v, window)
     out = torch.empty_like(q)          # q's strides, hence q's layout
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*(
-        s for t in (q, k, v, out) for s in t.stride()[:3]))
+        s for t in (q, k, v, out) for s in _strides(t)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(_lib().flash_attention_fwd(
+    status = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPE_CODE[q.dtype], b, h, kvh, sq, skv, hd,
         ctypes.cast(strides, ctypes.c_void_p), int(causal), int(window),
-        stream), "flash_attention launch")
+        stream)
+    if status < 0:
+        raise RuntimeError(f"flash attention: cuTensorMapEncodeTiled "
+                           f"refused a TMA tensor map (CUresult {-status})")
+    build.check(status, "flash_attention launch")
     LAUNCHES["flash_attention"] += 1
+    if q.dtype == torch.bfloat16:
+        LAUNCHES["flash_attention_wgmma"] += 1
     return out

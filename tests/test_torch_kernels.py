@@ -14,6 +14,7 @@ bit for bit; the sLSTM scan to atol 1e-5 / rtol 1e-4, as
 tests/test_kernels.py holds the Pallas kernel (the recurrent product sums
 in another order); the Mamba2 scan to 5e-5 of max|y|, as
 tests/test_kernels.py holds the Pallas kernel."""
+import math
 from dataclasses import replace
 
 import jax
@@ -142,6 +143,133 @@ def test_flash_cuda_wrapper_refuses_cpu_tensors():
     x = torch.zeros(1, 2, 8, 64)
     with pytest.raises(ValueError, match="CUDA device"):
         fa.flash_attention_cuda(x, x, x)
+
+
+def _wgmma_arithmetic(q, k, v, *, causal=True, window=0, block=128):
+    """The bf16 kernel's arithmetic (``flash_kernel_wgmma``) in plain
+    PyTorch: bf16 q, k, v; fp32 scores over key tiles of the kernel's 128;
+    the online softmax in base 2 with log2 e folded into the fp32 scale,
+    from a running max of -1e30, masked keys at -inf; P rounded to bf16
+    before P V; fp32 accumulators and l; O / l, l == 0 -> 1, in bf16."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    c = math.log2(math.e) / math.sqrt(hd)
+    qf = q.float().reshape(b, kvh, h // kvh, sq, hd)
+    m = torch.full((b, kvh, h // kvh, sq, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    q_pos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, block):
+        kt, vt = k[:, :, k0:k0 + block], v[:, :, k0:k0 + block]
+        s = torch.einsum("bkgqd,bksd->bkgqs", qf, kt.float())
+        kv_pos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones(sq, kt.shape[2], dtype=torch.bool)
+        if causal:
+            ok &= kv_pos <= q_pos
+        if window:
+            ok &= kv_pos > q_pos - window
+        s = s.masked_fill(~ok, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(s * c - m_new * c)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + torch.einsum(
+            "bkgqs,bksd->bkgqd", p.to(torch.bfloat16).float(), vt.float())
+        m = m_new
+    out = acc / torch.where(l == 0, 1.0, l)
+    return out.reshape(b, h, sq, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,h,kvh,s,hd,scale", [
+    *[(*shape, 1.0) for shape in FLASH_SHAPES],
+    (1, 10, 2, 256, 128, 1.0), (1, 4, 2, 256, 112, 8.0),
+    (1, 4, 2, 256, 128, 8.0)])
+def test_wgmma_arithmetic_matches_jax(b, h, kvh, s, hd, scale):
+    """The tolerance budget of the bf16 kernel's design, before the card:
+    its arithmetic (bf16 P) against the Pallas kernel in interpret mode
+    and the JAX model's ``_chunked_attend`` within the bf16 tolerance, at
+    tests/test_kernels.py's shapes, group 5, and a peaked softmax (q x 8,
+    so that P rounds near 1) at head dims 112 and 128."""
+    jarrs, tarrs = _flash_case(b, h, kvh, s, s, hd, "bfloat16",
+                               b * 37 + h + hd)
+    if scale != 1.0:
+        jarrs[0] = (jarrs[0] * scale).astype(jnp.bfloat16)
+        tarrs[0] = (tarrs[0] * scale).to(torch.bfloat16)
+    got = _wgmma_arithmetic(*tarrs).float().numpy()
+    tol = FLASH_TOLS["bfloat16"]
+    pallas = flash_pallas(*jarrs, causal=True, window=0, interpret=True)
+    t = lambda a: jnp.swapaxes(a, 1, 2)
+    model = t(_chunked_attend(*map(t, jarrs), causal=True, window=0))
+    for want in (pallas, model):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (1000, 1000, True, 200), (77, 300, False, 0), (300, 77, True, 0),
+    (129, 129, True, 0), (64, 16, True, 8)])
+def test_wgmma_arithmetic_ragged_matches_jax(sq, skv, causal, window):
+    """The same arithmetic at lengths off the 128-key tile, with a window
+    across tile edges and rows that see no key (the last case: rows 23 on),
+    against the JAX reference within the bf16 tolerance; rows that see no
+    key are exactly 0."""
+    jarrs, tarrs = _flash_case(1, 10, 2, sq, skv, 112, "bfloat16",
+                               sq + 3 * skv)
+    got = _wgmma_arithmetic(*tarrs, causal=causal, window=window)
+    want = jref.flash_attention_ref(*jarrs, causal=causal, window=window)
+    tol = FLASH_TOLS["bfloat16"]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+    if window and skv < sq:
+        assert float(got[:, :, skv + window - 1:].abs().max()) == 0.0
+
+
+def _projection_views(cfg, batch=4, seq=2048):
+    """q, k, v as the model hands them to the kernel: (B, S, heads, hd)
+    projections viewed as (B, heads, S, hd), on the meta device."""
+    hd = cfg.resolved_head_dim
+    proj = lambda n: torch.empty(batch, seq, n, hd, dtype=torch.bfloat16,
+                                 device="meta").transpose(1, 2)
+    return (proj(cfg.num_heads), proj(cfg.num_kv_heads),
+            proj(cfg.num_kv_heads))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "zamba2-7b"])
+def test_serving_projections_fit_the_wgmma_kernel(arch):
+    """The full configs' prefill projections (batch 4, S 2048) meet the
+    bf16 kernel's layout rule, so the serving paths never hit its raise."""
+    from importlib import import_module
+
+    from repro_torch.configs import get_config
+    fa = import_module("repro_torch.kernels.flash_attention")
+    q, k, v = _projection_views(get_config(arch))
+    assert q.shape[-1] in fa.HEAD_DIMS
+    assert fa.wgmma_layout_problem(q, k, v) is None
+
+
+def test_wgmma_layout_rule_refuses_misaligned_views():
+    """A view the TMA tensor map cannot read is refused with its reason;
+    the stride of a dim of size 1 is not looked at."""
+    from importlib import import_module
+    fa = import_module("repro_torch.kernels.flash_attention")
+    bf = torch.bfloat16
+    ok = torch.empty(1, 2, 64, 128, dtype=bf, device="meta")
+    rows = torch.empty(1, 2, 64, 129, dtype=bf, device="meta")[..., 1:]
+    assert "base address" in fa.wgmma_layout_problem(rows, ok, ok)
+    rows = torch.empty(1, 2, 64, 136, dtype=bf, device="meta")[..., :128]
+    assert fa.wgmma_layout_problem(rows, ok, ok) is None
+    rows = torch.empty(1, 2, 64, 132, dtype=bf, device="meta")[..., :128]
+    assert "sequence stride" in fa.wgmma_layout_problem(ok, rows, ok)
+    flat = torch.empty(2 * 64 * 128 + 1, dtype=bf, device="meta")
+    shifted = flat[1:].view(1, 2, 64, 128)
+    assert "base address" in fa.wgmma_layout_problem(ok, ok, shifted)
+    assert "float32" in fa.wgmma_layout_problem(ok.float(), ok, ok)
+    odd = torch.empty(1, 2, 64, 48, dtype=bf, device="meta")
+    assert "head dim" in fa.wgmma_layout_problem(odd, odd, odd)
+    one = torch.empty_strided((1, 1, 64, 128), (1, 3, 128, 1), dtype=bf,
+                              device="meta")
+    assert fa.wgmma_layout_problem(one, one, one) is None
 
 
 def _cluster_case(b, q, d, m, seed):
@@ -274,7 +402,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert all(v == 0 for v in kernels.launch_counts().values())
     assert set(kernels.launch_counts()) == {
         "clustering_fwd", "clustering_bwd", "quantize_amax", "quantize_qdq",
-        "flash_attention", "slstm_scan", "mamba2_scan"}
+        "flash_attention", "flash_attention_wgmma", "slstm_scan",
+        "mamba2_scan"}
 
 
 def test_wrappers_refuse_other_devices():

@@ -3,6 +3,10 @@
   * ``src/repro_torch/`` and ``chip_smoke.py`` import neither JAX nor the
     JAX package (checked on the AST), and importing every module of the
     port leaves ``jax`` out of ``sys.modules``;
+  * no module of the port calls a library's attention
+    (``scaled_dot_product_attention``, its backends and switches, cuDNN's
+    or ``nn.MultiheadAttention``): attention runs through the port's own
+    kernel.  ``chip_smoke.py`` may, as its yardstick;
   * entry points run on the card unless asked for the CPU: without a card,
     ``device="cuda"`` raises rather than running on the CPU;
   * ``chip_smoke.py`` fails, and prints no result, without a card and when
@@ -48,6 +52,67 @@ def _port_files():
 def test_port_imports_neither_jax_nor_the_jax_package(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+# the names through which PyTorch reaches a library's attention kernel
+LIBRARY_ATTENTION = ("scaled_dot_product_attention", "sdpa_kernel",
+                     "SDPBackend", "enable_flash_sdp", "enable_cudnn_sdp",
+                     "enable_mem_efficient_sdp", "enable_math_sdp",
+                     "_scaled_dot_product_flash_attention",
+                     "_scaled_dot_product_efficient_attention",
+                     "_scaled_dot_product_cudnn_attention",
+                     "_flash_attention_forward",
+                     "_efficient_attention_forward",
+                     "_cudnn_attention_forward", "MultiheadAttention",
+                     "multi_head_attention_forward", "flex_attention")
+
+
+def _library_attention(path: Path) -> set[str]:
+    found = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Attribute):
+            name = node.attr
+        elif isinstance(node, ast.Name):
+            name = node.id
+        elif isinstance(node, ast.ImportFrom):
+            if (node.module or "").startswith("torch.nn.attention"):
+                found.add(node.module)
+            found.update(a.name for a in node.names
+                         if a.name in LIBRARY_ATTENTION)
+            continue
+        elif isinstance(node, ast.Import):
+            found.update(a.name for a in node.names
+                         if a.name.startswith("torch.nn.attention"))
+            continue
+        else:
+            continue
+        if name in LIBRARY_ATTENTION:
+            found.add(name)
+    return found
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_calls_no_library_attention(path):
+    bad = _library_attention(path)
+    assert not bad, (f"{path.relative_to(ROOT)} reaches a library's "
+                     f"attention through {sorted(bad)}")
+
+
+def test_the_attention_rule_sees_a_library_call(tmp_path):
+    """The rule above catches each way of reaching SDPA, and lets
+    ``chip_smoke.py``'s yardstick be."""
+    for code in ("import torch.nn.functional as F\n"
+                 "F.scaled_dot_product_attention(q, k, v)\n",
+                 "from torch.nn.functional import "
+                 "scaled_dot_product_attention\n",
+                 "from torch.nn.attention import sdpa_kernel\n",
+                 "torch.backends.cuda.enable_flash_sdp(True)\n"):
+        src = tmp_path / "m.py"
+        src.write_text(code)
+        assert _library_attention(src), code
+    assert _library_attention(ROOT / "chip_smoke.py") == {
+        "scaled_dot_product_attention"}
 
 
 def _env():
