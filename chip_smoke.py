@@ -144,6 +144,16 @@ SLSTM_CASES = [(2, 64, 2, 32, False, 0.0), (1, 128, 4, 64, False, 0.0),
                (2, 96, 2, 64, False, 0.0), (2, 1, 2, 64, True, 0.0),
                (2, 64, 2, 32, True, 0.0), (4, 256, 4, 64, True, 3.0),
                (SERVE_BATCH, SERVE_PROMPT, 4, 512, False, 3.0)]
+# the edges of the kernel's plan on 132 SMs, as SLSTM_CASES: hd 40 over 8
+# heads in 14 groups of 3 units, the last of 1; hd 96 over 6 heads in 20
+# groups of 5, the last of 1, with B 3, short of one pass of 4 rows; hd 35
+# over 8 heads in 12 groups of 3, the last of 2 (h rows read a float at a
+# time); B 6 and 9 at the serve width and at hd 64, two and three passes of
+# 4 rows, the last ragged.  Phase 3 adds the largest hd the plan admits at
+# 4 heads and the serve batch, and the next one, which must raise.
+SLSTM_EDGE_CASES = [(2, 100, 8, 40, True, 3.0), (3, 64, 6, 96, False, 0.0),
+                    (2, 50, 8, 35, True, 3.0), (6, 128, 4, 512, True, 3.0),
+                    (9, 64, 2, 64, False, 0.0)]
 # as tests/test_kernels.py holds the Pallas kernel: the recurrent product
 # sums in another order
 SLSTM_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -269,7 +279,8 @@ def phase_device():
     return card
 
 
-def phase_build():
+def phase_build() -> dict:
+    """Build every kernel; returns each source's ptxas report."""
     from repro_torch.kernels import build
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60)
@@ -282,6 +293,7 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {name}: {line.strip()}")
+    return reports
 
 
 # ---------------------------------------------------------------------------
@@ -613,56 +625,134 @@ def _slstm_inputs(b, s, nh, hd, with_state, f_bias, seed):
     return wx, r, state
 
 
-def phase_slstm(card: str) -> dict:
-    """The sLSTM scan against its plain version on the card, h and the
-    final (h, c, n, m), then timed at xLSTM-1.3B's prefill shape.  The
-    stabilizer m is a running sum (about 3 a step under the model's forget
-    bias), so its error is shown beside its size; the row's max_abs_err is
-    over h and the final h, c and n, whose size is about 1."""
+def _check_slstm(case, seed) -> float:
+    """One case against the plain version: h and the final (h, c, n, m)
+    within SLSTM_TOL.  The stabilizer m is a running sum (about 3 a step
+    under the model's forget bias), so its error is shown beside its size;
+    the returned max|err| is over h and the final h, c and n, whose size is
+    about 1."""
     import torch
 
     from repro_torch.kernels import ref
     sl = importlib.import_module("repro_torch.kernels.slstm_scan")
-    err = 0.0
-    for i, (b, s, nh, hd, with_state, f_bias) in enumerate(SLSTM_CASES):
-        wx, r, state = _slstm_inputs(b, s, nh, hd, with_state, f_bias, 20 + i)
-        got = sl.slstm_scan_cuda(wx, r, state)
-        want = ref.slstm_scan_ref(wx, r, state)
-        torch.cuda.synchronize()
-        outs = zip(("h", "h_T", "c_T", "n_T", "m_T"), (got[0], *got[1]),
-                   (want[0], *want[1]))
-        errs = {}
-        for name, g, w in outs:
-            errs[name] = float((g - w).abs().max())
-            if not torch.allclose(g, w, **SLSTM_TOL):
-                fail(f"slstm scan ({b}, {s}, {nh}, {hd}) state={with_state}: "
-                     f"{name} differs from the plain version by "
-                     f"{errs[name]}")
-        print(f"[kernels] slstm ({b}, {s}, 4, {nh}, {hd}) from "
-              f"{'a given' if with_state else 'the zero'} state, forget bias "
-              f"{f_bias}: max|err| "
-              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-              + f" (max|m_T| {float(want[1][3].abs().max()):.4g}; tol "
-              f"atol {SLSTM_TOL['atol']} rtol {SLSTM_TOL['rtol']})")
-        err = max(err, *(errs[k] for k in ("h", "h_T", "c_T", "n_T")))
+    b, s, nh, hd, with_state, f_bias = case
+    wx, r, state = _slstm_inputs(b, s, nh, hd, with_state, f_bias, seed)
+    got = sl.slstm_scan_cuda(wx, r, state)
+    want = ref.slstm_scan_ref(wx, r, state)
+    torch.cuda.synchronize()
+    outs = zip(("h", "h_T", "c_T", "n_T", "m_T"), (got[0], *got[1]),
+               (want[0], *want[1]))
+    errs = {}
+    for name, g, w in outs:
+        errs[name] = float((g - w).abs().max())
+        if not torch.allclose(g, w, **SLSTM_TOL):
+            fail(f"slstm scan ({b}, {s}, {nh}, {hd}) state={with_state}: "
+                 f"{name} differs from the plain version by {errs[name]}")
+    p = sl.plan(b, nh, hd, *sl.card_limits(0))
+    print(f"[kernels] slstm ({b}, {s}, 4, {nh}, {hd}) from "
+          f"{'a given' if with_state else 'the zero'} state, forget bias "
+          f"{f_bias}, {p.blocks} blocks of {p.units} units x {p.slices} "
+          f"slices: max|err| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (max|m_T| {float(want[1][3].abs().max()):.4g}; tol "
+          f"atol {SLSTM_TOL['atol']} rtol {SLSTM_TOL['rtol']})")
+    return max(errs[k] for k in ("h", "h_T", "c_T", "n_T"))
 
-    # the serving path's shape, from its last case's inputs
+
+def phase_slstm(card: str, ptxas: str) -> dict:
+    """The sLSTM scan against its plain version on the card, h and the
+    final (h, c, n, m), at SLSTM_CASES, at the plan's edges and at the
+    largest hd the plan admits; the next hd must raise before any launch,
+    and two launches on the same inputs must agree bit for bit.  Then timed
+    at xLSTM-1.3B's prefill shape and at S 512 beside it, for the cost of a
+    step, and that step split into its phases by the kernel's diagnostic
+    build."""
+    import torch
+
+    from repro_torch.kernels import ref
+    sl = importlib.import_module("repro_torch.kernels.slstm_scan")
+    n_sm, smem_optin = sl.card_limits(0)
+    for line in ptxas.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print(f"[kernels] slstm ptxas: {line.strip()}")
+    err = 0.0
+    for i, case in enumerate(SLSTM_CASES):
+        err = max(err, _check_slstm(case, 20 + i))
+    for i, case in enumerate(SLSTM_EDGE_CASES):
+        err = max(err, _check_slstm(case, 40 + i))
+    for refused in itertools.count(512):
+        try:
+            sl.plan(SERVE_BATCH, 4, refused, n_sm, smem_optin)
+        except ValueError:
+            break
+    err = max(err, _check_slstm(
+        (SERVE_BATCH, 256, 4, refused - 1, True, 3.0), 50))
+    for hd in (refused, 1024):
+        wx, r, _ = _slstm_inputs(SERVE_BATCH, 8, 4, hd, False, 0.0, 51)
+        before = sl.LAUNCHES["slstm_scan"]
+        try:
+            sl.slstm_scan_cuda(wx, r)
+        except ValueError as e:
+            print(f"[kernels] slstm at 4 heads of {hd} raises: {e}")
+        else:
+            fail(f"slstm scan at 4 heads of {hd} did not raise")
+        torch.cuda.synchronize()
+        if sl.LAUNCHES["slstm_scan"] != before:
+            fail(f"slstm scan at 4 heads of {hd} launched before raising")
+
+    # the serving path's shape: its SLSTM_CASES inputs, from a given state
+    wx, r, state = _slstm_inputs(SERVE_BATCH, SERVE_PROMPT, 4, 512, True,
+                                 3.0, 26)
+    one, two = (sl.slstm_scan_cuda(wx, r, state) for _ in range(2))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip((one[0], *one[1]),
+                                                 (two[0], *two[1])))
+    print(f"[kernels] slstm two launches at wx {tuple(wx.shape)}: h and the "
+          f"final state bit-identical {same}")
+    if not same:
+        fail("two launches of the slstm scan on the same inputs differ")
+    del one, two, state
     b, s, nh, hd = wx.shape[0], wx.shape[1], wx.shape[3], wx.shape[4]
     n_bytes = (wx.numel() + r.numel() + b * s * nh * hd + 4 * b * nh * hd) * 4
     n_flops = 2 * b * s * nh * hd * 4 * hd
     t = dict(
-        ms=time_ms(lambda: sl.slstm_scan_cuda(wx, r), iters=5, warmup=1),
+        ms=time_ms(lambda: sl.slstm_scan_cuda(wx, r), iters=20, warmup=3),
         plain_ms=time_ms(lambda: ref.slstm_scan_ref(wx, r), iters=2,
                          warmup=1),
         library_ms=None,
         bound=bound_ms(n_bytes, n_flops))
+    short = wx[:, :512]
+    ms_short = time_ms(lambda: sl.slstm_scan_cuda(short, r), iters=20,
+                       warmup=3)[0]
+    step_us = (t["ms"][0] - ms_short) / (s - 512) * 1e3
+    p = sl.plan(b, nh, hd, n_sm, smem_optin)
     print(f"[timing] slstm_scan at wx {tuple(wx.shape)} fp32 "
           f"({n_flops:.4g} operations, {n_bytes / 1e6:.1f} MB): kernel "
           f"{t['ms'][0]:.4f} ms (events {t['ms'][1]:.4f}), plain "
           f"{t['plain_ms'][0]:.4f} ms (events {t['plain_ms'][1]:.4f}), "
           f"library n/a (no single PyTorch call), bound {t['bound'][0]:.4f} "
           f"ms ({t['bound'][1]}); kernel at "
-          f"{n_flops / t['ms'][0] / 1e9:.1f} GFLOP/s on {card}")
+          f"{n_flops / t['ms'][0] / 1e9:.3f} TFLOP/s, "
+          f"{t['bound'][0] / t['ms'][0]:.4f} of the bound, on {card}")
+    print(f"[timing] slstm_scan per step: S 512 {ms_short:.4f} ms, S {s} "
+          f"{t['ms'][0]:.4f} ms, slope {step_us:.4f} us a step; plan: "
+          f"{p.blocks} blocks of {p.units} units x {p.slices} slices = "
+          f"{p.threads} threads, {p.r_bytes} bytes of R and {p.smem_bytes} "
+          f"bytes of shared memory a block (the card allows {smem_optin}, "
+          f"{n_sm} SMs)")
+    # where a step goes, in SM clocks, from the kernel's diagnostic build
+    phases = sl.step_profile(wx, r)
+    total = sum(phases.values())
+    barrier = (phases["wait for the head's blocks"] + phases["publish"])
+    sm_mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[timing] slstm_scan step profile (SM clocks a step, first "
+          f"block, SLSTM_PROFILE build; SM clock {sm_mhz}): "
+          + ", ".join(f"{k} {v:.0f}" for k, v in phases.items())
+          + f"; total {total:.0f}; the barrier (wait + publish) "
+          f"{barrier / total:.3f} of it, the h exchange (load) "
+          f"{phases['h_{t-1} loaded'] / total:.3f}")
     for key in ("ms", "plain_ms"):
         t[key] = t[key][0]
     return {"err": err, "timing": t}
@@ -1192,13 +1282,13 @@ def main() -> int:
     lap = lambda what: print(f"[clock] {what} done at "
                              f"{time.perf_counter() - t0:.1f} s")
     card = phase_device()
-    phase_build()
+    ptxas = phase_build().get("slstm_scan", "")
     lap("build")
     checked = phase_kernels(card)
     flash = phase_flash(card)
     checked["errs"]["flash_attention"] = flash["err"]
     checked["timings"]["flash_attention"] = flash["timing"]
-    slstm = phase_slstm(card)
+    slstm = phase_slstm(card, ptxas)
     checked["errs"]["slstm_scan"] = slstm["err"]
     checked["timings"]["slstm_scan"] = slstm["timing"]
     mamba2 = phase_mamba2(card)

@@ -39,25 +39,34 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()
+                            ).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
-def build_all(names=SOURCES) -> dict[str, str]:
+def build_all(names=SOURCES, defines: tuple[str, ...] = ()
+              ) -> dict[str, str]:
     """Compile every named source that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns each source's ``ptxas`` report
+    source, all started together, with the macros ``defines`` set (a
+    diagnostic build, such as the sLSTM scan's ``SLSTM_PROFILE``, is a
+    library of its own).  Returns each source's ``ptxas`` report
     (registers, shared memory, spills); raises on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in names:
-        out = _target(name)
+        out = _target(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -73,10 +82,10 @@ def build_all(names=SOURCES) -> dict[str, str]:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The shared library of ``csrc/<name>.cu``, built first if needed."""
-    build_all((name,))
-    return ctypes.CDLL(str(_target(name)))
+    build_all((name,), defines)
+    return ctypes.CDLL(str(_target(name, defines)))
 
 
 def check(status: int, what: str) -> None:

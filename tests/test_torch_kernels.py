@@ -518,6 +518,84 @@ def test_slstm_scan_matches_apply_slstm_prefill():
                                    **SLSTM_TOL)
 
 
+# an H100's 132 SMs and the 232,448 bytes of shared memory a block may
+# take, the limits the kernel's wrapper reads from the card
+H100 = (132, 232448)
+
+
+def _slstm_plan(*args, **kw):
+    from importlib import import_module
+    return import_module("repro_torch.kernels.slstm_scan").plan(*args, **kw)
+
+
+def test_slstm_plan_at_the_serve_shape():
+    """xLSTM-1.3B's prefill (B 4, 4 heads of 512): 32 blocks of 16 units a
+    head, 128 blocks on the 132 SMs, each holding 128 KiB of R."""
+    p = _slstm_plan(4, 4, 512, *H100)
+    assert (p.units, p.groups, p.blocks) == (16, 32, 128)
+    assert p.r_bytes == 128 * 1024 == 512 * 4 * 16 * 4
+    assert (p.slices, p.threads) == (16, 256)
+    assert p.r_bytes < p.smem_bytes <= H100[1]
+
+
+@pytest.mark.parametrize("b,nh,hd,units,groups,slices", [
+    (2, 2, 32, 1, 32, 8),              # tests/test_kernels.py's shapes
+    (4, 4, 64, 2, 32, 16),             # the xLSTM smoke model
+    (1, 1, 4, 1, 4, 1)])
+def test_slstm_plan_small_shapes(b, nh, hd, units, groups, slices):
+    p = _slstm_plan(b, nh, hd, *H100)
+    assert (p.units, p.groups, p.slices) == (units, groups, slices)
+    assert p.blocks == nh * groups <= H100[0]
+    assert p.threads == units * slices
+
+
+@pytest.mark.parametrize("nh,hd,units,groups", [
+    (8, 40, 3, 14), (6, 96, 5, 20), (8, 35, 3, 12), (4, 70, 3, 24)])
+def test_slstm_plan_ragged_groups(nh, hd, units, groups):
+    """hd need not be a multiple of the units a block: the last group of a
+    head holds the rest (chip_smoke's SLSTM_EDGE_CASES run the first
+    three on the card)."""
+    p = _slstm_plan(2, nh, hd, *H100)
+    assert (p.units, p.groups) == (units, groups)
+    assert (p.groups - 1) * p.units < hd < p.groups * p.units
+
+
+def test_slstm_plan_refuses_what_does_not_fit_on_chip():
+    """4 heads of 1024 units hold 64 MiB of R, over what 132 blocks of
+    227 KB can hold: the refusal names the bytes and the capacity.  At 4
+    heads and B 4 the last hd that fits is 627."""
+    with pytest.raises(ValueError, match=r"67108864 bytes.*232448 bytes"):
+        _slstm_plan(4, 4, 1024, *H100)
+    assert _slstm_plan(4, 4, 627, *H100).blocks == 132
+    with pytest.raises(ValueError, match="cannot be held on chip"):
+        _slstm_plan(4, 4, 628, *H100)
+    with pytest.raises(ValueError, match="cannot be held on chip"):
+        _slstm_plan(1, 133, 64, *H100)          # more heads than SMs
+
+
+@pytest.mark.parametrize("nh", [1, 2, 4, 8])
+def test_slstm_plan_keeps_its_rules(nh):
+    """Over hd 1..700 at B 1 to 9: every plan the wrapper may launch has at
+    most one block an SM, at most 256 threads, a power-of-two count of
+    slices up to 16, groups that cover hd with the last one not empty, and
+    shared memory within the card's; past the first refusal nothing fits."""
+    for b in (1, 4, 9):
+        refused = False
+        for hd in range(1, 701):
+            try:
+                p = _slstm_plan(b, nh, hd, *H100)
+            except ValueError:
+                refused = True
+                continue
+            assert not refused, (b, nh, hd)
+            assert p.blocks == nh * p.groups <= H100[0]
+            assert p.threads == p.units * p.slices <= 256
+            assert p.slices in (1, 2, 4, 8, 16)
+            assert (p.groups - 1) * p.units < hd <= p.groups * p.units
+            assert p.r_bytes == hd * 4 * p.units * 4 <= p.smem_bytes
+            assert p.smem_bytes <= H100[1]
+
+
 def test_slstm_cuda_wrapper_refuses_cpu_tensors():
     from importlib import import_module
     sl = import_module("repro_torch.kernels.slstm_scan")
