@@ -21,10 +21,12 @@ Phases, in order; any failure exits nonzero:
      final state, at
      the JAX kernel tests' shapes, at S = 1, from a non-fresh state, at the
      xLSTM smoke shape and at xLSTM-1.3B's prefill shape; the Mamba2 scan,
-     y and final state, at the JAX kernel tests' shapes, at S = 1 and
-     ragged S, on bf16 strided slices of a conv output, where a chunk's
-     decay passes exp's fp32 range, and at Zamba2-7B's prefill shape), and
-     time kernel, plain version and, where one exists, the one PyTorch call
+     y and final state, fp32 through the CUDA-core kernel and bf16 through
+     the mma one, at the JAX kernel tests' shapes, at S = 1 and ragged S,
+     on bf16 strided slices of a conv output, where a chunk's decay passes
+     exp's fp32 range, and at Zamba2-7B's prefill shape, with the mma
+     kernel's ptxas report, residency and per-phase clocks), and time
+     kernel, plain version and, where one exists, the one PyTorch call
      that computes the same function (the quantizer's versions on inputs
      read from HBM, as its bound assumes);
   4. the first path: ``repro_torch.launch.train.run_training("paper-cnn",
@@ -57,9 +59,9 @@ Phases, in order; any failure exits nonzero:
  11. the fourth path: split-inference serving of the full Zamba2-7B
      (``serve_config``: 81 Mamba2 layers, the weight-shared attention +
      MLP block after every 6, split 18 + 63, width 3584, bf16, weights
-     drawn on the card from seed 0), as phase 7, with 81 Mamba2-scan and 13
-     flash-attention launches (all of them the wgmma kernel's) required in
-     the prefill and none in decode;
+     drawn on the card from seed 0), as phase 7, with 81 Mamba2-scan (all
+     of them the mma kernel's) and 13 flash-attention launches (all of them
+     the wgmma kernel's) required in the prefill and none in decode;
  12. card against CPU on the Zamba2 path: the same fp32 weights of a
      4-layer Zamba2-7B at full width (shared block every 2 layers, split
      2 + 2), one prefill of 256 tokens and 4 decode steps on each;
@@ -166,15 +168,18 @@ SLSTM_TOL = dict(atol=1e-5, rtol=1e-4)
 # B and C bf16 slices of one (B, S, nh hd + 2N) SiLU conv output, dt =
 # softplus of N(0, 1), A = -1 and D = 1, as the model at random init hands
 # them over.  The last is Zamba2-7B's prefill shape.
-MAMBA2_CASES = [(1, 64, 2, 32, 16, "float32", "test"),
-                (2, 128, 4, 64, 64, "float32", "test"),
-                (1, 256, 2, 64, 64, "float32", "test"),
-                (2, 1, 2, 32, 16, "float32", "test"),
-                (2, 300, 2, 32, 16, "float32", "test"),
-                (1, 1000, 3, 64, 64, "float32", "test"),
-                (2, 333, 4, 64, 64, "bfloat16", "model"),
-                (2, 256, 2, 64, 64, "float32", "decay"),
-                (SERVE_BATCH, SERVE_PROMPT, 112, 64, 64, "bfloat16", "model")]
+# The fp32 cases go to the CUDA-core kernel, the bf16 ones to the mma
+# kernel: each fp32 case has a bf16 twin (N 16 and hd 32 padded to 64, S 1,
+# ragged S 300 and 1000, 3 heads, one of them alone in its block, "decay").
+_MAMBA2_EDGES = [(1, 64, 2, 32, 16, "test"), (2, 128, 4, 64, 64, "test"),
+                 (1, 256, 2, 64, 64, "test"), (2, 1, 2, 32, 16, "test"),
+                 (2, 300, 2, 32, 16, "test"), (1, 1000, 3, 64, 64, "test"),
+                 (2, 256, 2, 64, 64, "decay")]
+MAMBA2_CASES = ([(*e[:5], "float32", e[5]) for e in _MAMBA2_EDGES]
+                + [(*e[:5], "bfloat16", e[5]) for e in _MAMBA2_EDGES]
+                + [(2, 333, 4, 64, 64, "bfloat16", "model"),
+                   (SERVE_BATCH, SERVE_PROMPT, 112, 64, 64, "bfloat16",
+                    "model")])
 # as tests/test_kernels.py holds the Pallas kernel: |err| <= 5e-5 max|y|;
 # a bf16 y is rounded once on each side from fp32 values that differ in
 # their last bits, so it may also differ by one bf16 ulp (2^-7 of |y|)
@@ -783,48 +788,107 @@ def _mamba2_inputs(b, s, nh, hd, n, dtype, kind, seed):
     return (x, dt, A, conv[..., d_in:d_in + n], conv[..., d_in + n:], D)
 
 
-def phase_mamba2(card: str) -> dict:
+def _check_mamba2(m2, args, case) -> float:
+    """One case against the plain version: y and the final state, finite,
+    of the right shape and type, within MAMBA2_TOL of max|.| (y in bf16
+    also within 2^-7 of |y|, the state at rtol 0); a bf16 case must launch
+    the mma kernel, an fp32 one the CUDA-core kernel."""
+    import torch
+
+    from repro_torch.kernels import ref
+    b, s, nh, hd, n, dtype, kind = case
+    before = dict(m2.LAUNCHES)
+    y, state = m2.mamba2_scan_cuda(*args)
+    y_r, state_r = ref.mamba2_scan_ref(*args)
+    torch.cuda.synchronize()
+    mma = m2.LAUNCHES["mamba2_scan_mma"] - before["mamba2_scan_mma"]
+    if mma != (dtype == "bfloat16"):
+        fail(f"mamba2 scan {kind} ({b}, {s}, {nh}, {hd}, {n}) {dtype} "
+             f"launched the mma kernel {mma} times")
+    if y.dtype != args[0].dtype or y.shape != y_r.shape \
+            or state.shape != (b, nh, hd, n):
+        fail(f"mamba2 scan ({b}, {s}, {nh}, {hd}, {n}): y {y.dtype} "
+             f"{tuple(y.shape)}, state {tuple(state.shape)}")
+    errs = {}
+    for name, g, w in (("y", y.float(), y_r.float()),
+                       ("state", state, state_r)):
+        if not bool(torch.isfinite(g).all()):
+            fail(f"mamba2 scan {kind} ({b}, {s}, {nh}, {hd}, {n}): "
+                 f"non-finite {name}")
+        scale = float(w.abs().max())
+        errs[name] = float((g - w).abs().max())
+        rtol = 2 ** -7 if (name, dtype) == ("y", "bfloat16") else 0.0
+        if not torch.allclose(g, w, atol=MAMBA2_TOL * scale, rtol=rtol):
+            fail(f"mamba2 scan {kind} ({b}, {s}, {nh}, {hd}, {n}) "
+                 f"{dtype}: {name} differs from the plain version by "
+                 f"{errs[name]} (max|{name}| {scale})")
+        errs[f"max|{name}|"] = scale
+    cum = (args[1][:, :64] * args[2]).sum(1).min()
+    print(f"[kernels] mamba2 {kind} x ({b}, {s}, {nh}, {hd}) N {n} "
+          f"{dtype} ({'mma' if mma else 'CUDA-core'} kernel): max|err| y "
+          f"{errs['y']:.3g} (max|y| {errs['max|y|']:.4g}), state "
+          f"{errs['state']:.3g} (max|state| {errs['max|state|']:.4g}, "
+          f"{errs['state'] / errs['max|state|']:.3g} of it); decay over "
+          f"the first 64 steps down to {float(cum):.4g}; tol {MAMBA2_TOL} "
+          f"of max|.|" + (", plus 2^-7 of |y|" if dtype == "bfloat16"
+                          else ""))
+    return max(errs["y"], errs["state"])
+
+
+def phase_mamba2(card: str, ptxas: str) -> dict:
     """The Mamba2 scan against its plain version on the card, y and the
-    final state, then timed at Zamba2-7B's prefill shape."""
+    final state, at MAMBA2_CASES (fp32 through the CUDA-core kernel, bf16
+    through the mma kernel); a bf16 view the mma kernel cannot read must
+    raise before any launch, and two launches at Zamba2-7B's prefill shape
+    must agree bit for bit.  Then timed at that shape, and a chunk of the
+    mma kernel split into its phases by its diagnostic build."""
     import torch
 
     from repro_torch.kernels import ref
     m2 = importlib.import_module("repro_torch.kernels.mamba2_scan")
+    for line in ptxas.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"[kernels] mamba2 ptxas: {line.strip()}")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = m2.mma_blocks_per_sm()
+    blocks = SERVE_BATCH * -(-112 // 2)
+    print(f"[kernels] mamba2 mma kernel: {per_sm} blocks of 256 threads "
+          f"resident per SM, {per_sm * n_sm} on {n_sm} SMs, for the serve "
+          f"shape's {blocks} blocks ({-(-blocks // (per_sm * n_sm))} "
+          f"wave(s))")
+    if per_sm < 1:
+        fail("the mamba2 mma kernel cannot be resident on an SM")
     err = 0.0
-    for i, (b, s, nh, hd, n, dtype, kind) in enumerate(MAMBA2_CASES):
-        args = _mamba2_inputs(b, s, nh, hd, n, dtype, kind, 40 + i)
-        y, state = m2.mamba2_scan_cuda(*args)
-        y_r, state_r = ref.mamba2_scan_ref(*args)
-        torch.cuda.synchronize()
-        if y.dtype != args[0].dtype or y.shape != y_r.shape \
-                or state.shape != (b, nh, hd, n):
-            fail(f"mamba2 scan ({b}, {s}, {nh}, {hd}, {n}): y {y.dtype} "
-                 f"{tuple(y.shape)}, state {tuple(state.shape)}")
-        errs = {}
-        for name, g, w in (("y", y.float(), y_r.float()),
-                           ("state", state, state_r)):
-            if not bool(torch.isfinite(g).all()):
-                fail(f"mamba2 scan {kind} ({b}, {s}, {nh}, {hd}, {n}): "
-                     f"non-finite {name}")
-            scale = float(w.abs().max())
-            errs[name] = float((g - w).abs().max())
-            rtol = 2 ** -7 if (name, dtype) == ("y", "bfloat16") else 0.0
-            if not torch.allclose(g, w, atol=MAMBA2_TOL * scale, rtol=rtol):
-                fail(f"mamba2 scan {kind} ({b}, {s}, {nh}, {hd}, {n}) "
-                     f"{dtype}: {name} differs from the plain version by "
-                     f"{errs[name]} (max|{name}| {scale})")
-            errs[f"max|{name}|"] = scale
-        cum = (args[1][:, :64] * args[2]).sum(1).min()
-        print(f"[kernels] mamba2 {kind} x ({b}, {s}, {nh}, {hd}) N {n} "
-              f"{dtype}: max|err| y {errs['y']:.3g} (max|y| "
-              f"{errs['max|y|']:.4g}), state {errs['state']:.3g} (max|state| "
-              f"{errs['max|state|']:.4g}); decay over the first 64 steps "
-              f"down to {float(cum):.4g}; tol {MAMBA2_TOL} of max|.|"
-              + (", plus 2^-7 of |y|" if dtype == "bfloat16" else ""))
-        err = max(err, errs["y"], errs["state"])
+    for i, case in enumerate(MAMBA2_CASES):
+        args = _mamba2_inputs(*case, 40 + i)
+        err = max(err, _check_mamba2(m2, args, case))
+
+    # a bf16 view the cp.async loads cannot read: x one element off
+    x, dt, A, B, C, D = _mamba2_inputs(1, 64, 2, 32, 16, "bfloat16", "test",
+                                       60)
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device="cuda")
+    shifted = flat[1:].view(x.shape)
+    before = dict(m2.LAUNCHES)
+    try:
+        m2.mamba2_scan_cuda(shifted, dt, A, B, C, D)
+    except ValueError as e:
+        print(f"[kernels] mamba2 on a misaligned bf16 x raises: {e}")
+    else:
+        fail("the mamba2 scan took a bf16 x its loads cannot read")
+    torch.cuda.synchronize()
+    if m2.LAUNCHES != before:
+        fail("the mamba2 scan launched before refusing a misaligned x")
 
     # the serving path's shape, from its last case's inputs
     x, dt, A, B, C, D = args
+    one, two = (m2.mamba2_scan_cuda(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(one, two))
+    print(f"[kernels] mamba2 two launches at x {tuple(x.shape)}: y and the "
+          f"final state bit-identical {same}")
+    if not same:
+        fail("two launches of the mamba2 scan on the same inputs differ")
+    del one, two
     b, s, nh, hd = x.shape
     n = B.shape[-1]
     el = x.element_size()
@@ -832,18 +896,36 @@ def phase_mamba2(card: str) -> dict:
                + b * nh * hd * n * 4 + 2 * nh * 4)
     n_flops = 4 * b * s * nh * hd * n
     t = dict(
-        ms=time_ms(lambda: m2.mamba2_scan_cuda(*args), iters=10, warmup=2),
+        ms=time_ms(lambda: m2.mamba2_scan_cuda(*args), iters=20, warmup=3),
         plain_ms=time_ms(lambda: ref.mamba2_scan_ref(*args), iters=2,
                          warmup=1),
         library_ms=None,
         bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
-    print(f"[timing] mamba2_scan at x {tuple(x.shape)} N {n} bf16 "
-          f"({n_flops:.4g} inter-chunk operations, {n_bytes / 1e6:.1f} MB): "
-          f"kernel {t['ms'][0]:.4f} ms (events {t['ms'][1]:.4f}), plain "
-          f"{t['plain_ms'][0]:.4f} ms (events {t['plain_ms'][1]:.4f}), "
-          f"library n/a (no single PyTorch call), bound {t['bound'][0]:.4f} "
-          f"ms ({t['bound'][1]}); kernel at "
-          f"{n_bytes / t['ms'][0] / 1e6:.1f} GB/s on {card}")
+    print(f"[timing] mamba2_scan at x {tuple(x.shape)} N {n} bf16, mma "
+          f"kernel ({n_flops:.4g} inter-chunk operations, "
+          f"{n_bytes / 1e6:.1f} MB): kernel {t['ms'][0]:.4f} ms (events "
+          f"{t['ms'][1]:.4f}), plain {t['plain_ms'][0]:.4f} ms (events "
+          f"{t['plain_ms'][1]:.4f}), library n/a (no single PyTorch call), "
+          f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}); kernel at "
+          f"{n_bytes / t['ms'][0] / 1e6:.1f} GB/s, "
+          f"{t['ms'][0] / t['bound'][0]:.2f}x the bound (target <= 5x), on "
+          f"{card}")
+    # where a chunk goes, in SM clocks, from the kernel's diagnostic build
+    per_warp = m2.chunk_profile(*args)
+    phases = {k: sum(v) / len(v) for k, v in per_warp.items()}
+    total = sum(phases.values())
+    sm_mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[timing] mamba2_scan chunk profile (SM clocks a chunk, mean over "
+          f"block (0, 0)'s 8 warps, MAMBA2_PROFILE build; SM clock "
+          f"{sm_mhz}): " + ", ".join(f"{k} {v:.0f} ({v / total:.3f})"
+                                     for k, v in phases.items())
+          + f"; total {total:.0f}")
+    print("[timing] mamba2_scan chunk profile by warp (warps 0-3 head 0, "
+          "4-7 head 1): " + "; ".join(
+              f"{k} " + " ".join(f"{c:.0f}" for c in v)
+              for k, v in per_warp.items()))
     for key in ("ms", "plain_ms"):
         t[key] = t[key][0]
     return {"err": err, "timing": t}
@@ -1028,8 +1110,9 @@ def phase_profile(card: str, trained) -> None:
 
 # each serving path: arch -> ({its ported kernels' count name: profiler
 # name}, the config cut in depth for the card-vs-CPU check, the log tag)
-# (each "flash_kernel" name matches both flash kernels; the bf16 prefills
-# must launch the wgmma one, the fp32 cross-checks the CUDA-core one)
+# (each "flash_kernel" name matches both flash kernels, "mamba2_scan_kernel"
+# both Mamba2 kernels; the bf16 prefills must launch the wgmma and mma
+# ones, the fp32 cross-checks the CUDA-core ones)
 SERVE_PATHS = {
     "qwen3-14b": ({"flash_attention": "flash_kernel",
                    "flash_attention_wgmma": "flash_kernel_wgmma"},
@@ -1038,6 +1121,7 @@ SERVE_PATHS = {
                    lambda cfg: replace(cfg, num_layers=4, xlstm=replace(
                        cfg.xlstm, slstm_period=2)), "serve-xlstm"),
     "zamba2-7b": ({"mamba2_scan": "mamba2_scan_kernel",
+                   "mamba2_scan_mma": "mamba2_scan_kernel_mma",
                    "flash_attention": "flash_kernel",
                    "flash_attention_wgmma": "flash_kernel_wgmma"},
                   lambda cfg: replace(cfg, num_layers=4,
@@ -1050,8 +1134,8 @@ def _launches_per_prefill(cfg) -> dict:
     attention layer (Qwen3) or application of the shared block (Zamba2:
     after every period-th Mamba2 layer, on each side of the split), the
     sLSTM scan once per sLSTM block, the Mamba2 scan once per Mamba2
-    layer; in bf16 every flash launch is the wgmma kernel's, in fp32
-    none."""
+    layer; in bf16 every flash launch is the wgmma kernel's and every
+    Mamba2 launch the mma kernel's, in fp32 none."""
     if cfg.xlstm:
         return {"slstm_scan": cfg.num_layers // cfg.xlstm.slstm_period}
     want = {"flash_attention": cfg.num_layers}
@@ -1061,6 +1145,8 @@ def _launches_per_prefill(cfg) -> dict:
         want = {"mamba2_scan": cfg.num_layers,
                 "flash_attention": split // per
                 + (cfg.num_layers - split) // per}
+        want["mamba2_scan_mma"] = (cfg.num_layers
+                                   if cfg.dtype == "bfloat16" else 0)
     want["flash_attention_wgmma"] = (want["flash_attention"]
                                      if cfg.dtype == "bfloat16" else 0)
     return want
@@ -1282,16 +1368,16 @@ def main() -> int:
     lap = lambda what: print(f"[clock] {what} done at "
                              f"{time.perf_counter() - t0:.1f} s")
     card = phase_device()
-    ptxas = phase_build().get("slstm_scan", "")
+    ptxas = phase_build()
     lap("build")
     checked = phase_kernels(card)
     flash = phase_flash(card)
     checked["errs"]["flash_attention"] = flash["err"]
     checked["timings"]["flash_attention"] = flash["timing"]
-    slstm = phase_slstm(card, ptxas)
+    slstm = phase_slstm(card, ptxas.get("slstm_scan", ""))
     checked["errs"]["slstm_scan"] = slstm["err"]
     checked["timings"]["slstm_scan"] = slstm["timing"]
-    mamba2 = phase_mamba2(card)
+    mamba2 = phase_mamba2(card, ptxas.get("mamba2_scan", ""))
     checked["errs"]["mamba2_scan"] = mamba2["err"]
     checked["timings"]["mamba2_scan"] = mamba2["timing"]
     lap("kernel checks")

@@ -86,7 +86,9 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dt (B, S, nh) fp32, A and D (nh,) fp32, B and C (B, S, N) shared by all
     heads.  Returns y (B, S, nh, hd) in x's dtype and the final state (B,
     nh, hd, N) in fp32.  On the card x, B, C and dt may be any views whose
-    last dim is contiguous."""
+    last dim is contiguous; in bf16 (the tensor-core kernel) the rows of x,
+    B and C must also be 16-byte aligned, as the model's conv-output slices
+    are (``mamba2_scan.mma_layout_problem`` says why a view is refused)."""
     if _route(x, "mamba2_scan") == "cuda":
         return _m2.mamba2_scan_cuda(x, dt, A, B, C, D)
     return ref.mamba2_scan_ref(x, dt, A, B, C, D)

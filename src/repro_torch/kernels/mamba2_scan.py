@@ -6,33 +6,85 @@ Counterpart of the JAX package's ``kernels/mamba2_scan.py``
 fp32, B and C (B, S, N) of one group shared by all heads, from a zero
 state.  Returns y (B, S, nh, hd) in x's dtype and, where the TPU kernel
 returns y only, the final state (B, nh, hd, N) in fp32, the layout of the
-model's decode cache.  The kernel reads x, B, C and dt through their
-strides, so the model's slices of its conv output go in as they are.  Any
-S >= 1; hd and N at most 64.  One launch per call."""
+model's decode cache.  The dtype picks the kernel: bf16 goes to
+``mamba2_scan_kernel_mma`` (the chunk products on the tensor cores, fp32
+operands split into bf16 terms, chunk loads by cp.async ahead of the
+math), fp32 to the CUDA-core ``mamba2_scan_kernel`` (an mma on fp32 data
+would be TF32).  Neither stands in for the other: a bf16 view the mma
+kernel cannot read raises (``mma_layout_problem`` says why).  Both read x,
+B, C and dt through their strides, so the model's slices of its conv
+output go in as they are.  Any S >= 1; hd and N at most 64 (multiples of 8
+in bf16).  One launch per call."""
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = {"mamba2_scan": 0}
+# "mamba2_scan" counts every launch, "mamba2_scan_mma" those of the bf16
+# kernel
+LAUNCHES = {"mamba2_scan": 0, "mamba2_scan_mma": 0}
 
 MAX_DIM = 64                           # hd and N, padded to 64 in the kernel
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+CHUNK = 64                             # steps of a chunk, both kernels
+# bf16 terms each fp32 operand of the bf16 kernel's products is split into;
+# CHUNK and TERMS state the .cu's kL and kTerms, which a CPU test holds
+# them to
+TERMS = 2
+# the phases of a chunk that a build with MAMBA2_PROFILE times, in order
+PROFILE_PHASES = ("wait for the chunk's loads", "C B^T and G", "C S",
+                  "state update", "prefix sum", "wait for G", "G x",
+                  "store")
+PROFILE_WARPS = 8                      # the warps of one block
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    for fn in (lib.mamba2_scan_fwd, lib.mamba2_scan_mma_fwd):
+        fn.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+        fn.restype = _I
+    lib.mamba2_scan_mma_occupancy.argtypes = [_P]
+    lib.mamba2_scan_mma_occupancy.restype = _I
+    return lib
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("mamba2_scan")
-    lib.mamba2_scan_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _P, _P, _I, _I, _I, _I, _I, _I, _P]
-    lib.mamba2_scan_fwd.restype = _I
-    return lib
+    return _bind(build.load("mamba2_scan"))
+
+
+def mma_layout_problem(x: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor) -> Optional[str]:
+    """Why the bf16 kernel's 16-byte cp.async loads cannot read x (B, S,
+    nh, hd), B or C (B, S, N), or None: each must be bf16, its last dim
+    contiguous and a multiple of 8 up to 64, its base 16-byte aligned, and
+    every other stride of a dim longer than 1 a positive multiple of 16
+    bytes.  It reads shapes, strides, addresses and dtypes only, so it runs
+    on ``meta`` tensors without a card."""
+    for name, t, axes in (("x", x, ("batch", "time", "head")),
+                          ("B", B, ("batch", "time")),
+                          ("C", C, ("batch", "time"))):
+        if t.dtype != torch.bfloat16:
+            return f"{name} is {t.dtype}, not torch.bfloat16"
+        if t.dim() != len(axes) + 1 or t.shape[-1] % 8 \
+                or not 8 <= t.shape[-1] <= MAX_DIM:
+            return (f"{name}'s last dim of {tuple(t.shape)} is not a "
+                    f"multiple of 8 in [8, {MAX_DIM}]")
+        if t.stride(-1) != 1:
+            return f"{name}'s last dim is not contiguous"
+        if t.data_ptr() % 16:
+            return (f"{name}'s base address is {t.data_ptr() % 16} bytes "
+                    "past a 16-byte boundary")
+        for axis, n, s in zip(axes, t.shape, t.stride()):
+            if n > 1 and (s <= 0 or s * t.element_size() % 16):
+                return (f"{name}'s {axis} stride of {s} elements is not a "
+                        "positive multiple of 16 bytes")
+    return None
 
 
 def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -44,7 +96,7 @@ def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"mamba2 scan: x must be (B, S, nh, hd), got "
                          f"{tuple(x.shape)}")
     b, s, nh, hd = x.shape
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"mamba2 scan takes fp32 or bf16 x, not {x.dtype}")
     n = B.shape[-1]
     if s < 1 or not 1 <= hd <= MAX_DIM or not 1 <= n <= MAX_DIM:
@@ -64,14 +116,15 @@ def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"mamba2 scan: {name}'s last dim must be "
                              "contiguous")
+    if x.dtype == torch.bfloat16:
+        problem = mma_layout_problem(x, B, C)
+        if problem:
+            raise ValueError(f"mamba2 scan, bf16 (mma) kernel: {problem}")
 
 
-def mamba2_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                     B: torch.Tensor, C: torch.Tensor, D: torch.Tensor
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel: y (B, S, nh, hd) in x's dtype and the final state
-    (B, nh, hd, N) in fp32, as ``ref.mamba2_scan_ref`` computes them."""
-    _check(x, dt, A, B, C, D)
+def _launch(lib: ctypes.CDLL, x: torch.Tensor, dt: torch.Tensor,
+            A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+            D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     b, s, nh, hd = x.shape
     n = B.shape[-1]
     y = torch.empty(b, s, nh, hd, dtype=x.dtype, device=x.device)
@@ -80,10 +133,64 @@ def mamba2_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     strides += [(ctypes.c_longlong * 2)(*t.stride()[:2]) for t in (B, C)]
     ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    build.check(_lib().mamba2_scan_fwd(
+    fn = (lib.mamba2_scan_mma_fwd if x.dtype == torch.bfloat16
+          else lib.mamba2_scan_fwd)
+    build.check(fn(
         x.data_ptr(), ptr(strides[0]), dt.data_ptr(), ptr(strides[1]),
         A.data_ptr(), B.data_ptr(), ptr(strides[2]), C.data_ptr(),
         ptr(strides[3]), D.data_ptr(), y.data_ptr(), state.data_ptr(),
-        _DTYPE_CODE[x.dtype], b, s, nh, hd, n, stream), "mamba2_scan launch")
-    LAUNCHES["mamba2_scan"] += 1
+        b, s, nh, hd, n, stream), "mamba2_scan launch")
     return y, state
+
+
+def mamba2_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     B: torch.Tensor, C: torch.Tensor, D: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel of x's dtype: y (B, S, nh, hd) in x's dtype and
+    the final state (B, nh, hd, N) in fp32, as ``ref.mamba2_scan_ref``
+    computes them (the bf16 kernel's products carry fp32 operands as two
+    bf16 terms each, to within 2^-16 of each operand)."""
+    _check(x, dt, A, B, C, D)
+    out = _launch(_lib(), x, dt, A, B, C, D)
+    LAUNCHES["mamba2_scan"] += 1
+    if x.dtype == torch.bfloat16:
+        LAUNCHES["mamba2_scan_mma"] += 1
+    return out
+
+
+def mma_blocks_per_sm() -> int:
+    """The bf16 kernel's blocks resident on one SM of the current card, as
+    the occupancy calculator gives it for its 256 threads and shared
+    memory."""
+    blocks = ctypes.c_int(0)
+    build.check(_lib().mamba2_scan_mma_occupancy(ctypes.byref(blocks)),
+                "mamba2_scan occupancy query")
+    return blocks.value
+
+
+def chunk_profile(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, D: torch.Tensor
+                  ) -> dict[str, list[float]]:
+    """One launch of the bf16 kernel built with ``-DMAMBA2_PROFILE`` (a
+    library of its own): for each phase of a chunk (``PROFILE_PHASES``),
+    the SM clocks a chunk of each of block (0, 0)'s 8 warps, averaged over
+    the chunks.  Not counted in ``LAUNCHES``: it is a diagnostic, not the
+    path."""
+    _check(x, dt, A, B, C, D)
+    if x.dtype != torch.bfloat16:
+        raise ValueError("mamba2 scan: the chunk profile is of the bf16 "
+                         "kernel")
+    lib = _bind(build.load("mamba2_scan", ("MAMBA2_PROFILE",)))
+    lib.mamba2_scan_mma_profile.argtypes = [_P]
+    lib.mamba2_scan_mma_profile.restype = _I
+    n_ph = len(PROFILE_PHASES)
+    clocks = (ctypes.c_ulonglong * (PROFILE_WARPS * n_ph))()
+    build.check(lib.mamba2_scan_mma_profile(clocks), "mamba2_scan profile "
+                "clear")
+    _launch(lib, x, dt, A, B, C, D)
+    torch.cuda.synchronize(x.device)
+    build.check(lib.mamba2_scan_mma_profile(clocks), "mamba2_scan profile "
+                "read")
+    chunks = -(-x.shape[1] // CHUNK)
+    return {k: [clocks[w * n_ph + i] / chunks for w in range(PROFILE_WARPS)]
+            for i, k in enumerate(PROFILE_PHASES)}

@@ -84,6 +84,16 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b)
 
 
+def scan_views(conv_out: torch.Tensor, cfg: ArchConfig):
+    """x (B, S, nh, hd), B and C (B, S, N): views of the conv output
+    (B, S, d_in + 2N) as the scan reads them, through their strides."""
+    s, d_in, nh, _ = _dims(cfg)
+    b, S, _ = conv_out.shape
+    return (conv_out[..., :d_in].reshape(b, S, nh, s.head_dim),
+            conv_out[..., d_in: d_in + s.state_dim],
+            conv_out[..., d_in + s.state_dim:])
+
+
 def apply_ssm(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
               mode: str = "train", cache: Optional[SSMCache] = None
               ) -> tuple[torch.Tensor, Optional[SSMCache]]:
@@ -118,10 +128,7 @@ def apply_ssm(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
         new_cache = SSMCache(conv=window[:, 1:], state=state)
     else:
         conv_out = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-        # views of the conv output, read through their strides on the card
-        xs = conv_out[..., :d_in].reshape(b, S, nh, s.head_dim)
-        Bv = conv_out[..., d_in: d_in + s.state_dim]
-        Cv = conv_out[..., d_in + s.state_dim:]
+        xs, Bv, Cv = scan_views(conv_out, cfg)
         y4, state = kernels.mamba2_scan(xs, dt, A, Bv, Cv, p["D"])
         y = y4.reshape(b, S, d_in)
         if mode == "prefill" and cache is not None:

@@ -403,7 +403,7 @@ def test_cpu_tensors_take_the_plain_versions():
     assert set(kernels.launch_counts()) == {
         "clustering_fwd", "clustering_bwd", "quantize_amax", "quantize_qdq",
         "flash_attention", "flash_attention_wgmma", "slstm_scan",
-        "mamba2_scan"}
+        "mamba2_scan", "mamba2_scan_mma"}
 
 
 def test_wrappers_refuse_other_devices():
@@ -696,3 +696,221 @@ def test_mamba2_cuda_wrapper_refuses_cpu_tensors():
     arrs = [torch.from_numpy(a) for a in _mamba2_case(1, 4, 2, 32, 16, 0)]
     with pytest.raises(ValueError, match="CUDA device"):
         m2.mamba2_scan_cuda(*arrs)
+
+
+def _bf16_terms(v, terms):
+    """v (fp32) as ``terms`` bf16-representable fp32 tensors summing to it
+    to within 2^-8 ``terms`` relative: hi = bf16(v), then bf16 of what is
+    left, as the kernel's split() does."""
+    out = []
+    for _ in range(terms):
+        t = v.to(torch.bfloat16).float()
+        out.append(t)
+        v = v - t
+    return out
+
+
+def _mamba2_mma_arithmetic(x, dt, A, B, C, D, terms=None):
+    """The bf16 kernel's arithmetic in plain PyTorch: chunks of 64 steps,
+    the last zero-padded with dt = 0; cum the inclusive prefix sum of dt A,
+    kept in base 2 (cum log2 e, every exponent an exp2); C B^T exact (bf16
+    inputs, fp32 sums); G = C B^T exp(cum_t - cum_s) dt_s taken only where
+    s <= t (0 elsewhere, never a 0/1 mask on an exponent), so the 16 x 16
+    tiles above the diagonal hold 0 and add nothing; y = e^cum_t C S + G x
+    + D x with S and G split into ``terms`` bf16 terms; S^T <- e^cum_L S^T
+    + (x w)^T B with x w split, w_s = exp(cum_L - cum_s) dt_s; fp32
+    accumulators, y rounded once to x's dtype."""
+    from importlib import import_module
+    m2 = import_module("repro_torch.kernels.mamba2_scan")
+    terms = terms or m2.TERMS
+    b, s, nh, hd = x.shape
+    n = B.shape[-1]
+    L = m2.CHUNK
+    xf, Bf, Cf, dtf = x.float(), B.float(), C.float(), dt.float()
+    state_t = torch.zeros(b, nh, hd, n)                  # S^T per (b, h)
+    tri = torch.ones(L, L, dtype=torch.bool).tril()[None, :, :, None]
+    ys = []
+    for c0 in range(0, s, L):
+        ln = min(L, s - c0)
+        pad = lambda t: torch.cat([t, t.new_zeros(b, L - ln,
+                                                  *t.shape[2:])], 1)
+        xc, Bc, Cc = pad(xf[:, c0:c0 + ln]), pad(Bf[:, c0:c0 + ln]), \
+            pad(Cf[:, c0:c0 + ln])
+        dtc = pad(dtf[:, c0:c0 + ln])                     # (b, L, nh)
+        cum = torch.cumsum(dtc * A.float(), 1) * math.log2(math.e)
+        cb = Cc @ Bc.transpose(1, 2)                      # (b, t, s)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]    # (b, t, s, nh)
+        dec = torch.where(tri, torch.exp2(torch.where(tri, diff, 0.0)), 0.0)
+        g = cb[..., None] * dec * dtc[:, None, :, :]
+        y = torch.zeros(b, L, nh, hd)
+        for st in _bf16_terms(state_t, terms):
+            y += torch.einsum("btn,bhpn->bthp", Cc, st)
+        y *= torch.exp2(cum)[..., None]
+        for gt in _bf16_terms(g, terms):
+            y += torch.einsum("btsh,bshp->bthp", gt, xc)
+        y += D.float()[:, None] * xc
+        ys.append(y[:, :ln])
+        w = torch.exp2(cum[:, -1:] - cum) * dtc           # (b, L, nh)
+        state_t = torch.exp2(cum[:, -1])[..., None, None] * state_t
+        for xw in _bf16_terms(xc * w[..., None], terms):
+            state_t = state_t + torch.einsum("bshp,bsn->bhpn", xw, Bc)
+    return torch.cat(ys, 1).to(x.dtype), state_t
+
+
+def _mamba2_bf16_case(b, s, nh, hd, n, kind, seed):
+    """x, B, C as bf16 slices of one (b, s, nh hd + 2n) tensor and fp32
+    dt, A, D, as chip_smoke draws them: "test" tests/test_kernels.py's
+    distributions; "decay" dt in [2, 4] and A = -1, so that a 64-step
+    chunk's decay passes exp's fp32 range; "model" the conv output at
+    random init (SiLU of N(0, 1), dt = softplus of N(0, 1), A = -1, D =
+    1)."""
+    rng = np.random.RandomState(seed)
+    d_in = nh * hd
+    conv = rng.randn(b, s, d_in + 2 * n)
+    if kind == "model":
+        conv = conv / (1 + np.exp(-conv))
+        dt = np.log1p(np.exp(rng.randn(b, s, nh)))
+        A, D = -np.ones(nh), np.ones(nh)
+    elif kind == "decay":
+        dt = rng.rand(b, s, nh) * 2 + 2
+        A, D = -np.ones(nh), rng.rand(nh)
+    else:
+        dt = rng.rand(b, s, nh) * 0.5 + 0.01
+        A, D = -(rng.rand(nh) * 0.9 + 0.1), rng.rand(nh)
+    conv = torch.from_numpy(conv.astype(np.float32)).to(torch.bfloat16)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    return (conv[..., :d_in].reshape(b, s, nh, hd), f(dt), f(A),
+            conv[..., d_in:d_in + n], conv[..., d_in + n:], f(D))
+
+
+def _mamba2_bf16_close(got_y, got_state, want_y, want_state):
+    """chip_smoke's rule for the bf16 kernel: y within MAMBA2_TOL of
+    max|y| plus one bf16 ulp (2^-7) of |y|, the state within MAMBA2_TOL of
+    max|state| at rtol 0."""
+    if want_y is not None:
+        w = np.asarray(want_y, np.float32)
+        np.testing.assert_allclose(got_y.float().numpy(), w, rtol=2 ** -7,
+                                   atol=MAMBA2_TOL * float(np.abs(w).max()))
+    if want_state is not None:
+        _rel_close(got_state.numpy(), want_state)
+
+
+@pytest.mark.parametrize("b,s,nh,hd,n,kind", [
+    *[(*shape, "test") for shape in MAMBA2_SHAPES],
+    (2, 333, 3, 64, 64, "test"), (2, 256, 2, 64, 64, "decay"),
+    (2, 300, 4, 64, 64, "model"), (1, 333, 2, 32, 16, "model")])
+def test_mamba2_mma_arithmetic_matches_jax(b, s, nh, hd, n, kind):
+    """The tolerance budget of the bf16 kernel's design, before the card:
+    its arithmetic (2 bf16 terms per fp32 operand, chunk 64, the causal
+    tiles only) against the JAX reference, the Pallas kernel in interpret
+    mode, and the JAX model's ``ssd_chunked`` and ``_final_state``, on the
+    same bf16 x, B and C, at tests/test_kernels.py's shapes, S = 1, ragged
+    S 300 and 333, where a chunk's decay passes exp's fp32 range, and on
+    the model's conv-output distribution."""
+    args = _mamba2_bf16_case(b, s, nh, hd, n, kind, 11 * s + nh)
+    got_y, got_state = _mamba2_mma_arithmetic(*args)
+    assert got_y.dtype == torch.bfloat16 and got_state.shape == (b, nh, hd,
+                                                                 n)
+    jx, jdt, jA, jB, jC, jD = (
+        jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+        if t.dtype == torch.bfloat16 else jnp.asarray(t.numpy())
+        for t in args)
+    f32 = lambda a: a.astype(jnp.float32)
+    _mamba2_bf16_close(got_y, got_state,
+                       jref.mamba2_scan_ref(jx, jdt, jA, jB, jC, jD),
+                       jssm._final_state(f32(jx), jdt, jA, f32(jB)))
+    _mamba2_bf16_close(got_y, None,
+                       mamba2_pallas(jx, jdt, jA, jB, jC, jD,
+                                     interpret=True), None)
+    _mamba2_bf16_close(got_y, None,
+                       jssm.ssd_chunked(f32(jx), jdt, jA, f32(jB), f32(jC),
+                                        jD, 256), None)
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(2, 256, 4, 64, 64),
+                                   (4, 2048, 112, 64, 64)])
+def test_mamba2_mma_term_count(shape, terms):
+    """Why the kernel splits each fp32 operand into two bf16 terms: one
+    misses the state's tolerance (about 2e-3 of max|state|), two and three
+    meet it, against the plain version on the model's distribution, at a
+    small shape and at Zamba2-7B's prefill shape.  Prints the errors (run
+    with -s)."""
+    args = _mamba2_bf16_case(*shape, "model", 5)
+    got_y, got_state = _mamba2_mma_arithmetic(*args, terms=terms)
+    want_y, want_state = tref.mamba2_scan_ref(*args)
+    wy = want_y.float()
+    err_y = float(((got_y.float() - wy).abs() - 2 ** -7 * wy.abs()).max()
+                  / wy.abs().max())
+    err = float((got_state - want_state).abs().max()
+                / want_state.abs().max())
+    print(f"x {shape[:4]} N {shape[4]}, {terms} term(s): y beyond 2^-7 |y| "
+          f"{err_y:.3g} of max|y|, state {err:.3g} of max|state| "
+          f"(tol {MAMBA2_TOL})")
+    assert (err <= MAMBA2_TOL) == (terms >= 2), err
+    if terms >= 2:
+        _mamba2_bf16_close(got_y, got_state, want_y.float().numpy(),
+                           want_state.numpy())
+
+
+def test_mma_constants_match_the_kernel_source():
+    """The wrapper's CHUNK and TERMS, which the CPU emulation above uses,
+    are the .cu's kL and kTerms."""
+    from importlib import import_module
+    from pathlib import Path
+    m2 = import_module("repro_torch.kernels.mamba2_scan")
+    src = (Path(m2.__file__).parents[1] / "csrc" / "mamba2_scan.cu"
+           ).read_text()
+    assert f"constexpr int kL = {m2.CHUNK};" in src
+    assert f"constexpr int kTerms = {m2.TERMS};" in src
+
+
+@pytest.mark.parametrize("batch,seq", [(4, 2048), (2, 256), (1, 1)])
+def test_serving_conv_views_fit_the_mma_kernel(batch, seq):
+    """Zamba2-7B's prefill views, as the model's ``scan_views`` cuts them
+    from its conv output (x's time stride 7296 x 2 = 14,592 B, B at
+    14,336 B, C at 14,464 B), meet the bf16 kernel's layout rule, so the
+    serving path never hits its raise."""
+    from importlib import import_module
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import _dims, scan_views
+    m2 = import_module("repro_torch.kernels.mamba2_scan")
+    cfg = get_config("zamba2-7b")
+    conv = torch.empty(batch, seq, _dims(cfg)[3], dtype=torch.bfloat16,
+                       device="meta")
+    x, B, C = scan_views(conv, cfg)
+    assert B.storage_offset() * 2 == 14336
+    assert C.storage_offset() * 2 == 14464
+    assert seq == 1 or x.stride(1) * 2 == 14592
+    assert m2.mma_layout_problem(x, B, C) is None
+
+
+def test_mma_layout_rule_refuses_misaligned_views():
+    """A view the 16-byte cp.async loads cannot read is refused with its
+    reason; the stride of a dim of size 1 is not looked at."""
+    from importlib import import_module
+    m2 = import_module("repro_torch.kernels.mamba2_scan")
+    bf = torch.bfloat16
+    meta = lambda *shape: torch.empty(*shape, dtype=bf, device="meta")
+    x, bc = meta(2, 64, 4, 64), meta(2, 64, 64)
+    assert m2.mma_layout_problem(x, bc, bc) is None
+    assert "base address" in m2.mma_layout_problem(
+        meta(2, 64, 4 * 64 + 1)[..., 1:].reshape(2, 64, 4, 64), bc, bc)
+    assert "base address" in m2.mma_layout_problem(
+        x, meta(2, 64, 65)[..., 1:], bc)
+    assert "time stride" in m2.mma_layout_problem(
+        x, bc, meta(2, 64, 68)[..., :64])
+    assert "head stride" in m2.mma_layout_problem(
+        meta(2, 64, 4, 68)[..., :64], bc, bc)
+    assert m2.mma_layout_problem(meta(2, 64, 4, 72)[..., :64], bc, bc) \
+        is None
+    assert "multiple of 8" in m2.mma_layout_problem(
+        meta(2, 64, 4, 36), bc, bc)
+    assert "multiple of 8" in m2.mma_layout_problem(x, meta(2, 64, 12), bc)
+    assert "float32" in m2.mma_layout_problem(x.float(), bc, bc)
+    one = torch.empty_strided((1, 1, 1, 64), (3, 5, 7, 1), dtype=bf,
+                              device="meta")
+    flat = torch.empty_strided((1, 1, 64), (3, 5, 1), dtype=bf,
+                               device="meta")
+    assert m2.mma_layout_problem(one, flat, flat) is None
