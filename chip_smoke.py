@@ -10,10 +10,15 @@ Phases, in order; any failure exits nonzero:
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
      source, in parallel);
   3. hold each kernel against its plain PyTorch version on the card
-     (clustering loss and dz at the shapes of the JAX kernel tests, an
-     empty queue and the training round's shape; int8/fp8 quantization bit
-     for bit; flash attention, fp32 through the CUDA-core kernel and bf16
-     through the wgmma one, at the JAX kernel tests' shapes, windows and
+     (clustering loss and dz at the shapes of the JAX kernel tests, at the
+     split-and-merge edges (an empty Q-block with positives only in the
+     ragged last one, valid entries only there, none at all), at d 1, on
+     queue rows off 16 bytes, an empty queue and the training round's
+     shape, where two launches must agree bit for bit, with the ptxas
+     report, grid and residency of the partial kernels; int8/fp8
+     quantization bit for bit; flash attention, fp32 through the
+     CUDA-core kernel and bf16 through the wgmma one, at the JAX kernel
+     tests' shapes, windows and
      non-causal case, at ragged lengths, with 5 query heads per KV head,
      then in bf16 off the 128-row tiles, with a window across tile edges,
      groups of 5 and 8, a peaked softmax and every head dim, and at
@@ -38,7 +43,7 @@ Phases, in order; any failure exits nonzero:
      port on the CPU, from the same state and draws;
   6. where a warm round's time goes, going on from the trained state:
      host wall clock, device busy share and kernel time by name
-     (``torch.profiler``);
+     (``torch.profiler``), each of the four clustering kernels seen;
   7. the second path: split-inference serving of the full Qwen3-14B
      (``repro_torch.launch.serve.serve_config``: 40 layers, width 5120,
      bf16, weights drawn on the card from seed 0), batch 4, a 2048-token
@@ -74,6 +79,7 @@ from __future__ import annotations
 import importlib
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +104,14 @@ CUT = (CLIENT_BATCH, 16, 16, 32)
 
 CLUSTER_TEST_SHAPES = [(16, 64, 16, 4), (64, 256, 32, 10), (100, 512, 64, 7),
                        (32, 1000, 128, 4)]
+# the split-and-merge edges of the clustering kernels, as
+# tests/test_torch_kernels.py holds their arithmetic: kind -> (b, q, d, m).
+# "hole": Q-block 1 has no valid entry and label 0's confident entries lie
+# only in the ragged last Q-block (d 30, so the tiles go by plain loads);
+# "tail": only the ragged last Q-block has valid entries; "none": no valid
+# entry at all (loss 0, dz 0)
+CLUSTER_EDGES = {"hole": (100, 1000, 30, 4), "tail": (100, 1000, 64, 4),
+                 "none": (64, 256, 16, 4)}
 
 # the serving path: Qwen3-14B, batch 4, a 2048-token prompt, 32 generated
 # tokens; its prefill attention is q (4, 40, 2048, 128) over k, v
@@ -209,12 +223,14 @@ def cold_copies(t) -> itertools.cycle:
     return itertools.cycle([t.clone() for _ in range(copies)])
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
+def time_ms(fn, iters: int = 50, warmup: int = 5,
+            by_kernel: dict | None = None) -> tuple[float, float]:
     """(device ms, event ms) per call of ``fn``, after warm-up.  Device ms:
     the kernels' own durations from ``torch.profiler``, summed per call.
     Event ms: CUDA events around back-to-back calls, which is the host's
     enqueue time where that is the longer of the two.  Inputs stay warm in
-    L2 unless ``fn`` cycles through :func:`cold_copies`."""
+    L2 unless ``fn`` cycles through :func:`cold_copies`.  ``by_kernel``, if
+    given, receives each kernel's device ms per call by profiler name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -246,6 +262,8 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
         if calls != e.count:
             lost.append(f"{e.key[:60]} ({e.count} of {calls})")
         dev += _dev_us(e) / e.count * calls
+        if by_kernel is not None:
+            by_kernel[e.key] = _dev_us(e) / e.count * calls / iters / 1e3
     if lost:
         print("[timing] torch.profiler lost records of "
               + "; ".join(lost) + "; counted at their mean duration")
@@ -319,6 +337,24 @@ def _cluster_inputs(b, q, d, m, seed, normalize=False):
     return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrs]
 
 
+def _cluster_edge_inputs(kind, seed, tile_q):
+    """CLUSTER_EDGES[kind] with unit-norm features, as the path's projection
+    head gives them; ``tile_q`` is the kernels' Q-block."""
+    import torch
+    b, q, d, m = CLUSTER_EDGES[kind]
+    args = _cluster_inputs(b, q, d, m, seed, normalize=True)
+    qlab, qconf, qvalid = args[4:]
+    last = (q - 1) // tile_q * tile_q
+    if kind == "hole":
+        qvalid[tile_q:2 * tile_q] = False
+        qconf &= (qlab != 0) | (torch.arange(q, device="cuda") >= last)
+    elif kind == "tail":
+        qvalid[:last] = False
+    else:
+        qvalid[:] = False
+    return args
+
+
 def _check_cluster(args, what, errs):
     import torch
 
@@ -364,7 +400,7 @@ def _check_quant(x, fmt, per_slice, what, errs):
     errs["quantize_qdq"] = max(errs["quantize_qdq"], oe)
 
 
-def phase_kernels(card: str) -> dict:
+def phase_kernels(card: str, ptxas: str) -> dict:
     import torch
 
     from repro_torch.kernels import quantize as q
@@ -372,11 +408,36 @@ def phase_kernels(card: str) -> dict:
 
     # the package's ``clustering_loss`` attribute is the public wrapper
     cl = importlib.import_module("repro_torch.kernels.clustering_loss")
+    for line in ptxas.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"[kernels] clustering ptxas: {line.strip()}")
+    b, qn = N_ACTIVE * CLIENT_BATCH, QUEUE
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = cl.blocks_per_sm(PROJ)
+    grid = (cl.q_blocks(qn), -(-b // cl.TILE_B))
+    print(f"[kernels] clustering at ({b}, {qn}, {PROJ}): partial kernels' "
+          f"grid {grid[0]} Q-blocks x {grid[1]} B-tiles = "
+          f"{grid[0] * grid[1]} blocks of {cl.TILE_B} anchors x "
+          f"{cl.TILE_Q} queue entries on {n_sm} SMs, resident per SM: "
+          f"forward {per_sm[0]}, backward {per_sm[1]}; merges: forward 1 "
+          f"block of 512 threads, backward {-(-b // 8)} blocks of 256")
+    if min(per_sm) < 1:
+        fail("a clustering partial kernel cannot be resident on an SM")
     errs = dict.fromkeys(("clustering_fwd", "clustering_bwd",
                           "quantize_amax", "quantize_qdq"), 0.0)
     for b, qn, d, m in CLUSTER_TEST_SHAPES:
         _check_cluster(_cluster_inputs(b, qn, d, m, b + qn),
                        f"({b}, {qn}, {d})", errs)
+    for i, kind in enumerate(CLUSTER_EDGES):
+        _check_cluster(_cluster_edge_inputs(kind, 20 + i, cl.TILE_Q),
+                       f"{kind} {CLUSTER_EDGES[kind][:3]}", errs)
+    # where the 16-byte loads do not fit: d 1, and queue rows off 16 bytes
+    _check_cluster(_cluster_inputs(16, 300, 1, 3, 5), "(16, 300, 1)", errs)
+    args = _cluster_inputs(100, 1000, 64, 7, 6)
+    flat = torch.empty(args[3].numel() + 1, device="cuda")
+    flat[1:] = args[3].reshape(-1)
+    args[3] = flat[1:].view(args[3].shape)
+    _check_cluster(args, "(100, 1000, 64), queue rows off 16 bytes", errs)
     dev = torch.device("cuda")
     empty = [torch.ones(4, 8, device=dev), torch.zeros(4, dtype=torch.int64,
                                                        device=dev),
@@ -392,6 +453,22 @@ def phase_kernels(card: str) -> dict:
     big = _cluster_inputs(N_ACTIVE * CLIENT_BATCH, QUEUE, PROJ, 10, 11,
                           normalize=True)
     _check_cluster(big, f"({N_ACTIVE * CLIENT_BATCH}, {QUEUE}, {PROJ})", errs)
+    # the merges run in a fixed order: two launches give the same bits
+    inputs = cl._prepare(*big)
+    g = torch.ones((), device=dev)
+    runs = []
+    for _ in range(2):
+        loss, lse, n_pos, denom = cl.clustering_fwd(inputs, 10.0)
+        runs.append((loss, lse, cl.clustering_bwd(inputs, 10.0, lse, n_pos,
+                                                  g, denom)))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    print(f"[kernels] clustering two launches at {tuple(big[0].shape)} x "
+          f"{tuple(big[3].shape)}: loss, lse and dz bit-identical {same}")
+    if not same:
+        fail("two launches of the clustering kernels on the same inputs "
+             "differ")
+    del runs
 
     rng = np.random.RandomState(3)
     batch = rng.randn(N_ACTIVE, *CUT).astype(np.float32)
@@ -416,10 +493,8 @@ def phase_kernels(card: str) -> dict:
     print(f"[kernels] fp8 at +-448: {e8.tolist()} == plain")
 
     # timings at the training round's shapes
-    inputs = cl._prepare(*big)
     inv_t = 10.0
     loss, lse, n_pos, denom = cl.clustering_fwd(inputs, inv_t)
-    g = torch.ones((), device=dev)
     zr = big[0].clone().requires_grad_(True)
     loss_r = ref.clustering_loss_ref(zr, *big[1:], 0.1)
     b, qn = N_ACTIVE * CLIENT_BATCH, QUEUE
@@ -441,16 +516,19 @@ def phase_kernels(card: str) -> dict:
     warm = {"quantize_amax": time_ms(lambda: q.quantize_amax(xf, True)),
             "quantize_qdq": time_ms(lambda: q.quantize_qdq(xf, amax, "int8",
                                                            True))}
+    parts = {"clustering_fwd": {}, "clustering_bwd": {}}
     timings = {
         "clustering_fwd": dict(
-            ms=time_ms(lambda: cl.clustering_fwd(inputs, inv_t)),
+            ms=time_ms(lambda: cl.clustering_fwd(inputs, inv_t),
+                       by_kernel=parts["clustering_fwd"]),
             plain_ms=time_ms(lambda: ref.clustering_loss_ref(*big, 0.1)),
             library_ms=None,
             bound=bound_ms(in_bytes + 3 * b * 4 + 8,
                            2 * b * n_valid * PROJ)),
         "clustering_bwd": dict(
             ms=time_ms(lambda: cl.clustering_bwd(inputs, inv_t, lse, n_pos,
-                                                 g, denom)),
+                                                 g, denom),
+                       by_kernel=parts["clustering_bwd"]),
             plain_ms=time_ms(lambda: torch.autograd.grad(
                 loss_r, zr, retain_graph=True)),
             library_ms=None,
@@ -482,6 +560,11 @@ def phase_kernels(card: str) -> dict:
               f"on {card}")
         for k in ("ms", "plain_ms", "library_ms"):
             t[k] = None if t[k] is None else t[k][0]
+    short = lambda key: (re.findall(r"clustering_[a-z_]+", key)
+                         or [key[:40]])[0]
+    for name, by in parts.items():
+        print(f"[timing] {name} by kernel: " + ", ".join(
+            f"{short(k)} {v:.4f} ms" for k, v in by.items()) + f" on {card}")
     return {"errs": errs, "timings": timings}
 
 
@@ -1035,7 +1118,8 @@ def phase_cross_check(state, system):
 # phase 6: where one round's time goes
 # ---------------------------------------------------------------------------
 
-OUR_KERNELS = ("fwd_kernel", "finalize_kernel", "bwd_kernel", "amax_kernel",
+OUR_KERNELS = ("clustering_fwd_partial", "clustering_fwd_merge",
+               "clustering_bwd_partial", "clustering_bwd_merge", "amax_kernel",
                "qdq_kernel")
 
 
@@ -1086,15 +1170,20 @@ def phase_profile(card: str, trained) -> None:
                       and not e.key.startswith("semisfl.")),
                      key=_dev_us, reverse=True)
     busy = sum(_dev_us(e) for e in kernels) / 1e6
-    ours = {k: sum(_dev_us(e) for e in kernels if k in e.key) / 1e6
+    ours = {k: (sum(_dev_us(e) for e in kernels if k in e.key) / 1e6,
+                sum(e.count for e in kernels if k in e.key))
             for k in OUR_KERNELS}
     print(f"[profile] round wall (no profiler) "
           f"{', '.join(f'{w:.6f}' for w in walls)} s; under the profiler "
           f"{wall_prof:.6f} s, device busy {busy:.6f} s (idle share "
           f"{1 - busy / wall_prof:.4f}); the four ported kernels "
-          f"{sum(ours.values()):.6f} s ("
-          f"{', '.join(f'{k} {v:.6f}' for k, v in ours.items())}); "
-          f"{sum(e.count for e in kernels)} device ops; on {card}")
+          f"{sum(t for t, _ in ours.values()):.6f} s ("
+          f"{', '.join(f'{k} {t:.6f} x{n}' for k, (t, n) in ours.items())}"
+          f"); {sum(e.count for e in kernels)} device ops; on {card}")
+    unseen = [k for k, (_, n) in ours.items()
+              if k.startswith("clustering_") and n == 0]
+    if unseen:
+        fail(f"the profiled round shows no launch of {unseen}")
     for e in events:
         if e.key.startswith("semisfl.") and e.device_type == DeviceType.CPU:
             print(f"[profile] span {e.key}: host {e.cpu_time_total / 1e3:.3f}"
@@ -1370,7 +1459,7 @@ def main() -> int:
     card = phase_device()
     ptxas = phase_build()
     lap("build")
-    checked = phase_kernels(card)
+    checked = phase_kernels(card, ptxas.get("clustering_loss", ""))
     flash = phase_flash(card)
     checked["errs"]["flash_attention"] = flash["err"]
     checked["timings"]["flash_attention"] = flash["timing"]

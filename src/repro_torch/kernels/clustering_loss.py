@@ -2,10 +2,12 @@
 bound with ctypes, forward and backward in a ``torch.autograd.Function``.
 
 Counterpart of the JAX package's ``kernels/clustering_loss.py``
-(``clustering_loss_pallas``).  The forward saves the per-anchor ``lse`` and
-``n_pos`` and the device-side denominator; the backward kernel recomputes
-the softmax from them.  Only ``z`` gets a gradient: the queue holds teacher
-features and is stop-gradient."""
+(``clustering_loss_pallas``).  Each direction is two launches: a grid of
+(TILE_B anchors x TILE_Q queue entries) tiles writes per-Q-block partials
+into scratch allocated here, and a merge sums them in Q-block order.  The
+forward saves the per-anchor ``lse`` and ``n_pos`` and the device-side
+denominator; the backward recomputes the softmax from them.  Only ``z``
+gets a gradient: the queue holds teacher features and is stop-gradient."""
 from __future__ import annotations
 
 import ctypes
@@ -17,19 +19,27 @@ from repro_torch.kernels import build
 
 LAUNCHES = {"clustering_fwd": 0, "clustering_bwd": 0}
 
-MAX_DIM = 128     # the kernels keep one anchor row of <= 128 floats per warp
+MAX_DIM = 128     # the staged rows hold at most 128 floats
+# the tile of the (B, Q) logit matrix a block of the partial kernels takes;
+# they state the .cu's kTileB and kTileQ, which a CPU test holds them to
+TILE_B, TILE_Q = 16, 128
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.clustering_fwd.argtypes = [_P] * 7 + [_I, _I, _I, _F] + [_P] * 7
+    lib.clustering_fwd.restype = _I
+    lib.clustering_bwd.argtypes = [_P] * 7 + [_I, _I, _I, _F] + [_P] * 7
+    lib.clustering_bwd.restype = _I
+    lib.clustering_occupancy.argtypes = [_I, _P, _P]
+    lib.clustering_occupancy.restype = _I
+    return lib
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("clustering_loss")
-    lib.clustering_fwd.argtypes = [_P] * 7 + [_I, _I, _I, _F] + [_P] * 6
-    lib.clustering_fwd.restype = _I
-    lib.clustering_bwd.argtypes = [_P] * 7 + [_I, _I, _I, _F] + [_P] * 6
-    lib.clustering_bwd.restype = _I
-    return lib
+    return _bind(build.load("clustering_loss"))
 
 
 def _prepare(z, pseudo, anchor_ok, queue_z, queue_label, queue_conf,
@@ -65,20 +75,26 @@ def _ptrs(ts):
     return [t.data_ptr() for t in ts]
 
 
+def q_blocks(q: int) -> int:
+    """Q-blocks of the partial kernels' grid, and rows of their scratch."""
+    return -(-q // TILE_Q)
+
+
 def clustering_fwd(inputs, inv_temp: float):
     """Launch the forward.  Returns (loss, lse, n_pos, denom), all on the
     device; denom = max(#anchors with positives, 1)."""
     z, qz = inputs[0], inputs[3]
     b, d = z.shape
     q = qz.shape[0]
+    part = torch.empty((q_blocks(q), b, 4), device=z.device)
     pos_sum, n_pos, lse = (torch.empty(b, device=z.device) for _ in range(3))
     loss = torch.empty((), device=z.device)
     denom = torch.empty((), device=z.device)
     stream = torch.cuda.current_stream(z.device).cuda_stream
     build.check(_lib().clustering_fwd(
-        *_ptrs(inputs), b, q, d, inv_temp, pos_sum.data_ptr(),
-        n_pos.data_ptr(), lse.data_ptr(), loss.data_ptr(), denom.data_ptr(),
-        stream), "clustering_fwd launch")
+        *_ptrs(inputs), b, q, d, inv_temp, part.data_ptr(),
+        pos_sum.data_ptr(), n_pos.data_ptr(), lse.data_ptr(),
+        loss.data_ptr(), denom.data_ptr(), stream), "clustering_fwd launch")
     LAUNCHES["clustering_fwd"] += 1
     return loss, lse, n_pos, denom
 
@@ -87,15 +103,28 @@ def clustering_bwd(inputs, inv_temp: float, lse, n_pos, g, denom):
     """Launch the backward: dz for the scalar cotangent ``g``."""
     z, qz = inputs[0], inputs[3]
     b, d = z.shape
+    q = qz.shape[0]
+    part = torch.empty((q_blocks(q), b, d), device=z.device)
     dz = torch.empty_like(z)
     g = g.to(torch.float32).contiguous()
     stream = torch.cuda.current_stream(z.device).cuda_stream
     build.check(_lib().clustering_bwd(
-        *_ptrs(inputs), b, qz.shape[0], d, inv_temp, lse.data_ptr(),
-        n_pos.data_ptr(), g.data_ptr(), denom.data_ptr(), dz.data_ptr(),
+        *_ptrs(inputs), b, q, d, inv_temp, lse.data_ptr(), n_pos.data_ptr(),
+        g.data_ptr(), denom.data_ptr(), part.data_ptr(), dz.data_ptr(),
         stream), "clustering_bwd launch")
     LAUNCHES["clustering_bwd"] += 1
     return dz
+
+
+def blocks_per_sm(d: int) -> tuple[int, int]:
+    """The forward's and the backward's partial kernel: blocks resident on
+    one SM of the current card at width ``d``, as the occupancy calculator
+    gives it for their threads and shared memory."""
+    fwd, bwd = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(_lib().clustering_occupancy(d, ctypes.byref(fwd),
+                                            ctypes.byref(bwd)),
+                "clustering occupancy query")
+    return fwd.value, bwd.value
 
 
 class ClusteringLoss(torch.autograd.Function):

@@ -317,6 +317,132 @@ def test_clustering_loss_empty_queue_is_zero():
     assert float(dz.abs().max()) == 0.0
 
 
+# the split-and-merge edges of the clustering kernels, kind -> (b, q, d, m),
+# as chip_smoke.py's CLUSTER_EDGES holds the kernels to them on the card, and
+# the training round's shape ("path": 10 clients x 32 anchors, the queue of
+# 2048 64-d features, 10 classes)
+CLUSTER_EDGES = {"path": (320, 2048, 64, 10), "hole": (100, 1000, 30, 4),
+                 "tail": (100, 1000, 64, 4), "none": (64, 256, 16, 4)}
+CLUSTER_EDGE_SEEDS = {"path": 11, "hole": 20, "tail": 21, "none": 22}
+
+
+def _cluster_edge_case(kind, tile_q):
+    """Unit-norm features, as the path's projection head gives them, drawn
+    in chip_smoke.py's order and seeds.  "hole": Q-block 1 has no valid
+    entry and label 0's confident entries lie only in the ragged last
+    Q-block; "tail": only the ragged last Q-block has valid entries;
+    "none": no valid entry at all."""
+    b, q, d, m = CLUSTER_EDGES[kind]
+    rng = np.random.RandomState(CLUSTER_EDGE_SEEDS[kind])
+    z = rng.randn(b, d).astype(np.float32)
+    qz = rng.randn(q, d).astype(np.float32)
+    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    qz /= np.linalg.norm(qz, axis=1, keepdims=True)
+    pseudo = rng.randint(0, m, b).astype(np.int32)
+    aok = rng.rand(b) > 0.2
+    qlab = rng.randint(0, m, q).astype(np.int32)
+    qconf, qvalid = rng.rand(q) > 0.3, rng.rand(q) > 0.1
+    last = (q - 1) // tile_q * tile_q
+    if kind == "hole":
+        qvalid[tile_q:2 * tile_q] = False
+        qconf[(qlab == 0) & (np.arange(q) < last)] = False
+    elif kind == "tail":
+        qvalid[:last] = False
+    elif kind == "none":
+        qvalid[:] = False
+    return z, pseudo, aok, qz, qlab, qconf, qvalid
+
+
+def _split_merge_arithmetic(z, pseudo, aok, qz, qlab, qconf, qvalid,
+                            temperature, tile_q):
+    """The clustering kernels' arithmetic in plain PyTorch, fp32: per
+    Q-block of ``tile_q`` entries, each anchor's partial (the max of the
+    block's valid logits from -1e30, the sum of exp against it, the
+    positive-logit sum and count), merged in Q-block order into lse,
+    pos_sum and n_pos, and the loss over anchors with positives; then dz
+    for a unit cotangent, per-Q-block partials of coef @ queue_z summed in
+    Q-block order, 0 for anchors without positives."""
+    neg, inv_t = tref.NEG_INF, 1.0 / temperature
+    b, q = z.shape[0], qz.shape[0]
+    pos = ((pseudo[:, None] == qlab[None, :]) & qconf[None, :]
+           & qvalid[None, :] & aok[:, None])
+    blocks = [slice(q0, min(q0 + tile_q, q)) for q0 in range(0, q, tile_q)]
+    logits = [(z @ qz[s].T) * inv_t for s in blocks]
+    parts = []
+    for s, lg in zip(blocks, logits):
+        valid = qvalid[s][None, :]
+        m = torch.where(valid, lg, neg).amax(dim=1)
+        parts.append((m, torch.where(valid, torch.exp(lg - m[:, None]),
+                                     0.0).sum(dim=1),
+                      torch.where(pos[:, s], lg, 0.0).sum(dim=1),
+                      pos[:, s].sum(dim=1).float()))
+    big_m = torch.full((b,), neg)
+    for m, *_ in parts:
+        big_m = torch.maximum(big_m, m)
+    l_sum, pos_sum, n_pos = (torch.zeros(b) for _ in range(3))
+    for m, l, ps, pc in parts:
+        l_sum = l_sum + l * torch.exp(m - big_m)
+        pos_sum, n_pos = pos_sum + ps, n_pos + pc
+    lse = big_m + torch.log(torch.where(l_sum == 0.0, 1.0, l_sum))
+    has = n_pos > 0
+    inv_np = 1.0 / torch.where(has, n_pos, 1.0)
+    denom = has.sum().clamp(min=1).float()
+    loss = torch.where(has, lse - pos_sum * inv_np, 0.0).sum() / denom
+    dz = torch.zeros_like(z)
+    for s, lg in zip(blocks, logits):
+        coef = (torch.exp(lg - lse[:, None])
+                - torch.where(pos[:, s], inv_np[:, None], 0.0)) / denom * inv_t
+        dz = dz + torch.where(has[:, None] & qvalid[s][None, :], coef,
+                              0.0) @ qz[s]
+    return loss, torch.where(has[:, None], dz, 0.0)
+
+
+@pytest.mark.parametrize("kind", sorted(CLUSTER_EDGES))
+@pytest.mark.parametrize("jax_side", ["ref", "pallas_interpret"])
+def test_clustering_split_merge_matches_jax(kind, jax_side):
+    """The split-and-merge arithmetic of the clustering kernels, at their
+    Q-block width, against the JAX reference and the Pallas kernel in
+    interpret mode: at the training round's shape, with an empty Q-block
+    and positives only in the ragged last one, with valid entries only
+    there, and with none."""
+    from importlib import import_module
+    tile_q = import_module("repro_torch.kernels.clustering_loss").TILE_Q
+    z, *args = _cluster_edge_case(kind, tile_q)
+    q = args[2].shape[0]
+    last = (q - 1) // tile_q * tile_q
+    if kind in ("hole", "tail"):
+        assert q % tile_q                           # a ragged last block
+    if kind == "hole":
+        assert not args[5][tile_q:2 * tile_q].any()
+        zero = (args[3] == 0) & args[4] & args[5]
+        assert zero.any() and not zero[:last].any()
+    jargs = [jnp.asarray(a) for a in args]
+    if jax_side == "ref":
+        fn = lambda zz: jref.clustering_loss_ref(zz, *jargs, 0.1)
+    else:
+        fn = lambda zz: clustering_loss_pallas(zz, *jargs, 0.1)
+    want_loss, want_dz = jax.jit(jax.value_and_grad(fn))(jnp.asarray(z))
+    loss, dz = _split_merge_arithmetic(
+        *[torch.from_numpy(a) for a in (z, *args)], 0.1, tile_q)
+    assert abs(float(loss) - float(want_loss)) < 1e-4
+    np.testing.assert_allclose(dz.numpy(), np.asarray(want_dz), atol=5e-5,
+                               rtol=2e-3)
+    if kind == "none":
+        assert float(loss) == 0.0 and float(dz.abs().max()) == 0.0
+
+
+def test_clustering_tiles_match_the_kernel_source():
+    """The wrapper's TILE_B and TILE_Q, which size the kernels' scratch and
+    the CPU emulation above, are the .cu's kTileB and kTileQ."""
+    from importlib import import_module
+    from pathlib import Path
+    cl = import_module("repro_torch.kernels.clustering_loss")
+    src = (Path(cl.__file__).parents[1] / "csrc" / "clustering_loss.cu"
+           ).read_text()
+    assert f"constexpr int kTileB = {cl.TILE_B};" in src
+    assert f"constexpr int kTileQ = {cl.TILE_Q};" in src
+
+
 def _quant_inputs():
     rng = np.random.RandomState(5)
     big = rng.randn(4096).astype(np.float32)
