@@ -16,7 +16,14 @@ Phases, in order; any failure exits nonzero:
      queue rows off 16 bytes, an empty queue and the training round's
      shape, where two launches must agree bit for bit, with the ptxas
      report, grid and residency of the partial kernels; int8/fp8
-     quantization bit for bit; flash attention, fp32 through the
+     quantization bit for bit, every case through both of the quantizer's
+     routes where a cluster holds the slice (the fused one-pass kernel
+     and the two passes) and the wrapper's own pick, each route's amax
+     and two launches of it too: the round's batch with a zero slice, a
+     tiny slice and x == amax, the same off 16 bytes, (1000,), (3, 333),
+     all zeros, the fused route's largest slice and one float more, the
+     paper-vgg13 and paper-vgg16 cuts, fp8 at +-448; flash attention, fp32
+     through the
      CUDA-core kernel and bf16 through the wgmma one, at the JAX kernel
      tests' shapes, windows and
      non-causal case, at ragged lengths, with 5 query heads per KV head,
@@ -33,17 +40,21 @@ Phases, in order; any failure exits nonzero:
      kernel's ptxas report, residency and per-phase clocks), and time
      kernel, plain version and, where one exists, the one PyTorch call
      that computes the same function (the quantizer's versions on inputs
-     read from HBM, as its bound assumes);
+     read from HBM, as its bound assumes, the fused kernel also warm in L2;
+     the two-pass kernels at the round's and both VGG cuts);
   4. the first path: ``repro_torch.launch.train.run_training("paper-cnn",
      smoke=False, device="cuda")`` at the full config, 150 rounds with the
      ``int8+topk0.05`` wire, long enough for the teacher to become
      confident on part of the batch, and 1 with ``fp32``, with every
-     kernel's launch count read just after;
+     kernel's launch count read just after (the quantizer's fused kernel
+     only); then 3 ``int8`` rounds of the full paper-vgg13, whose cut takes
+     the quantizer's two-pass route, with the counts read again;
   5. one cross-entity step on the card against the same step through the
      port on the CPU, from the same state and draws;
   6. where a warm round's time goes, going on from the trained state:
      host wall clock, device busy share and kernel time by name
-     (``torch.profiler``), each of the four clustering kernels seen;
+     (``torch.profiler``), each of the four clustering kernels and the
+     fused quantize kernel seen, the quantizer's device time a round;
   7. the second path: split-inference serving of the full Qwen3-14B
      (``repro_torch.launch.serve.serve_config``: 40 layers, width 5120,
      bf16, weights drawn on the card from seed 0), batch 4, a 2048-token
@@ -101,6 +112,11 @@ PEAK_BYTES = 3.35e12
 # each client's cut tensor is (32, 16, 16, 32)
 N_ACTIVE, CLIENT_BATCH, QUEUE, PROJ = 10, 32, 2048, 64
 CUT = (CLIENT_BATCH, 16, 16, 32)
+# floats of one client's cut tensor at client batch 32 for the models whose
+# cut no cluster holds (12 x 12 x 512 and 18 x 18 x 512 a sample): the
+# quantizer's two-pass route
+VGG_CUTS = {"paper-vgg13": CLIENT_BATCH * 12 * 12 * 512,
+            "paper-vgg16": CLIENT_BATCH * 18 * 18 * 512}
 
 CLUSTER_TEST_SHAPES = [(16, 64, 16, 4), (64, 256, 32, 10), (100, 512, 64, 7),
                        (32, 1000, 128, 4)]
@@ -379,25 +395,164 @@ def _check_cluster(args, what, errs):
     errs["clustering_bwd"] = max(errs["clustering_bwd"], de)
 
 
+def _quant_plans(xf, per_slice):
+    """Every route that can take ``xf``: the fused one where a cluster
+    holds a slice, and the two-pass one always."""
+    from repro_torch.kernels import quantize as q
+    s, n = q.slices(xf, per_slice)
+    n_sm, smem, per_sm = q.card_limits(0)
+    fused = q.fused_plan(s, n, smem)
+    return ([fused] if fused else []) + [q.two_pass_plan(s, n, n_sm, per_sm)]
+
+
+def _route_name(p, fmt) -> str:
+    from repro_torch.kernels import quantize as q
+    if p.route == "fused":
+        return (f"fused (C {p.cluster}, {p.blocks} blocks, {p.smem_bytes} B "
+                f"of shared memory a block, "
+                f"{q.resident_clusters(0, p.cluster, p.share_bytes, fmt)} "
+                f"clusters resident)")
+    return f"two-pass ({p.parts} partials a slice, {p.blocks} amax blocks)"
+
+
 def _check_quant(x, fmt, per_slice, what, errs):
+    """The public wrapper (the plan's route) and each route that can take
+    ``x``, bit for bit against the plain version, each route's amax too,
+    and two launches of each route bit-identical."""
     import torch
 
     from repro_torch.kernels import quantize as q
     from repro_torch.kernels import quantize_dequantize, ref
-    out_k = quantize_dequantize(x, fmt, per_slice=per_slice)
     out_r = ref.quantize_dequantize_ref(x, fmt, per_slice=per_slice)
-    amax_k = q.quantize_amax(x.contiguous(), per_slice)
-    amax_r = ref.slice_amax(x, per_slice).reshape(-1)
+    amax_r = ref.slice_amax(x.float(), per_slice).reshape(-1)
+    bits = lambda t: t.view(torch.int32)
+    out_k = quantize_dequantize(x, fmt, per_slice=per_slice)
     torch.cuda.synchronize()
-    same = torch.equal(out_k.view(torch.int32), out_r.view(torch.int32))
-    ae = float((amax_k - amax_r).abs().max())
-    oe = float((out_k - out_r).abs().max())
-    print(f"[kernels] quantize {fmt} {what}: bit-exact {same}, amax "
-          f"max|err| {ae:.3g}, out max|err| {oe:.3g}")
-    if not same or ae != 0.0:
-        fail(f"quantize {fmt} {what} is not bit-exact")
-    errs["quantize_amax"] = max(errs["quantize_amax"], ae)
-    errs["quantize_qdq"] = max(errs["quantize_qdq"], oe)
+    xf = x.to(torch.float32).contiguous()
+    chosen = q.plan_for(xf, per_slice).route
+    if not torch.equal(bits(out_k), bits(out_r)):
+        fail(f"quantize {fmt} {what} through the wrapper ({chosen}) is not "
+             f"bit-exact")
+    for p in _quant_plans(xf, per_slice):
+        amax_k = torch.full((p.slices,), -1.0, device=x.device)
+        out = q.run(xf, fmt, p, amax_k)
+        again = q.run(xf, fmt, p)
+        torch.cuda.synchronize()
+        same = torch.equal(bits(out), bits(out_r))
+        ae = float((amax_k - amax_r).abs().max())
+        oe = float((out - out_r).abs().max())
+        rerun = torch.equal(bits(out), bits(again))
+        print(f"[kernels] quantize {fmt} {what} {_route_name(p, fmt)}"
+              f"{' (the plan)' if p.route == chosen else ''}: bit-exact "
+              f"{same}, amax max|err| {ae:.3g}, out max|err| {oe:.3g}, two "
+              f"launches bit-identical {rerun}")
+        if not (same and ae == 0.0 and rerun):
+            fail(f"quantize {fmt} {what} by the {p.route} route is not "
+                 f"bit-exact")
+        found = ({"quantize_fused": max(oe, ae)} if p.route == "fused"
+                 else {"quantize_amax": ae, "quantize_qdq": oe})
+        for name, e in found.items():
+            errs[name] = max(errs[name], e)
+
+
+def _fmt_ms(v) -> str:
+    return "n/a" if v is None else f"{v[0]:.5f} ms (events {v[1]:.5f} ms)"
+
+
+def _time_quant(card: str, xf) -> dict:
+    """The quantizer's timings, every version on inputs read from HBM (its
+    bound is the HBM rate; the fused kernel also warm in L2, as the round's
+    cut tensors, just written, often are): the fused kernel at the round's
+    shape, and the two-pass kernels at the round's and each VGG cut's.
+    Returns the rows of the ``kernels`` line: the fused kernel at the
+    round's shape, the two-pass ones at paper-vgg13's, the cut of the path
+    that launches them."""
+    import torch
+
+    from repro_torch.kernels import quantize as q
+    from repro_torch.kernels import ref
+    n_sm, smem, per_sm = q.card_limits(0)
+    s, n = xf.shape[0], xf.numel() // xf.shape[0]
+    fp = q.fused_plan(s, n, smem)
+    xc = cold_copies(xf)
+    print(f"[timing] quantizer inputs cycle through copies of "
+          f"{xf.numel() * 4 / 1e6:.1f} MB, more than twice the L2 of "
+          f"{l2_bytes() / 1e6:.1f} MB")
+    warm = time_ms(lambda: q.quantize_fused(xf, "int8", fp))
+    rows = {"quantize_fused": dict(
+        ms=time_ms(lambda: q.quantize_fused(next(xc), "int8", fp)),
+        plain_ms=time_ms(lambda: ref.quantize_dequantize_ref(
+            next(xc), "int8", per_slice=True)),
+        library_ms=None, bound=bound_ms(2 * s * n * 4 + s * 4, 7 * s * n))}
+    t = rows["quantize_fused"]
+    print(f"[timing] quantize_fused at ({s}, {n}), {_route_name(fp, 'int8')}"
+          f": from HBM {_fmt_ms(t['ms'])}, warm in L2 {_fmt_ms(warm)}, "
+          f"bound {t['bound'][0]:.5f} ms, share of bound from HBM "
+          f"{t['bound'][0] / t['ms'][0]:.3f}, warm "
+          f"{t['bound'][0] / warm[0]:.3f} on {card}")
+    # where a cold launch's time goes (the diagnostic build's stamps), and
+    # how the rate grows with the clusters, one a slice, that run at once
+    for _ in range(3):
+        stamps = q.fused_profile(next(xc), "int8", fp)
+    med = lambda v: float(np.median(v))
+    stored = stamps[q.PHASES[-1]]
+    last = [max(stored[i * fp.cluster:(i + 1) * fp.cluster])
+            for i in range(s)]
+    print(f"[timing] quantize_fused phases of a launch from HBM, ns after "
+          f"the first block's start (median, max over {fp.blocks} blocks): "
+          + "; ".join(f"{k} {med(v):.0f}, {max(v):.0f}"
+                      for k, v in stamps.items())
+          + f"; stores issued by each slice's last block: {last} on {card}")
+    del xc
+    wide = torch.randn(14, n, device="cuda")
+    rates = []
+    for k in (1, 2, 4, 6, 8, 10, 12, 14):
+        kp = q.fused_plan(k, n, smem)
+        kc = cold_copies(wide[:k])
+        ms = time_ms(lambda: q.quantize_fused(next(kc), "int8", kp))[0]
+        rates.append(f"{k} {ms:.5f} ms {2 * k * n * 4 / ms / 1e9:.3f} TB/s")
+        del kc
+    print(f"[timing] quantize_fused from HBM by slices of {n} (clusters of "
+          f"{fp.cluster}, one a slice): " + ", ".join(rates) + f" on {card}")
+    del wide
+    shapes = {"paper-cnn": n, **VGG_CUTS}
+    for arch, n in shapes.items():
+        x = (xf.view(s, n) if arch == "paper-cnn"
+             else torch.randn(s, n, device="cuda"))
+        tp = q.two_pass_plan(s, n, n_sm, per_sm)
+        partial = q.quantize_amax(x, tp)
+        amax = partial.amax(dim=1)
+        scale = torch.where(amax > 0, amax / 127.0, 1.0)
+        zp = torch.zeros(s, dtype=torch.int32, device="cuda")
+        xc = cold_copies(x)
+        two = {
+            "quantize_amax": dict(
+                ms=time_ms(lambda: q.quantize_amax(next(xc), tp)),
+                plain_ms=time_ms(lambda: ref.slice_amax(next(xc), True)),
+                library_ms=time_ms(lambda: torch.linalg.vector_norm(
+                    next(xc), ord=float("inf"), dim=1)),
+                bound=bound_ms(s * n * 4 + s * tp.parts * 4, 2 * s * n)),
+            "quantize_qdq": dict(
+                ms=time_ms(lambda: q.quantize_qdq(next(xc), partial, "int8",
+                                                  tp)),
+                plain_ms=time_ms(lambda: ref.qdq_from_amax(next(xc), amax,
+                                                           "int8")),
+                library_ms=time_ms(
+                    lambda: torch.fake_quantize_per_channel_affine(
+                        next(xc), scale, zp, 0, -127, 127)),
+                bound=bound_ms(2 * s * n * 4 + s * tp.parts * 4, 5 * s * n)),
+        }
+        for name, t in two.items():
+            print(f"[timing] {name} at {arch}'s cut ({s}, {n}), "
+                  f"{_route_name(tp, 'int8')}: kernel {_fmt_ms(t['ms'])}, "
+                  f"plain {_fmt_ms(t['plain_ms'])}, library "
+                  f"{_fmt_ms(t['library_ms'])}, bound {t['bound'][0]:.5f} ms "
+                  f"({t['bound'][1]}), share of bound "
+                  f"{t['bound'][0] / t['ms'][0]:.3f} on {card}")
+        if arch == "paper-vgg13":
+            rows.update(two)
+        del x, xc, partial
+    return rows
 
 
 def phase_kernels(card: str, ptxas: str) -> dict:
@@ -424,7 +579,8 @@ def phase_kernels(card: str, ptxas: str) -> dict:
     if min(per_sm) < 1:
         fail("a clustering partial kernel cannot be resident on an SM")
     errs = dict.fromkeys(("clustering_fwd", "clustering_bwd",
-                          "quantize_amax", "quantize_qdq"), 0.0)
+                          "quantize_fused", "quantize_amax", "quantize_qdq"),
+                         0.0)
     for b, qn, d, m in CLUSTER_TEST_SHAPES:
         _check_cluster(_cluster_inputs(b, qn, d, m, b + qn),
                        f"({b}, {qn}, {d})", errs)
@@ -476,20 +632,36 @@ def phase_kernels(card: str, ptxas: str) -> dict:
     batch[2] = 0.0                                   # an all-zero slice
     batch[3].flat[5] = np.abs(batch[3]).max() * 2    # x == amax exactly
     batch[3].flat[9] = -batch[3].flat[5]
+    batch[4].flat[100:164] = -0.0                    # signed zeros pass
     xb = torch.from_numpy(batch).cuda()
     ragged = torch.from_numpy(rng.randn(1000).astype(np.float32)).cuda()
     ragged_b = torch.from_numpy(rng.randn(3, 333).astype(np.float32)).cuda()
+    # the round's batch off 16 bytes: the fused route's ragged ends in every
+    # share, and its scalar stores
+    off = torch.empty(xb.numel() + 1, device=dev)
+    off[1:] = xb.reshape(-1)
+    off = off[1:].view(xb.shape)
+    # the fused route's largest slice on this card, and one float more
+    n_sm, smem, _ = q.card_limits(0)
+    n_max = q.MAX_CLUSTER * ((smem - q.SCRATCH_BYTES) // 16 * 4)
+    edge = torch.tensor([448.0, -448.0, 1.0, 447.0, -3.5], device=dev)
     for fmt in ("int8", "fp8"):
         _check_quant(xb, fmt, True, f"{tuple(xb.shape)} per slice", errs)
+        _check_quant(off, fmt, True, f"{tuple(xb.shape)} off 16 bytes", errs)
         _check_quant(ragged, fmt, False, "(1000,)", errs)
         _check_quant(ragged_b, fmt, True, "(3, 333) per slice", errs)
         _check_quant(torch.zeros(N_ACTIVE, 64, device=dev), fmt, True,
                      "all zeros", errs)
-    edge = torch.tensor([448.0, -448.0, 1.0, 447.0, -3.5], device=dev)
+        for n in (n_max, n_max + 1):
+            _check_quant(torch.randn(2, n, device=dev), fmt, True,
+                         f"(2, {n}) per slice", errs)
+        for cut in VGG_CUTS.values():
+            _check_quant(torch.randn(N_ACTIVE, cut, device=dev), fmt, True,
+                         f"({N_ACTIVE}, {cut}) per slice", errs)
+    _check_quant(edge, "fp8", False, "at +-448", errs)
     e8 = q.quantize_dequantize_cuda(edge, "fp8")
-    want = ref.quantize_dequantize_ref(edge, "fp8")
-    if not torch.equal(e8, want) or float(e8[0]) != 448.0:
-        fail(f"fp8 at +-448 gives {e8.tolist()}, want {want.tolist()}")
+    if float(e8[0]) != 448.0 or float(e8[1]) != -448.0:
+        fail(f"fp8 at +-448 gives {e8.tolist()}")
     print(f"[kernels] fp8 at +-448: {e8.tolist()} == plain")
 
     # timings at the training round's shapes
@@ -501,21 +673,9 @@ def phase_kernels(card: str, ptxas: str) -> dict:
     n_valid = int(big[6].sum())
     n_has = int((n_pos > 0).sum())
     in_bytes = sum(t.numel() * t.element_size() for t in inputs)
-    xf = xb.contiguous()
-    amax = q.quantize_amax(xf, True)
-    s, n = xf.shape[0], xf.numel() // xf.shape[0]
-    scale = torch.where(amax > 0, amax / 127.0, 1.0)
-    zp = torch.zeros(s, dtype=torch.int32, device=dev)
-    # the quantizer's bound is the HBM rate, so every version of it is
-    # timed on inputs that come from HBM; the clustering pair is bound by
-    # its operations, whose rate does not depend on where the inputs lie
-    xc = cold_copies(xf)
-    print(f"[timing] quantizer inputs cycle through copies of "
-          f"{xf.numel() * 4 / 1e6:.1f} MB, more than twice the L2 of "
-          f"{l2_bytes() / 1e6:.1f} MB")
-    warm = {"quantize_amax": time_ms(lambda: q.quantize_amax(xf, True)),
-            "quantize_qdq": time_ms(lambda: q.quantize_qdq(xf, amax, "int8",
-                                                           True))}
+    # the clustering pair is bound by its operations, whose rate does not
+    # depend on where the inputs lie; the quantizer's versions are timed on
+    # inputs read from HBM (_time_quant)
     parts = {"clustering_fwd": {}, "clustering_bwd": {}}
     timings = {
         "clustering_fwd": dict(
@@ -534,30 +694,13 @@ def phase_kernels(card: str, ptxas: str) -> dict:
             library_ms=None,
             bound=bound_ms(in_bytes + 2 * b * 4 + 8 + b * PROJ * 4,
                            4 * n_has * n_valid * PROJ)),
-        "quantize_amax": dict(
-            ms=time_ms(lambda: q.quantize_amax(next(xc), True)),
-            plain_ms=time_ms(lambda: ref.slice_amax(next(xc), True)),
-            library_ms=time_ms(lambda: torch.linalg.vector_norm(
-                next(xc).view(s, n), ord=float("inf"), dim=1)),
-            bound=bound_ms(s * n * 4 + s * 4, 2 * s * n)),
-        "quantize_qdq": dict(
-            ms=time_ms(lambda: q.quantize_qdq(next(xc), amax, "int8", True)),
-            plain_ms=time_ms(lambda: ref.qdq_from_amax(next(xc), amax,
-                                                       "int8")),
-            library_ms=time_ms(lambda: torch.fake_quantize_per_channel_affine(
-                next(xc).view(s, n), scale, zp, 0, -127, 127)),
-            bound=bound_ms(2 * s * n * 4 + s * 4, 5 * s * n)),
     }
-    del loss, xc
+    del loss
+    timings.update(_time_quant(card, xb.contiguous()))
     for name, t in timings.items():
-        fmt = lambda v: ("n/a" if v is None
-                         else f"{v[0]:.4f} ms (events {v[1]:.4f} ms)")
-        extra = (f", kernel with its input warm in L2 {fmt(warm[name])}"
-                 if name in warm else "")
-        print(f"[timing] {name}: kernel {fmt(t['ms'])}, plain "
-              f"{fmt(t['plain_ms'])}, library {fmt(t['library_ms'])}, "
-              f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}){extra} "
-              f"on {card}")
+        print(f"[timing] {name}: kernel {_fmt_ms(t['ms'])}, plain "
+              f"{_fmt_ms(t['plain_ms'])}, library {_fmt_ms(t['library_ms'])}, "
+              f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}) on {card}")
         for k in ("ms", "plain_ms", "library_ms"):
             t[k] = None if t[k] is None else t[k][0]
     short = lambda key: (re.findall(r"clustering_[a-z_]+", key)
@@ -1029,37 +1172,63 @@ MAIN_PATH = dict(smoke=False, n_clients=20, n_active=N_ACTIVE,
 MAIN_RUNS = (("int8+topk0.05", 150), ("fp32", 1))
 
 
+# paper-vgg13's cut (12 x 12 x 512 a sample, 9.4 MB a client) is beyond a
+# cluster, so its rounds put the quantizer's two-pass route on a path: 3
+# int8 rounds at full width, with the main path's clients and batches
+VGG_RUN = ("paper-vgg13", "int8", 3)
+
+
+def _train(card: str, arch: str, wire: str, rounds: int):
+    """One training run through the entry point; returns (state, system,
+    rounds with a confident anchor)."""
+    from repro_torch.launch.train import run_training
+    t0 = time.time()
+    state, history, system = run_training(arch, rounds=rounds,
+                                          wire_format=wire,
+                                          log=lambda _: None, **MAIN_PATH)
+    confident = [rec["round"] for rec in history if rec["mask_rate"] < 1.0]
+    print(f"[main] {arch} wire={wire}, per round: f_s f_u mask_rate K_s "
+          f"teacher_acc wall_s")
+    for rec in history:
+        if not all(np.isfinite([rec["f_s"], rec["f_u"], rec["test_acc"]])):
+            fail(f"non-finite metrics in {rec}")
+        print(f"[main] {rec['round']:3d} {rec['f_s']:.6g} "
+              f"{rec['f_u']:.6g} {rec['mask_rate']:.4g} {rec['k_s']} "
+              f"{rec['test_acc']:.4g} {rec['dt']:.3f}")
+    print(f"[main] {arch} wire={wire}: {rounds} rounds in "
+          f"{time.time() - t0:.2f} s (incl. data and set-up) on {card}; "
+          f"{len(confident)} rounds with mask_rate < 1, the first "
+          f"{confident[0] if confident else None}")
+    return state, system, confident
+
+
 def phase_main_path(card: str) -> dict:
     """Returns {wire: (state, system)} of each run."""
-    from repro_torch.launch.train import run_training
     runs, live = {}, 0
     for wire, rounds in MAIN_RUNS:
-        t0 = time.time()
-        state, history, system = run_training("paper-cnn", rounds=rounds,
-                                              wire_format=wire,
-                                              log=lambda _: None,
-                                              **MAIN_PATH)
-        confident = [rec["round"] for rec in history
-                     if rec["mask_rate"] < 1.0]
-        print(f"[main] paper-cnn wire={wire}, per round: f_s f_u mask_rate "
-              f"K_s teacher_acc wall_s")
-        for rec in history:
-            if not all(np.isfinite([rec["f_s"], rec["f_u"],
-                                    rec["test_acc"]])):
-                fail(f"non-finite metrics in {rec}")
-            print(f"[main] {rec['round']:3d} {rec['f_s']:.6g} "
-                  f"{rec['f_u']:.6g} {rec['mask_rate']:.4g} {rec['k_s']} "
-                  f"{rec['test_acc']:.4g} {rec['dt']:.3f}")
-        print(f"[main] wire={wire}: {rounds} rounds in "
-              f"{time.time() - t0:.2f} s (incl. data and set-up) on {card}; "
-              f"{len(confident)} rounds with mask_rate < 1, the first "
-              f"{confident[0] if confident else None}")
+        state, system, confident = _train(card, "paper-cnn", wire, rounds)
         live += len(confident)
         runs[wire] = (state, system)
     if not live:
         fail("no main-path round had a confident anchor (mask_rate < 1): "
              "the clustering kernels did no work")
     return runs
+
+
+def phase_vgg(card: str) -> dict:
+    """The paper-vgg13 rounds, with the launch counts set to 0 just before
+    and read just after; its cut must take the two-pass route."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    arch, wire, rounds = VGG_RUN
+    reset_launch_counts()
+    _train(card, arch, wire, rounds)
+    counts = launch_counts()
+    print(f"[main] kernel launches on the {arch} path: {counts}")
+    if not (counts["quantize_amax"] and counts["quantize_qdq"]
+            and counts["quantize_fused"] == 0):
+        fail(f"the {arch} path must take the quantizer's two-pass route, "
+             f"launched {counts}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1119,8 +1288,13 @@ def phase_cross_check(state, system):
 # ---------------------------------------------------------------------------
 
 OUR_KERNELS = ("clustering_fwd_partial", "clustering_fwd_merge",
-               "clustering_bwd_partial", "clustering_bwd_merge", "amax_kernel",
-               "qdq_kernel")
+               "clustering_bwd_partial", "clustering_bwd_merge",
+               "quantize_fused_kernel", "amax_kernel", "qdq_kernel")
+# the kernels the profiled round must show, and the quantizer's
+ROUND_KERNELS = ("clustering_fwd_partial", "clustering_fwd_merge",
+                 "clustering_bwd_partial", "clustering_bwd_merge",
+                 "quantize_fused_kernel")
+QUANT_KERNELS = ("quantize_fused_kernel", "amax_kernel", "qdq_kernel")
 
 
 def phase_profile(card: str, trained) -> None:
@@ -1176,12 +1350,15 @@ def phase_profile(card: str, trained) -> None:
     print(f"[profile] round wall (no profiler) "
           f"{', '.join(f'{w:.6f}' for w in walls)} s; under the profiler "
           f"{wall_prof:.6f} s, device busy {busy:.6f} s (idle share "
-          f"{1 - busy / wall_prof:.4f}); the four ported kernels "
+          f"{1 - busy / wall_prof:.4f}); the ported kernels "
           f"{sum(t for t, _ in ours.values()):.6f} s ("
           f"{', '.join(f'{k} {t:.6f} x{n}' for k, (t, n) in ours.items())}"
           f"); {sum(e.count for e in kernels)} device ops; on {card}")
-    unseen = [k for k, (_, n) in ours.items()
-              if k.startswith("clustering_") and n == 0]
+    quant = [ours[k] for k in QUANT_KERNELS]
+    print(f"[profile] the quantizer a round: "
+          f"{sum(t for t, _ in quant) * 1e3:.4f} ms of device time in "
+          f"{sum(n for _, n in quant)} launches on {card}")
+    unseen = [k for k in ROUND_KERNELS if ours[k][1] == 0]
     if unseen:
         fail(f"the profiled round shows no launch of {unseen}")
     for e in events:
@@ -1431,6 +1608,8 @@ KERNEL_META = {
                        "src/repro/kernels/clustering_loss.py:140"),
     "clustering_bwd": ("src/repro_torch/csrc/clustering_loss.cu",
                        "src/repro/kernels/clustering_loss.py:184"),
+    "quantize_fused": ("src/repro_torch/csrc/quantize.cu",
+                       "src/repro/kernels/quantize.py:74"),
     "quantize_amax": ("src/repro_torch/csrc/quantize.cu",
                       "src/repro/kernels/quantize.py:74"),
     "quantize_qdq": ("src/repro_torch/csrc/quantize.cu",
@@ -1442,8 +1621,10 @@ KERNEL_META = {
     "mamba2_scan": ("src/repro_torch/csrc/mamba2_scan.cu",
                     "src/repro/kernels/mamba2_scan.py:88"),
 }
-TRAIN_KERNELS = ("clustering_fwd", "clustering_bwd", "quantize_amax",
-                 "quantize_qdq")
+# the main path's kernels; the quantizer's two-pass ones run on the
+# paper-vgg13 rounds instead
+TRAIN_KERNELS = ("clustering_fwd", "clustering_bwd", "quantize_fused")
+TWO_PASS_KERNELS = ("quantize_amax", "quantize_qdq")
 
 
 def main() -> int:
@@ -1479,6 +1660,12 @@ def main() -> int:
     missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
     if missing:
         fail(f"the main path never launched {missing}")
+    if any(launches[k] for k in TWO_PASS_KERNELS):
+        fail(f"the main path's cut tensors took the two-pass route: "
+             f"{launches}")
+    vgg = phase_vgg(card)
+    for kernel in TWO_PASS_KERNELS:
+        launches[kernel] = vgg[kernel]
     trained, system = runs["int8+topk0.05"]
     phase_cross_check(runs["fp32"][0], system)
     phase_profile(card, trained)

@@ -59,7 +59,9 @@ def clustering_loss(z: torch.Tensor, pseudo: torch.Tensor,
 def quantize_dequantize(x: torch.Tensor, fmt: str, *,
                         per_slice: bool = False) -> torch.Tensor:
     """Amax-scaled int8/fp8 fake quantization, one scale per tensor or,
-    with ``per_slice``, one per leading slice.  Not differentiable: the
+    with ``per_slice``, one per leading slice.  On the card the slice size
+    picks the route (``quantize.plan``): one launch a call where a thread
+    block cluster holds a slice, else two passes.  Not differentiable: the
     straight-through and gradient-path wrappers live in ``core.wire``."""
     if _route(x, "quantize_dequantize") == "cuda":
         return _q.quantize_dequantize_cuda(x, fmt, per_slice=per_slice)

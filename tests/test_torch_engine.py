@@ -35,7 +35,7 @@ from repro_torch.data.augment import weak_augment
 from test_torch_modules import JaxReplaySampler
 
 N_ACTIVE, BATCH = 2, 8
-WIRES = ["fp32", "int8", "int8+topk0.05"]
+WIRES = ["fp32", "int8", "fp8", "int8+topk0.05"]
 TAU_MARGIN = 1e-3
 
 

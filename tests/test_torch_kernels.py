@@ -507,6 +507,191 @@ def test_quantize_grad_cotangent_bit_exact(fmt):
     assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
 
 
+# an H100's limits as the quantizer's plan reads them: SMs, shared memory a
+# block may opt in to, amax-pass blocks resident on an SM
+CARD_LIMITS = dict(n_sm=132, smem_optin=232448, amax_per_sm=8)
+
+
+def _qmod():
+    from importlib import import_module
+    return import_module("repro_torch.kernels.quantize")
+
+
+def _cut_numel(arch, batch=32):
+    """Floats of one client's cut tensor at client batch ``batch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.cnn import CNNModel
+    cfg = get_config(arch)
+    hw, c = CNNModel(cfg).feat_shape(cfg.split_layer)
+    return batch * hw * hw * c
+
+
+@pytest.mark.parametrize("arch, n, route, cluster", [
+    ("paper-cnn", 262144, "fused", 8), ("paper-alexnet", 131072, "fused", 4),
+    ("paper-vgg13", 2359296, "two_pass", 0),
+    ("paper-vgg16", 5308416, "two_pass", 0)])
+def test_quantize_plan_at_the_paper_cuts(arch, n, route, cluster):
+    """The route of each paper model's cut, 10 clients of batch 32: the
+    training round's slices take one cluster of 8 blocks, 128 KiB each."""
+    q = _qmod()
+    assert _cut_numel(arch) == n
+    p = q.plan(10, n, **CARD_LIMITS)
+    assert (p.route, p.cluster) == (route, cluster)
+    if route == "fused":
+        assert p.blocks == 10 * cluster and p.parts == 0
+        assert p.share_bytes == 4 * n // cluster
+    else:
+        assert p.parts == 105 and p.blocks == 1050
+    if arch == "paper-cnn":
+        assert p.share_bytes == 131072 and p.blocks == 80
+
+
+@pytest.mark.parametrize("s, n, route, cluster", [
+    (1, 2621440, "two_pass", 0), (3, 333, "fused", 1),
+    (1, 1000, "fused", 1), (1, 7, "fused", 1), (10, 64, "fused", 1),
+    (4, 57855, "fused", 1), (4, 57857, "fused", 2),
+    (1, 462848, "fused", 8), (1, 462849, "two_pass", 0)])
+def test_quantize_plan_routes(s, n, route, cluster):
+    """Whole-tensor calls beyond a cluster take two passes, tiny and
+    ragged slices one block, and the fused route ends at 8 blocks of
+    231,424 bytes (462,848 floats a slice)."""
+    p = _qmod().plan(s, n, **CARD_LIMITS)
+    assert (p.route, p.cluster) == (route, cluster)
+    if route == "two_pass":
+        assert p.parts == min(-(-n // (256 * 16)), 1056 // s)
+
+
+def _share_bytes(n, c):
+    """n / c floats, rounded up to 16 bytes."""
+    return -(-(-(-n // c)) // 4) * 16
+
+
+@pytest.mark.parametrize("s", [1, 10, 200])
+def test_quantize_plan_keeps_its_rules(s):
+    q = _qmod()
+    for n in [1, 3, 4, 5, 333, 4096, 57856, 57857, 115712, 115713, 262144,
+              462848, 462849, 2359296, 5308416]:
+        p = q.plan(s, n, **CARD_LIMITS)
+        if p.route == "fused":
+            assert p.cluster in q.CLUSTER_SIZES and p.cluster <= 8
+            assert p.share_bytes % 16 == 0 and p.share_bytes // 4 * p.cluster >= n
+            assert p.smem_bytes == p.share_bytes + q.SCRATCH_BYTES <= 232448
+            # the smallest cluster that holds the slice
+            smaller = [c for c in q.CLUSTER_SIZES if c < p.cluster]
+            assert all(_share_bytes(n, c) + q.SCRATCH_BYTES > 232448
+                       for c in smaller)
+        else:
+            assert _share_bytes(n, 8) + q.SCRATCH_BYTES > 232448
+            assert 1 <= p.parts and p.blocks == s * p.parts
+            assert p.blocks <= max(s, 132 * 8)
+    with pytest.raises(ValueError, match="no plan"):
+        q.plan(0, 10, **CARD_LIMITS)
+
+
+def _route_arithmetic(x, fmt, p):
+    """The CPU emulation of a route's arithmetic on (S, n): the maxima of
+    |x| over the plan's split of each slice (the fused route's C shares of
+    share_bytes / 4 floats; the amax pass's grid-stride blocks over float4s,
+    the ragged tail in block 0), their max, then the round trip."""
+    q = _qmod()
+    s, n = p.slices, p.n
+    xs = x.reshape(s, n)
+    idx = torch.arange(n)
+    if p.route == "fused":
+        block = idx // (p.share_bytes // 4)
+        n_blocks = p.cluster
+    else:
+        block = (idx // 4 // q.THREADS) % p.parts
+        block[idx >= n // 4 * 4] = 0
+        n_blocks = p.parts
+    assert int(block.max()) < n_blocks
+    part = torch.zeros(s, n_blocks).scatter_reduce(
+        1, block.expand(s, n), xs.abs(), "amax")
+    amax = part.amax(dim=1, keepdim=True)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax,
+                                                          tref.QMAX[fmt]),
+                        torch.ones_like(amax))
+    v = xs / scale
+    if fmt == "int8":
+        qv = torch.clamp(torch.round(v), -127.0, 127.0)
+    else:
+        qv = v.to(torch.float8_e4m3fn).to(torch.float32)
+    return (qv * scale).reshape(x.shape), amax.reshape(-1)
+
+
+def _route_inputs():
+    rng = np.random.RandomState(17)
+    big = rng.randn(10, 32, 16, 16, 32).astype(np.float32)
+    big[1] *= 1e-3
+    big[2] = 0.0                                   # an all-zero slice
+    big[3] *= 50.0
+    big[4].flat[123] = np.abs(big[4]).max() * 2    # x == amax in a share
+    big[4].flat[200000] = -big[4].flat[123]
+    return {"round": big,
+            "ragged": rng.randn(3, 333).astype(np.float32),
+            "zeros": np.zeros((4, 64), np.float32)}
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("name", ["round", "ragged", "zeros"])
+@pytest.mark.parametrize("route", ["fused", "fused_small", "two_pass",
+                                   "two_pass_small"])
+def test_quantize_route_arithmetic_bit_exact(fmt, name, route):
+    """Each route's split of a slice, emulated on the CPU, gives the bits of
+    the JAX reference and of the Pallas kernel in interpret mode, vmapped
+    per slice: the training round's shape (a slice of zeros, one of small
+    values, one at x == amax), ragged slices of 333 and all zeros.  "small"
+    plans for a card whose shared memory holds a quarter of a slice a block
+    (4 shares; the ragged slices' last one short) or with 2 SMs (1 partial
+    a slice)."""
+    q = _qmod()
+    x = _route_inputs()[name]
+    s, n = x.shape[0], x[0].size
+    if route == "fused":
+        p = q.fused_plan(s, n, CARD_LIMITS["smem_optin"])
+    elif route == "fused_small":
+        p = q.fused_plan(s, n, q.SCRATCH_BYTES + _share_bytes(n, 4))
+    elif route == "two_pass":
+        p = q.two_pass_plan(s, n, CARD_LIMITS["n_sm"],
+                            CARD_LIMITS["amax_per_sm"])
+    else:
+        p = q.two_pass_plan(s, n, 2, 1)
+    if (route, name) == ("fused", "round"):
+        assert p.cluster == 8
+    if route == "fused_small":
+        assert p.cluster == 4
+    if (route, name) == ("fused_small", "ragged"):
+        assert 3 * p.share_bytes // 4 + 81 == n      # the last share short
+    got, amax = _route_arithmetic(torch.from_numpy(x), fmt, p)
+    assert np.array_equal(amax.numpy(), np.abs(x.reshape(s, n)).max(axis=1))
+    both = jax.vmap(lambda t: (
+        jref.quantize_dequantize_ref(t, fmt),
+        quantize_dequantize_pallas(t, fmt, interpret=True)))
+    want, want_pl = (np.asarray(w) for w in both(jnp.asarray(x)))
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert np.array_equal(got.numpy().view(np.int32), want_pl.view(np.int32))
+
+
+def test_quantize_constants_match_the_kernel_source():
+    """The plan's block size, chunk size, largest cluster and scratch, and
+    the amax pass's threads and unroll, are the .cu's."""
+    from pathlib import Path
+    q = _qmod()
+    src = (Path(q.__file__).parents[1] / "csrc" / "quantize.cu").read_text()
+    for name, value in (("kThreads", q.THREADS), ("kUnroll", q.UNROLL),
+                        ("kFusedThreads", q.FUSED_THREADS),
+                        ("kChunkBytes", q.CHUNK_BYTES),
+                        ("kMaxCluster", q.MAX_CLUSTER),
+                        ("kScratchBytes", q.SCRATCH_BYTES)):
+        assert f"constexpr int {name} = {value};" in src
+
+
+
+def test_quantize_cuda_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA device"):
+        _qmod().quantize_dequantize_cuda(torch.ones(4, 8), "int8")
+
+
 def test_cpu_tensors_take_the_plain_versions():
     kernels.reset_launch_counts()
     x = torch.randn(3, 100)
@@ -527,8 +712,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert all(v == 0 for v in kernels.launch_counts().values())
     assert set(kernels.launch_counts()) == {
-        "clustering_fwd", "clustering_bwd", "quantize_amax", "quantize_qdq",
-        "flash_attention", "flash_attention_wgmma", "slstm_scan",
+        "clustering_fwd", "clustering_bwd", "quantize_fused",
+        "quantize_amax", "quantize_qdq", "flash_attention", "flash_attention_wgmma", "slstm_scan",
         "mamba2_scan", "mamba2_scan_mma"}
 
 
