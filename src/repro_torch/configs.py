@@ -112,6 +112,64 @@ class ArchConfig:
             s = max(1, self.num_layers // 4)
         return min(s, self.num_layers - 1)
 
+    def param_count(self) -> int:
+        """The JAX package's analytic parameter count (read by the cost
+        model), over the fields this copy has.  It is the reference's
+        reckoning, over-count on the LMs included, not what the port
+        builds."""
+        d, ff, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
+        if self.arch_type == "cnn":
+            total, cin, hw = 0, 3, self.image_size
+            for cout in self.cnn_channels:
+                total += cin * cout * 9 + cout
+                cin = cout
+                hw //= 2
+            feat = cin * hw * hw
+            for fc in self.cnn_fc:
+                total += feat * fc + fc
+                feat = fc
+            total += feat * self.num_classes + self.num_classes
+            return total
+
+        def attn_params() -> int:
+            hd = self.resolved_head_dim
+            return (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                    + self.num_heads * hd * d)
+
+        def mlp_params(width: int) -> int:
+            return d * width * (3 if self.mlp_gated else 2)
+
+        def ssm_params() -> int:
+            s = self.ssm or SSMConfig()
+            d_in = s.expand * d
+            nh = d_in // s.head_dim
+            p = d * (2 * d_in + 2 * s.state_dim * (d_in // s.head_dim) + nh)
+            p += s.conv_width * (d_in + 2 * s.state_dim * nh)
+            p += d_in * d  # out proj
+            return p
+
+        total = V * d * 2
+        for i in range(L):
+            if self.block_kind == "mamba2":
+                total += ssm_params()
+            elif self.block_kind == "xlstm":
+                x = self.xlstm or XLSTMConfig()
+                if (i + 1) % x.slstm_period == 0:
+                    total += 4 * d * d + int(x.slstm_ff_factor * d) * d * 2
+                else:
+                    di = int(x.mlstm_proj_factor * d)
+                    total += d * di * 2 + 3 * di * di // 4 + di * d
+            else:
+                total += attn_params() + mlp_params(ff)
+            total += 2 * d  # norms
+        if self.shared_attn_period:
+            total += attn_params() + mlp_params(ff) + 2 * d
+        if self.is_encoder_decoder:
+            total += L * attn_params()  # cross attention
+        if self.num_classes:
+            total += d * self.num_classes
+        return total
+
 
 def _cnn(name, channels, fc, image_size, split, num_classes=10, dropout=0.0):
     return ArchConfig(

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import FLState
 from repro_torch.core.engine import SemiSFLState
 from repro_torch.core.queue import FeatureQueue
 from repro_torch.models.attention import KVCache
@@ -84,6 +85,16 @@ def state_from_numpy(params, teacher, momentum, queue: dict, round_: int,
         opt=params_from_numpy(momentum, device),
         queue=queue_from_numpy(device=device, **queue),
         round=int(round_), step=int(step))
+
+
+def fl_state_from_numpy(params, teacher, momentum, round_: int,
+                        device: str | torch.device = "cpu") -> FLState:
+    """A baseline's :class:`FLState` from the JAX ``FLState``'s pieces as
+    numpy: params and teacher (FedMatch's ``{"sigma", "psi"}`` trees too)
+    and the SGD momentum buffers (``opt.mu``)."""
+    return FLState(params=params_from_numpy(params, device),
+                   teacher=params_from_numpy(teacher, device),
+                   opt=params_from_numpy(momentum, device), round=int(round_))
 
 
 def _tensor(a, device) -> torch.Tensor:

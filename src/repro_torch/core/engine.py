@@ -109,19 +109,54 @@ class DrawSampler:
                                               self.device))
 
 
-def _client(stacked, i: int):
+def client_slice(stacked, i: int):
+    """Client ``i``'s tree from a stacked (N, ...) tree."""
     return tree_map(lambda t: t[i], stacked)
 
 
-def _requires_grad(tree):
+def requires_grad(tree):
     return tree_map(lambda t: t.detach().requires_grad_(True), tree)
 
 
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def selection_rng(holder, rng_np: Optional[np.random.RandomState] = None
+                  ) -> np.random.RandomState:
+    """The host-side client-selection RandomState, made once a run:
+    ``rng_np`` (from the launcher) if given, else the ``holder``'s
+    ``_select_rng`` (seeded by ``init_state``), else seed 0.  Shared by the
+    engine and every baseline."""
+    if rng_np is not None:
+        return rng_np
+    if holder._select_rng is None:
+        holder._select_rng = np.random.RandomState(0)
+    return holder._select_rng
+
+
+def grads_of(loss: torch.Tensor, tree: dict, unused: tuple = ()) -> dict:
+    """d loss / d each leaf of the dict ``tree``, as a tree.  The entries
+    named in ``unused`` are reached only by a term that is switched off:
+    they get zeros, as a JAX gradient gives them.  Any other leaf that the
+    loss does not reach raises, as autograd does."""
+    live = {k: v for k, v in tree.items() if k not in unused}
+    grads = tree_unflatten(live, list(torch.autograd.grad(
+        loss, tree_leaves(live))))
+    return {k: grads[k] if k in live else tree_map(torch.zeros_like, v)
+            for k, v in tree.items()}
+
+
 class SemiSFLSystem:
-    """Paper-faithful classification-task SemiSFL."""
+    """Paper-faithful classification-task SemiSFL.  ``use_clustering``
+    and ``use_supcon`` switch off the Eq. (5) and Eq. (3) terms (the
+    FedSwitch-SL ablation, ``core/baselines.py``)."""
+
+    name = "semisfl"
 
     def __init__(self, cfg: ArchConfig, *, n_clients_per_round: int = 10,
                  lr: float = 0.02, momentum: float = 0.9,
+                 use_clustering: bool = True, use_supcon: bool = True,
                  wire_format: WireFormatLike = None,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
@@ -134,6 +169,8 @@ class SemiSFLSystem:
         self.n_active = n_clients_per_round
         self.opt = sgd(momentum=momentum)
         self.lr = lr
+        self.use_clustering = use_clustering
+        self.use_supcon = use_supcon
         # init_state reseeds both from its seed; a test may swap the sampler
         self.sampler = DrawSampler(self.model, 1, self.device)
         self._select_rng: Optional[np.random.RandomState] = None
@@ -175,14 +212,15 @@ class SemiSFLSystem:
         weak, masks = draws
         xs = weak_augment(x, weak)
         s, q = self.s, state.queue
-        params = _requires_grad(state.params)
+        params = requires_grad(state.params)
         logits, z, _ = self._forward(params, xs, masks)
-        loss = losses.cross_entropy(logits, y) + \
-            losses.supervised_contrastive_loss(z, y, q.z, q.label,
-                                               q.valid & q.conf,
-                                               s.temperature)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
-        grads = tree_unflatten(state.params, list(grads))
+        loss = losses.cross_entropy(logits, y)
+        if self.use_supcon:
+            loss = loss + losses.supervised_contrastive_loss(
+                z, y, q.z, q.label, q.valid & q.conf, s.temperature)
+        # without the SupCon term proj gets a zero gradient and stays
+        grads = grads_of(loss, params,
+                         unused=() if self.use_supcon else ("proj",))
         with torch.no_grad():
             updates, mu = self.opt.update(grads, state.opt, state.params,
                                           self.lr)
@@ -199,7 +237,7 @@ class SemiSFLSystem:
     def _bottoms_forward(self, bottoms, x):
         """Each client's bottom on its own batch: (N, B, ...) -> stacked
         (N, B, H', W', C) cut features."""
-        return torch.stack([self.model.bottom_apply(_client(bottoms, i),
+        return torch.stack([self.model.bottom_apply(client_slice(bottoms, i),
                                                     x[i])
                             for i in range(x.shape[0])])
 
@@ -247,20 +285,25 @@ class SemiSFLSystem:
             pseudo, conf_ok, tz = self._teacher_targets(
                 carry.teacher, carry.teacher_bottoms, xw)
 
-        bottoms = _requires_grad(carry.bottoms)
-        top = _requires_grad(carry.top)
-        proj = _requires_grad(carry.proj)
+        bottoms = requires_grad(carry.bottoms)
+        top = requires_grad(carry.top)
+        proj = requires_grad(carry.proj)
         logits, feats_flat = self._student_forward(bottoms, top, xs, masks)
         h = losses.cross_entropy(logits, pseudo, mask=conf_ok)
-        z = apply_projection_head(proj, pool_features(feats_flat))
-        # Eq. (5) through the clustering kernel; anchors are gated by the
-        # pseudo-label's confidence
-        loss = h + kernels.clustering_loss(z, pseudo, conf_ok, q.z, q.label,
-                                           q.conf, q.valid, s.temperature)
-        leaves = tree_leaves((bottoms, top, proj))
-        grads = tree_unflatten((carry.bottoms, carry.top, carry.proj),
-                               list(torch.autograd.grad(loss, leaves)))
-        g_bottoms, g_top, g_proj = grads
+        loss = h
+        if self.use_clustering:
+            z = apply_projection_head(proj, pool_features(feats_flat))
+            # Eq. (5) through the clustering kernel; anchors are gated by
+            # the pseudo-label's confidence
+            loss = h + kernels.clustering_loss(z, pseudo, conf_ok, q.z,
+                                               q.label, q.conf, q.valid,
+                                               s.temperature)
+        # without the clustering term proj gets a zero gradient and stays
+        grads = grads_of(loss, {"bottoms": bottoms, "top": top,
+                                "proj": proj},
+                         unused=() if self.use_clustering else ("proj",))
+        g_bottoms, g_top, g_proj = (grads[k] for k in ("bottoms", "top",
+                                                       "proj"))
         with torch.no_grad():
             # Eq. (7): the loss already averages over all N*B samples;
             # Eq. (8): each client applies its own gradient, so undo 1/N
@@ -293,16 +336,6 @@ class SemiSFLSystem:
         """Step (5): FedAvg over the client axis."""
         return tree_map(lambda t: t.mean(dim=0), client_bottoms)
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-    def selection_rng(self, rng_np=None) -> np.random.RandomState:
-        if rng_np is not None:
-            return rng_np
-        if self._select_rng is None:
-            self._select_rng = np.random.RandomState(0)
-        return self._select_rng
-
     def run_round(self, state: SemiSFLState, labeled: Loader,
                   client_loaders_: list[Loader], controller: FreqController,
                   active: Optional[list[int]] = None,
@@ -321,12 +354,13 @@ class SemiSFLSystem:
             for _ in range(k_s):
                 x, y = labeled.next()
                 state, loss = self.supervised_step(
-                    state, (self._to_device(x), self._to_device(y)))
+                    state, (to_device(x, self.device),
+                            to_device(y, self.device)))
                 f_s.append(loss)
 
         # (2) broadcast
         if active is None:
-            active = list(self.selection_rng(rng_np).choice(
+            active = list(selection_rng(self, rng_np).choice(
                 len(client_loaders_),
                 size=min(self.n_active, len(client_loaders_)),
                 replace=False))
@@ -342,7 +376,7 @@ class SemiSFLSystem:
             for _ in range(k_u):
                 xu, _ = stack_client_batches(client_loaders_, active)
                 carry, (loss, _h, mask_rate) = self.semi_step(
-                    carry, self._to_device(xu))
+                    carry, to_device(xu, self.device))
                 f_u.append(loss)
                 masks.append(mask_rate)
 
@@ -382,8 +416,8 @@ class SemiSFLSystem:
         """Test accuracy of the teacher model, read once at the end."""
         correct = torch.zeros((), device=self.device)
         for i in range(0, len(test_y), batch):
-            xb = self._to_device(test_x[i: i + batch])
-            yb = self._to_device(test_y[i: i + batch])
+            xb = to_device(test_x[i: i + batch], self.device)
+            yb = to_device(test_y[i: i + batch], self.device)
             logits, _, _ = self._forward(state.teacher, xb)
             correct += (logits.argmax(-1) == yb).float().sum()
         return float(correct.cpu()) / len(test_y)

@@ -6,7 +6,9 @@
     what the server ships back to each client (:func:`quantize_grad`);
   * bottom deltas: top-k magnitude sparsification of each client's delta
     against the broadcast reference before FedAvg
-    (:func:`sparse_delta_mean`).
+    (:func:`sparse_delta_mean`);
+  * the on-wire bytes of each payload (:func:`quantized_bytes`,
+    :func:`topk_payload_bytes`), which ``core/commcost.py`` bills.
 
 Both quantizers take a stack of client tensors (N, ...) and give every
 client slice its own scale, as the JAX engine's vmapped calls do.  They run
@@ -24,6 +26,9 @@ from repro_torch.tree import tree_map
 
 # on-wire bytes per element for each quantized payload format
 WIRE_DTYPES = {"fp32": 4, "int8": 1, "fp8": 1}
+SCALE_BYTES = 4   # one fp32 amax scale rides along per quantized tensor
+VALUE_BYTES = 4   # surviving top-k entries ship as fp32 values...
+INDEX_BYTES = 4   # ...plus an int32 flat coordinate each
 
 
 @dataclass(frozen=True)
@@ -43,6 +48,12 @@ class WireFormat:
         if not 0.0 < self.topk_frac <= 1.0:
             raise ValueError(
                 f"topk_frac must be in (0, 1], got {self.topk_frac}")
+
+    @property
+    def identity(self) -> bool:
+        """True when every payload is uncompressed fp32 (no-op wire)."""
+        return (self.activations == "fp32" and self.gradients == "fp32"
+                and self.topk_frac >= 1.0)
 
 
 FP32 = WireFormat()
@@ -144,3 +155,23 @@ def sparse_delta_mean(stacked, reference, frac: float):
         deltas = torch.stack([topk_sparsify(d, frac) for d in deltas])
         return r + deltas.mean(dim=0)
     return tree_map(one, stacked, reference)
+
+
+# ---------------------------------------------------------------------------
+# byte accounting (read by core.commcost)
+# ---------------------------------------------------------------------------
+
+def quantized_bytes(n_elems: float, fmt: str, *, n_tensors: int = 1) -> float:
+    """On-wire bytes for ``n_elems`` elements in ``fmt`` (+ one fp32 amax
+    scale per shipped tensor for the quantized formats)."""
+    if fmt == "fp32":
+        return 4.0 * n_elems
+    return float(WIRE_DTYPES[fmt]) * n_elems + SCALE_BYTES * n_tensors
+
+
+def topk_payload_bytes(n_elems: int, frac: float) -> float:
+    """On-wire bytes for a top-k sparsified ``n_elems`` payload: fp32
+    value + int32 flat index per kept entry."""
+    if frac >= 1.0:
+        return 4.0 * n_elems
+    return float(topk_count(n_elems, frac)) * (VALUE_BYTES + INDEX_BYTES)

@@ -13,6 +13,10 @@ confidence mask (they land in the queue's label and conf fields) exactly.
 No teacher confidence lies within 1e-3 of tau, so no label sits on the
 threshold."""
 import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -220,3 +224,91 @@ def test_run_round_matches_jax(wire):
     test = ds_t.x[200:], ds_t.y[200:]
     assert sys_t.evaluate(new_t, *test) == pytest.approx(
         sys_j.evaluate(new_j, *test), abs=1e-6)
+
+
+def test_two_rounds_with_a_ks_change_match_jax():
+    """Two rounds with K_s forced from 3 to 2 between them, as
+    ``tests/test_scan_parity.py`` does for the reference: the port reads
+    ``controller.k_s`` once a round, and the step counter (which the JAX
+    package's learning-rate schedule reads) counts the steps actually
+    taken."""
+    sys_j, sys_t, state_j, cfg = _systems("fp32")
+    ds_j = jsyn.make_image_dataset(0, n=240, image_size=16)
+    ds_t = synthetic.make_image_dataset(0, n=240, image_size=16)
+    parts = [np.arange(40 + 50 * i, 90 + 50 * i) for i in range(4)]
+    lab_j = jpipe.Loader(ds_j, np.arange(40), BATCH, 0)
+    lab_t = pipeline.Loader(ds_t, np.arange(40), BATCH, 0)
+    cls_j = jpipe.client_loaders(ds_j, parts, BATCH, 1)
+    cls_t = pipeline.client_loaders(ds_t, parts, BATCH, 1)
+    ctrl_j = jax_make_controller(sys_j.cfg, 40, 240)
+    ctrl_t = make_controller(cfg, 40, 240)
+    sys_t.sampler = JaxReplaySampler(state_j.rng, cfg)
+    new_j, new_t = state_j, _port_state(state_j)
+    for r, active in enumerate(([1, 3], [0, 2])):
+        ctrl_j.k_s = ctrl_t.k_s = 3 - r          # forced shrink: 3 then 2
+        new_j, m_j = sys_j.run_round(new_j, lab_j, cls_j, ctrl_j,
+                                     active=active)
+        new_t, m_t = sys_t.run_round(new_t, lab_t, cls_t, ctrl_t,
+                                     active=active)
+        assert m_t.k_s == m_j.k_s == 3 - r and m_t.mask_rate < 1.0
+        np.testing.assert_allclose([m_t.f_s, m_t.f_u, m_t.mask_rate],
+                                   [m_j.f_s, m_j.f_u, m_j.mask_rate],
+                                   atol=1e-4, rtol=1e-4)
+    _close(new_t.params, new_j.params, atol=1e-4, rtol=1e-4)
+    _close(new_t.teacher, new_j.teacher, atol=1e-4, rtol=1e-4)
+    _close(new_t.opt, new_j.opt.mu, atol=1e-4, rtol=1e-4)
+    _queue_equal(new_t.queue, new_j.queue, atol=1e-4, rtol=1e-4)
+    k_u = cfg.semisfl.k_u
+    assert new_t.step == int(new_j.step) == (3 + k_u) + (2 + k_u)
+    assert new_t.round == int(new_j.round) == 2
+
+
+def test_quickstart_runs_on_the_cpu():
+    """``python -m repro_torch.quickstart --device cpu`` for a few rounds,
+    in a process of its own with a time limit of its own."""
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.quickstart",
+                        "--device", "cpu", "--rounds", "4"], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[-1].startswith("final teacher accuracy:")
+    assert [ln.split(":")[0] for ln in lines[:-1]] == ["round  0",
+                                                       "round  3"]
+    assert 0.0 <= float(lines[-1].split(":")[1]) <= 1.0
+
+
+def test_full_vgg16_diverges_at_the_default_rate_in_both_packages():
+    """A fault of the reference that the port mirrors (ROADMAP Queue 3):
+    the full paper-vgg16 (13 convs, no normalization) from its random init
+    blows up under the default rate 0.02.  Both packages start from the
+    JAX state and take the same draws; by the fourth supervised step of 4
+    labeled images each loss has passed 1e3 or is no longer finite, while
+    the first step agrees.  chip_smoke runs VGG16 at 0.002."""
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config
+
+    sys_j = JaxSystem(jax_get_config("paper-vgg16"), n_clients_per_round=2,
+                      scan_rounds=False)
+    sys_t = SemiSFLSystem(get_config("paper-vgg16"), n_clients_per_round=2,
+                          device="cpu")
+    state_j = sys_j.init_state(0)
+    state_t = _port_state(state_j)
+    replay = JaxReplaySampler(state_j.rng, sys_t.cfg)
+    ds = synthetic.make_image_dataset(0, num_classes=100, n=16,
+                                      image_size=144)
+    losses_j, losses_t = [], []
+    for k in range(4):
+        x, y = ds.x[4 * k: 4 * k + 4], ds.y[4 * k: 4 * k + 4]
+        state_j, loss_j = sys_j.supervised_step(
+            state_j, (jnp.asarray(x), jnp.asarray(y)))
+        state_t, loss_t = sys_t.supervised_step(
+            state_t, (torch.from_numpy(x), torch.from_numpy(y)),
+            draws=replay.supervised(4))
+        losses_j.append(float(loss_j))
+        losses_t.append(float(loss_t))
+    np.testing.assert_allclose(losses_t[0], losses_j[0], rtol=1e-4)
+    for seq in (losses_j, losses_t):
+        assert not all(np.isfinite(seq)) or max(seq) > 1e3, seq
+    print(f"vgg16 losses at rate 0.02: JAX {losses_j}, port {losses_t}")

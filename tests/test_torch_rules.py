@@ -138,15 +138,26 @@ def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the rule is for its absence")
     from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.baselines import BASELINES, make_fedswitch_sl
     from repro_torch.core.engine import SemiSFLSystem
     from repro_torch.launch.serve import serve, serve_config
     from repro_torch.launch.train import run_training
+    from repro_torch.quickstart import main as quickstart
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_training("paper-cnn", rounds=1, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_training("paper-cnn", rounds=1)          # the default is cuda
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SemiSFLSystem(smoke_config("paper-cnn"))
+    for name, cls in BASELINES.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(smoke_config("paper-cnn"))           # the default is cuda
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_training("paper-cnn", rounds=1, baseline=name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_fedswitch_sl(smoke_config("paper-cnn"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quickstart([])                               # the default is cuda
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve("qwen3-14b")                           # the default is cuda
     with pytest.raises(RuntimeError, match="no CUDA device"):
