@@ -29,7 +29,13 @@ Phases, in order; any failure exits nonzero:
      non-causal case, at ragged lengths, with 5 query heads per KV head,
      then in bf16 off the 128-row tiles, with a window across tile edges,
      groups of 5 and 8, a peaked softmax and every head dim, and at
-     Qwen3-14B's and Zamba2-7B's prefill shapes; the sLSTM scan, h and
+     Qwen3-14B's and Zamba2-7B's prefill shapes; (3b) flash attention's
+     backward, with the forward's log-sum-exp, in fp32 and bf16 at small
+     shapes (GQA groups 1 to 5, ragged tiles, windows, non-causal, every
+     head dim, rows that see no key) and at H2O-Danube-1.8B's training
+     shape (windows 0 and 1024, head dims 64, 80 and 128; two launches bit
+     for bit), timed there against its plain version, the library's
+     backward and the bound; the sLSTM scan, h and
      final state, at
      the JAX kernel tests' shapes, at S = 1, from a non-fresh state, at the
      xLSTM smoke shape and at xLSTM-1.3B's prefill shape; the Mamba2 scan,
@@ -105,7 +111,17 @@ Phases, in order; any failure exits nonzero:
  12. card against CPU on the Zamba2 path: the same fp32 weights of a
      4-layer Zamba2-7B at full width (shared block every 2 layers, split
      2 + 2), one prefill of 256 tokens and 4 decode steps on each;
- 13. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
+ 13. the fifth path: LM training of the full H2O-Danube-1.8B
+     (``repro_torch.launch.steps.make_train_phase``: 24 layers split 6 + 18,
+     width 2560, bf16, the ``int8`` wire, tau 0, weights and tokens drawn on
+     the card from seed 0), 4 clients x 1 sequence x 4096 tokens, a warm-up
+     step and 3 timed steps with every kernel's launches required (flash
+     forward 126 a step, its backward 42, the clustering pair 1, the
+     two-pass quantizer 3), peak memory, then one step under the profiler;
+ 14. card against CPU on the LM training path: one step of a 2-layer fp32
+     H2O-Danube-1.8B at full width (split 1 + 1), 2 clients x 512 tokens,
+     every metric and state leaf to 1e-3, the queue's pseudo-labels equal;
+ 15. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
 
 Needs one CUDA card, ``nvcc`` and this checkout's ``src/``; imports nothing
 of JAX."""
@@ -142,8 +158,14 @@ CUT = (CLIENT_BATCH, 16, 16, 32)
 VGG_CUTS = {"paper-vgg13": CLIENT_BATCH * 12 * 12 * 512,
             "paper-vgg16": CLIENT_BATCH * 18 * 18 * 512}
 
+# the last two are the LM training step's: 4 anchors (4 clients x 1
+# sequence) against H2O-Danube-1.8B's 4096-entry queue at d 128 (the
+# kernels' largest d), over 4 labels (positives for every anchor) and over
+# its 32000-token vocabulary (the path's sequence pseudo-labels; most
+# anchors find no positive)
 CLUSTER_TEST_SHAPES = [(16, 64, 16, 4), (64, 256, 32, 10), (100, 512, 64, 7),
-                       (32, 1000, 128, 4)]
+                       (32, 1000, 128, 4), (4, 4096, 128, 4),
+                       (4, 4096, 128, 32000)]
 # the split-and-merge edges of the clustering kernels, as
 # tests/test_torch_kernels.py holds their arithmetic: kind -> (b, q, d, m).
 # "hole": Q-block 1 has no valid entry and label 0's confident entries lie
@@ -479,6 +501,31 @@ def _check_quant(x, fmt, per_slice, what, errs):
             errs[name] = max(errs[name], e)
 
 
+def _check_lm_cut(fmt: str, errs: dict) -> None:
+    """The LM training step's wire: H2O-Danube-1.8B's cut features, one
+    (LM_SEQ, d_model) slice a client, bf16.  ``_check_quant`` on their
+    fp32 copy (what the wrapper hands the kernels), then the wrapper on
+    the bf16 tensor itself, bit for bit against the plain version."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import quantize_dequantize, ref
+    cut = LM_SEQ * get_config(LM_ARCH).d_model
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(LM_CLIENTS, cut, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    _check_quant(x.float(), fmt, True, f"({LM_CLIENTS}, {cut}) per slice, "
+                 f"{LM_ARCH}'s cut", errs)
+    got = quantize_dequantize(x, fmt, per_slice=True)
+    want = ref.quantize_dequantize_ref(x, fmt, per_slice=True)
+    same = (got.dtype == torch.bfloat16
+            and torch.equal(got.view(torch.int16), want.view(torch.int16)))
+    print(f"[kernels] quantize {fmt} ({LM_CLIENTS}, {cut}) bf16 through the "
+          f"wrapper: bit-exact {same}")
+    if not same:
+        fail(f"quantize {fmt} of {LM_ARCH}'s bf16 cut is not bit-exact")
+
+
 def _fmt_ms(v) -> str:
     return "n/a" if v is None else f"{v[0]:.5f} ms (events {v[1]:.5f} ms)"
 
@@ -611,6 +658,10 @@ def phase_kernels(card: str, ptxas: str) -> dict:
     for i, kind in enumerate(CLUSTER_EDGES):
         _check_cluster(_cluster_edge_inputs(kind, 20 + i, cl.TILE_Q),
                        f"{kind} {CLUSTER_EDGES[kind][:3]}", errs)
+    # the LM step's shape with unit-norm features, as its projection head
+    # gives them
+    _check_cluster(_cluster_inputs(4, 4096, 128, 4, 8, normalize=True),
+                   "(4, 4096, 128) unit norm", errs)
     # where the 16-byte loads do not fit: d 1, and queue rows off 16 bytes
     _check_cluster(_cluster_inputs(16, 300, 1, 3, 5), "(16, 300, 1)", errs)
     args = _cluster_inputs(100, 1000, 64, 7, 6)
@@ -682,6 +733,7 @@ def phase_kernels(card: str, ptxas: str) -> dict:
         for cut in VGG_CUTS.values():
             _check_quant(torch.randn(N_ACTIVE, cut, device=dev), fmt, True,
                          f"({N_ACTIVE}, {cut}) per slice", errs)
+        _check_lm_cut(fmt, errs)
     _check_quant(edge, "fp8", False, "at +-448", errs)
     e8 = q.quantize_dequantize_cuda(edge, "fp8")
     if float(e8[0]) != 448.0 or float(e8[1]) != -448.0:
@@ -2093,6 +2145,464 @@ def phase_serve_cross_check(arch: str) -> None:
         fail(f"the card and the CPU disagree on the {arch} serving path")
 
 
+# ---------------------------------------------------------------------------
+# phases 3b and 13-14: flash attention's backward and LM training
+# ---------------------------------------------------------------------------
+
+# the backward against its plain version at small shapes, fp32 and bf16:
+# (b, h, kvh, sq, skv, hd, causal, window).  GQA groups 1, 4 and 5, ragged
+# tiles, windows across tile edges, non-causal with Skv != Sq; phase 3b adds
+# every head dim in bf16, rows that see no key, and H2O-Danube-1.8B's shape
+FLASH_BWD_CASES = [
+    (1, 2, 1, 128, 128, 64, True, 0), (2, 8, 2, 384, 384, 80, True, 0),
+    (1, 4, 4, 256, 256, 128, True, 64), (2, 2, 2, 128, 256, 64, False, 0),
+    (1, 10, 2, 200, 200, 128, True, 0), (1, 5, 1, 77, 300, 96, False, 0),
+    (1, 4, 2, 33, 33, 32, True, 16), (1, 4, 1, 300, 300, 112, True, 100)]
+# (atol, rtol).  fp32: the forward's tolerance.  bf16: both sides compute
+# in fp32 from the same bf16 inputs (and the same forward output and lse)
+# and round each gradient once to bf16.  Where the two fp32 results x, y
+# differ by e, the bf16 values differ by at most e plus one ulp of the
+# larger, and one bf16 ulp of b is at most 2^-7 |b|: so rtol 2^-7, and an
+# atol that bounds e, the fp32 gap of the sums' orders, which the fp32
+# cases measure at danube's shape (below 3e-6 on an H100): 1e-5
+FLASH_BWD_TOLS = {"float32": (2e-4, 2e-4), "bfloat16": (1e-5, 2.0 ** -7)}
+# H2O-Danube-1.8B at train_4k with the global batch cut to 4 sequences:
+# the top's attention is q (4, 32, 4096, 80) over k, v (4, 8, 4096, 80)
+LM_ARCH, LM_CLIENTS, LM_SEQ = "h2o-danube-1.8b", 4, 4096
+LM_HEADS, LM_KV_HEADS, LM_HD = 32, 8, 80
+LM_WINDOWS = (0, 1024)
+
+
+def _check_bwd(q, k, v, g, what, tol, causal=True, window=0) -> float:
+    """The forward kernel's output and lse against their plain versions
+    (one sequence at a time), then the backward kernels against theirs on
+    the forward kernel's output and lse; the gradients must come back in
+    their inputs' dtypes and strides.  ``tol`` is the backward's (atol,
+    rtol); the forward is held to ``FLASH_TOLS``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                     with_lse=True)
+    fwd_tol = FLASH_TOLS[str(q.dtype).removeprefix("torch.")]
+    o_err = 0.0
+    for i in range(q.shape[0]):
+        sl = slice(i, i + 1)
+        o_want = ref.flash_attention_ref(q[sl], k[sl], v[sl], causal=causal,
+                                         window=window).float()
+        o_err = max(o_err, float((o[sl].float() - o_want).abs().max()))
+        if not torch.allclose(o[sl].float(), o_want, atol=fwd_tol,
+                              rtol=fwd_tol):
+            fail(f"flash forward {what} differs from the plain version by "
+                 f"{o_err}")
+        del o_want
+    lse_want = ref.flash_attention_lse_ref(q, k, causal=causal,
+                                           window=window)
+    seen = torch.isfinite(lse_want)
+    if not (torch.equal(seen, torch.isfinite(lse))
+            and torch.allclose(lse[seen], lse_want[seen], atol=1e-4,
+                               rtol=1e-5)):
+        fail(f"flash lse {what} differs from the plain version by "
+             f"{float((lse[seen] - lse_want[seen]).abs().max())}")
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g, causal=causal,
+                                      window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, g, causal=causal,
+                                       window=window)
+    torch.cuda.synchronize()
+    if fa.LAUNCHES["flash_attention_bwd"] - before != 1:
+        fail(f"flash backward {what}: not counted once")
+    atol, rtol = tol
+    err, worst, sizes = 0.0, 0.0, []
+    for name, gr, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        if gr.dtype != t.dtype or gr.stride() != t.stride():
+            fail(f"flash backward {what}: {name} {gr.dtype} {gr.stride()}, "
+                 f"want {t.dtype} {t.stride()}")
+        a, b = gr.float(), w.float()
+        e = float((a - b).abs().max())
+        err = max(err, e)
+        # each entry's error over its limit: allclose passes up to 1
+        worst = max(worst, float(((a - b).abs() / (atol + rtol * b.abs()))
+                                 .max()))
+        sizes.append(f"{name} max {float(b.abs().max()):.3g} median "
+                     f"{float(b.abs().median()):.3g}")
+        if not torch.allclose(a, b, atol=atol, rtol=rtol):
+            fail(f"flash backward {what}: {name} differs from the plain "
+                 f"version by {e} (worst err / (atol + rtol |x|) {worst:.3g})")
+    print(f"[kernels] flash backward {what}: forward max|err| {o_err:.3g} "
+          f"(tol {fwd_tol}); gradients max|err| {err:.3g} (atol {atol:.3g}, "
+          f"rtol {rtol:.3g}; worst err / (atol + rtol |x|) {worst:.3g}); "
+          f"|x|: " + ", ".join(sizes))
+    return err
+
+
+def _model_views(gen, dt, b, s, h, kvh, hd, extra=()):
+    """q, k, v (and ``extra`` more q-shaped tensors) as the model hands
+    them over: (B, heads, S, hd) views of (B, S, heads, hd) tensors."""
+    import torch
+    view = lambda n: torch.randn(b, s, n, hd, generator=gen, device="cuda"
+                                 ).to(dt).transpose(1, 2)
+    return [view(h), view(kvh), view(kvh)] + [view(h) for _ in extra]
+
+
+def phase_flash_bwd(card: str) -> dict:
+    """Flash attention's backward on the card: every ``FLASH_BWD_CASES``
+    entry in fp32 and bf16, every head dim in bf16, rows that see no key
+    (zero gradients, no NaN), then H2O-Danube-1.8B's training shape (model
+    views) at windows 0 and 1024 in both types, and at head dims 64 and 128,
+    where two launches must agree bit for bit; then timed at that shape in
+    bf16, causal: kernel, plain version, the library's backward
+    (``scaled_dot_product_attention``'s forward and backward less its
+    forward) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    err = 0.0
+    for dname, tol in FLASH_BWD_TOLS.items():
+        dt = getattr(torch, dname)
+        for b, h, kvh, sq, skv, hd, causal, window in FLASH_BWD_CASES:
+            q, g = randn(b, h, sq, hd).to(dt), randn(b, h, sq, hd).to(dt)
+            k, v = randn(b, kvh, skv, hd).to(dt), randn(b, kvh, skv, hd).to(dt)
+            err = max(err, _check_bwd(
+                q, k, v, g, f"{dname} q ({b}, {h}, {sq}, {hd}) kv ({kvh}, "
+                f"{skv}) causal={causal} window={window}", tol, causal,
+                window))
+        # causal over 16 keys with a window of 8: rows 23 on see no key
+        q, g = randn(1, 2, 64, 32).to(dt), randn(1, 2, 64, 32).to(dt)
+        k = randn(1, 1, 16, 32).to(dt)
+        o, lse = fa.flash_attention_cuda(q, k, k, window=8, with_lse=True)
+        dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, k, o, lse, g,
+                                                 window=8)
+        torch.cuda.synchronize()
+        if not (bool(torch.isneginf(lse[:, :, 23:]).all())
+                and all(bool(torch.isfinite(t.float()).all())
+                        for t in (dq, dk, dv))
+                and float(dq[:, :, 23:].float().abs().max()) == 0.0):
+            fail(f"flash backward ({dname}): a row that sees no key has a "
+                 "finite lse or a nonzero or NaN gradient")
+    tol = FLASH_BWD_TOLS["bfloat16"]
+    for hd in fa.HEAD_DIMS:
+        q, k, v, g = _model_views(gen, torch.bfloat16, 2, 300, 4, 2, hd,
+                                  extra=(1,))
+        err = max(err, _check_bwd(q, k, v, g, f"bf16 hd {hd} (model "
+                                  "views)", tol))
+
+    # the training path's shape, as views of the model's projections
+    b, s, h, kvh = LM_CLIENTS, LM_SEQ, LM_HEADS, LM_KV_HEADS
+    for hd in (LM_HD, 64, 128):
+        for dname, tol in FLASH_BWD_TOLS.items():
+            dt = getattr(torch, dname)
+            q, k, v, g = _model_views(gen, dt, b, s, h, kvh, hd, extra=(1,))
+            for window in LM_WINDOWS:
+                what = (f"{dname} at {LM_ARCH}'s shape q {tuple(q.shape)} kv "
+                        f"{tuple(k.shape)} window={window}")
+                err = max(err, _check_bwd(q, k, v, g, what, tol,
+                                          window=window))
+            if hd == LM_HD and dname == "bfloat16":
+                o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+                first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g)
+                again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g)
+                if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                    fail("flash backward: two launches differ")
+                timed = (q, k, v, o, lse, g)
+            del q, k, v, g
+            torch.cuda.empty_cache()
+
+    q, k, v, o, lse, g = timed
+    pairs = _attn_pairs(s, s, True, 0)
+    n_flops = 5 * 2 * b * h * LM_HD * pairs
+    n_bytes = (sum(t.numel() * t.element_size() for t in (q, k, v, o, g))
+               + lse.numel() * 4 + sum(t.numel() * t.element_size()
+                                       for t in (q, k, v)))
+    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                                  enable_gqa=True)
+    sdpa_fwd_bwd = lambda: torch.autograd.grad(sdpa(), (lq, lk, lv), g)
+    t = dict(
+        ms=time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, g),
+                   iters=5, warmup=1),
+        plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, g), iters=3, warmup=1),
+        fwd_bwd_ms=time_ms(sdpa_fwd_bwd, iters=10, warmup=2),
+        fwd_ms=time_ms(lambda: sdpa().detach(), iters=10, warmup=2),
+        bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
+    library = (t["fwd_bwd_ms"][0] - t["fwd_ms"][0],
+               t["fwd_bwd_ms"][1] - t["fwd_ms"][1])
+    print(f"[timing] flash_attention_bwd at {LM_ARCH}'s training shape, q "
+          f"{tuple(q.shape)} kv {tuple(k.shape)} bf16 causal "
+          f"({n_flops:.4g} operations in 5 products, {n_bytes / 1e6:.1f} "
+          f"MB): kernel {t['ms'][0]:.4f} ms (events {t['ms'][1]:.4f}), "
+          f"plain {t['plain_ms'][0]:.4f} ms (events {t['plain_ms'][1]:.4f}),"
+          f" library (scaled_dot_product_attention forward + backward "
+          f"{t['fwd_bwd_ms'][0]:.4f} less forward {t['fwd_ms'][0]:.4f}) "
+          f"{library[0]:.4f} ms (events {library[1]:.4f}), bound "
+          f"{t['bound'][0]:.4f} ms ({t['bound'][1]}; "
+          f"{n_flops / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 CUDA-core "
+          f"peak); kernel at {n_flops / t['ms'][0] / 1e9:.1f} TFLOP/s, "
+          f"{t['bound'][0] / t['ms'][0]:.4f} of the bound, "
+          f"{t['ms'][0] / library[0]:.2f}x the library's time; on {card}")
+    return {"err": err, "timing": {"ms": t["ms"][0],
+                                   "plain_ms": t["plain_ms"][0],
+                                   "library_ms": library[0],
+                                   "bound": t["bound"]}}
+
+
+def _lm_plan(cfg, n: int, seq: int):
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch.steps import make_plan
+    return make_plan(cfg, replace(INPUT_SHAPES["train_4k"], seq_len=seq,
+                                  global_batch=n), n_clients=n)
+
+
+def _lm_tokens(cfg, k: int, n: int, seq: int, seed: int) -> dict:
+    """K steps of token batches (K, N, 1, S) drawn on the card from
+    ``seed``: fresh strong views every step, and the same N weak-view
+    sequences in each (each client revisits its unlabeled data), so that
+    from the second step on the teacher's sequence pseudo-labels find
+    their own earlier entries in the queue and Eq. (5) has positives."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draw = lambda k_: torch.randint(0, cfg.vocab_size, (k_, n, 1, seq),
+                                    generator=gen, device="cuda")
+    return {"tokens_weak": draw(1).expand(k, n, 1, seq),
+            "tokens_strong": draw(k)}
+
+
+def _lm_launches(cfg, n: int, wire) -> dict:
+    """Each kernel's launches in one LM train step: flash attention once per
+    layer per forward pass (each client's bottom layers on its own batch,
+    the top's on the flat one) in the teacher pass, the student pass and
+    the student's recompute in the backward pass, all the wgmma kernel's in
+    bf16; its backward once per layer; the clustering pair once; the int8
+    wire's two-pass quantizer (a client slice of S x d_model floats is
+    past what a cluster holds) three times: teacher and student features,
+    and the cut's gradient, where the wire is ``int8``."""
+    from repro_torch.models.transformer import build_model
+    split = build_model(cfg).split
+    layers = n * split + cfg.num_layers - split
+    quant = 3 if wire == "int8" else 0
+    return {"flash_attention": 3 * layers,
+            "flash_attention_wgmma": 3 * layers if cfg.dtype == "bfloat16"
+            else 0,
+            "flash_attention_bwd": layers, "clustering_fwd": 1,
+            "clustering_bwd": 1, "quantize_amax": quant,
+            "quantize_qdq": quant, "quantize_fused": 0}
+
+
+def phase_lm_train(card: str) -> dict:
+    """The LM training path: ``h2o-danube-1.8b`` at full width and depth
+    (24 layers, split 6 + 18), bf16, through
+    ``repro_torch.launch.steps.make_train_phase`` with the ``int8`` wire and
+    tau 0: 4 clients x 1 sequence x 4096 tokens (train_4k's sequence; the
+    global batch cut from 256 to 4 for one card's memory), weights and
+    tokens from seed 0 (the weak views the same sequences each step, see
+    :func:`_lm_tokens`).  One warm-up step, then 3 timed steps (host clock
+    ending in a synchronize), every kernel's count set to 0 just before the
+    4 steps and read after; peak device memory; then one step under
+    ``torch.profiler``.  Fails unless every metric is finite, Eq. (5) is
+    live after the first step, the top, the bottoms and the teacher bottoms
+    moved, the queue's pointer advanced, and each kernel ran as often as
+    :func:`_lm_launches` says."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import init_train_state, make_train_phase
+    from repro_torch.tree import tree_leaves
+    base = get_config(LM_ARCH)
+    cfg = replace(base, semisfl=replace(base.semisfl,
+                                        confidence_threshold=0.0))
+    plan = _lm_plan(cfg, LM_CLIENTS, LM_SEQ)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(plan, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tensors = lambda tree: [t for t in tree_leaves(tree)
+                            if isinstance(t, torch.Tensor)]
+    n_params = sum(t.numel() for t in tensors(
+        [state["client_bottoms"][0], state["top"]]))
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors(state))
+    print(f"[lm-train] {LM_ARCH} as built: {n_params / 1e9:.4f} B "
+          f"parameters (one bottom + the top); the state "
+          f"{n_bytes / 2**30:.3f} GiB ({LM_CLIENTS} client and teacher "
+          f"bottoms, top, teacher top, heads, queue); drawn in "
+          f"{init_s:.2f} s")
+    snap = lambda st: [st["top"]["lm_head"][:4].clone(),
+                       st["client_bottoms"][0]["stack"][0]["attn"]["wq"][:4]
+                       .clone(),
+                       st["teacher_bottoms"][0]["stack"][0]["attn"]["wq"][:4]
+                       .clone(), st["queue"].ptr]
+    before = snap(state)
+    tokens = _lm_tokens(cfg, 5, LM_CLIENTS, LM_SEQ, seed=0)
+    phase = make_train_phase(plan, lr=0.02, wire="int8")
+    part = lambda a, b: {k: v[a:b] for k, v in tokens.items()}
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m_warm = phase(state, part(0, 1))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, m = phase(state, part(1, 4))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: torch.cat([m_warm[k], m[k]]).tolist() for k in m}
+    tokens_step = LM_CLIENTS * LM_SEQ
+    print(f"[lm-train] {LM_ARCH} full width and depth, bf16, int8 wire, tau "
+          f"0, {LM_CLIENTS} clients x 1 x {LM_SEQ} tokens: warm-up step "
+          f"{warm_s:.4f} s; 3 timed steps {wall:.6f} s a step, "
+          f"{tokens_step / wall:.1f} tokens/s; peak device memory "
+          f"{peak / 2**30:.3f} GiB; on {card}")
+    print(f"[lm-train] metrics of the 4 steps: " + "; ".join(
+        f"{k} {', '.join(f'{x:.6g}' for x in v)}" for k, v in
+        metrics.items()))
+    want = _lm_launches(cfg, LM_CLIENTS, "int8")
+    print(f"[lm-train] launches in the 4 steps: {launches}; want a step: "
+          f"{want}")
+    for kernel, n in want.items():
+        if launches[kernel] != 4 * n:
+            fail(f"LM training launched {kernel} {launches[kernel]} times "
+                 f"in 4 steps, want {4 * n}")
+    if not np.isfinite([x for v in metrics.values() for x in v]).all():
+        fail(f"LM training gave non-finite metrics {metrics}")
+    if max(metrics["clustering"][1:]) <= 0.0:
+        fail("LM training: Eq. (5) found no positive after the first step")
+    after = snap(state)
+    moved = [float((a.float() - b.float()).abs().max())
+             for a, b in zip(before[:3], after[:3])]
+    print(f"[lm-train] max|change| over 4 steps: top lm_head {moved[0]:.4g}, "
+          f"client 0 bottom layer 0 wq {moved[1]:.4g}, its teacher "
+          f"{moved[2]:.4g}; queue ptr {before[3]} -> {after[3]}")
+    if min(moved) <= 0.0 or after[3] == before[3]:
+        fail("LM training: a parameter group or the queue did not move")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = phase(state, part(4, 5))
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and _dev_us(e) > 0),
+                     key=_dev_us, reverse=True)
+    busy = sum(_dev_us(e) for e in kernels) / 1e6
+    ours = {name: (sum(_dev_us(e) for e in kernels if name in e.key) / 1e6,
+                   sum(e.count for e in kernels if name in e.key))
+            for name in ("flash_kernel_wgmma", "flash_bwd_delta",
+                         "flash_bwd_dkdv", "flash_bwd_dq", "clustering_",
+                         "amax_kernel", "qdq_kernel")}
+    print(f"[lm-train-profile] one step under the profiler: wall "
+          f"{wall_prof:.6f} s, device busy {busy:.6f} s (idle share "
+          f"{1 - busy / wall_prof:.4f}), {sum(e.count for e in kernels)} "
+          f"device ops; " + ", ".join(
+              f"{k} {t:.6f} s x{n} ({t / max(busy, 1e-12):.4f} of the device "
+              "time)"
+              for k, (t, n) in ours.items()) + f"; on {card}")
+    for e in kernels[:12]:
+        print(f"[lm-train-profile] device {_dev_us(e) / 1e3:10.3f} ms "
+              f"x{e.count:<5d} {e.key[:100]}")
+    if any(n == 0 for _, n in ours.values()):
+        fail(f"the profiled LM step shows no launch of some kernel: {ours}")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_cross_check() -> None:
+    """One LM train step on the card against the same step on the CPU:
+    ``h2o-danube-1.8b`` at full width cut to 2 layers (split 1 + 1), fp32
+    with TF32 off, 2 clients x 1 sequence x 512 tokens, tau 0, no wire,
+    from one state (drawn on the card from seed 1, then one step on the
+    same batch to fill the queue) copied to the CPU.  Every
+    metric and every leaf of the new state within 1e-3 (cuBLAS and the CPU
+    sum in other orders, the kernels against their plain versions too: the
+    tolerance of phase 5), and the sequence pseudo-labels written to the
+    queue equal; the card's step must launch each kernel as
+    :func:`_lm_launches` says."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_train_state_to_numpy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    base = get_config(LM_ARCH)
+    cfg = replace(base, num_layers=2, dtype="float32", semisfl=replace(
+        base.semisfl, split_layer=1, confidence_threshold=0.0))
+    n, seq = 2, 512
+    plan = _lm_plan(cfg, n, seq)
+    batch = {k: v[0] for k, v in _lm_tokens(cfg, 1, n, seq, seed=2).items()}
+    step = make_train_step(plan, lr=0.02)
+    # one step on the card first, so that the queue holds these sequences'
+    # pseudo-labels and Eq. (5) has positives in the step compared
+    state, _ = step(init_train_state(plan, seed=1, device="cuda"), batch)
+    state_cpu, batch_cpu = _to_cpu(state), _to_cpu(batch)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    new_gpu, m_gpu = step(state, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    del state
+    new_cpu, m_cpu = step(state_cpu, batch_cpu)
+    got, want = (lm_train_state_to_numpy(x) for x in (new_gpu, new_cpu))
+    q_gpu, q_cpu = got.pop("queue"), want.pop("queue")
+    leaves = list(zip(_paths(got), _paths(want)))
+    errs = {k: abs(float(m_gpu[k]) - float(m_cpu[k])) for k in m_gpu}
+    errs["queue.z"] = float(np.abs(q_gpu["z"] - q_cpu["z"]).max())
+    worst, worst_at = 0.0, ""
+    for (path, a), (path_w, b) in leaves:
+        if path != path_w or a.shape != b.shape:
+            fail(f"LM cross-check: state leaves {path} {a.shape} and "
+                 f"{path_w} {b.shape} do not pair up")
+        e = float(np.abs(a.astype(np.float32) - b.astype(np.float32)).max())
+        if e > worst:
+            worst, worst_at = e, path
+        if not np.allclose(a, b, atol=1e-3, rtol=1e-3):
+            fail(f"LM cross-check: {path} differs card vs CPU by {e}")
+    print(f"[cross-lm-train] {LM_ARCH} width {cfg.d_model}, 2 layers (split "
+          f"1 + 1), fp32, {n} clients x 1 x {seq} tokens, one step: card vs "
+          f"CPU metrics {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
+          f" (loss {float(m_cpu['loss']):.6g}, clustering "
+          f"{float(m_cpu['clustering']):.6g}); {len(leaves)} state leaves, "
+          f"max|err| {worst:.3g} at {worst_at}; sequence pseudo-labels card "
+          f"{q_gpu['label'][:n].tolist()} CPU {q_cpu['label'][:n].tolist()};"
+          f" launches on the card {counts}; {time.perf_counter() - t0:.1f} s")
+    if float(m_cpu["clustering"]) <= 0.0:
+        fail("LM cross-check: Eq. (5) had no positive in the step compared")
+    if any(v > 1e-3 * max(1.0, abs(float(m_cpu.get(k, 0.0))))
+           for k, v in errs.items()):
+        fail(f"LM cross-check: metrics or queue features differ: {errs}")
+    for f in ("label", "conf", "valid"):
+        if not np.array_equal(q_gpu[f], q_cpu[f]):
+            fail(f"LM cross-check: the queue's {f} differs card vs CPU")
+    if q_gpu["ptr"] != q_cpu["ptr"]:
+        fail("LM cross-check: the queue pointers differ")
+    for kernel, k_n in _lm_launches(cfg, n, None).items():
+        if counts[kernel] != k_n:
+            fail(f"LM cross-check: the card launched {kernel} "
+                 f"{counts[kernel]} times, want {k_n}")
+
+
+def _paths(tree, prefix: str = "") -> list:
+    """(path, leaf) of a tree of dicts and lists of numpy arrays, in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _paths(tree[k], f"{prefix}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in _paths(t, f"{prefix}[{i}]")]
+    return [(prefix.lstrip("."), np.asarray(tree))]
+
+
 KERNEL_META = {
     "clustering_fwd": ("src/repro_torch/csrc/clustering_loss.cu",
                        "src/repro/kernels/clustering_loss.py:140"),
@@ -2106,6 +2616,10 @@ KERNEL_META = {
                      "src/repro/kernels/quantize.py:88"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:105"),
+    # no Pallas kernel has a backward: the JAX model trains through the VJP
+    # of its jnp stand-in for the flash kernel
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:74"),
     "slstm_scan": ("src/repro_torch/csrc/slstm_scan.cu",
                    "src/repro/kernels/slstm_scan.py:77"),
     "mamba2_scan": ("src/repro_torch/csrc/mamba2_scan.cu",
@@ -2134,6 +2648,9 @@ def main() -> int:
     flash = phase_flash(card)
     checked["errs"]["flash_attention"] = flash["err"]
     checked["timings"]["flash_attention"] = flash["timing"]
+    flash_bwd = phase_flash_bwd(card)
+    checked["errs"]["flash_attention_bwd"] = flash_bwd["err"]
+    checked["timings"]["flash_attention_bwd"] = flash_bwd["timing"]
     slstm = phase_slstm(card, ptxas.get("slstm_scan", ""))
     checked["errs"]["slstm_scan"] = slstm["err"]
     checked["timings"]["slstm_scan"] = slstm["timing"]
@@ -2182,6 +2699,13 @@ def main() -> int:
         phase_serve_profile(card, arch)
         phase_serve_cross_check(arch)
         lap(f"{arch} serving path")
+
+    # the LM training path reads its own counts (set to 0 inside, just
+    # before its steps); flash attention keeps its serving count
+    lm = phase_lm_train(card)
+    launches["flash_attention_bwd"] = lm["flash_attention_bwd"]
+    phase_lm_cross_check()
+    lap("LM training path")
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -6,8 +6,10 @@ from the JAX package's ``configs/base.py`` (``SemiSFLConfig``,
 ``XLSTMConfig``, ``SSMConfig``, the CNN, dense-LM, xLSTM and hybrid fields
 of ``ArchConfig``, ``get_config`` and the CNN, dense-LM, xLSTM and SSM
 branches of ``smoke_config``), of ``configs/paper_models.py``,
-``configs/qwen3_14b.py``, ``configs/xlstm_1_3b.py`` and
-``configs/zamba2_7b.py``.  The port keeps its own copy so that it
+``configs/qwen3_14b.py``, ``configs/h2o_danube_1_8b.py``,
+``configs/stablelm_1_6b.py``, ``configs/qwen2_5_14b.py``,
+``configs/xlstm_1_3b.py`` and ``configs/zamba2_7b.py``, and of the
+``train_4k`` input shape.  The port keeps its own copy so that it
 imports nothing of the JAX package."""
 from __future__ import annotations
 
@@ -201,6 +203,24 @@ _REGISTRY = {c.name: c for c in (
                d_model=5120, num_heads=40, num_kv_heads=8, head_dim=128,
                d_ff=17408, vocab_size=151936, qk_norm=True, attn_bias=False,
                rope_theta=1_000_000.0),
+    # H2O-Danube-1.8B (arXiv:2401.16818): llama + mistral mix with a 4096
+    # sliding window, 32 query heads over 8 KV heads of 80
+    ArchConfig(name="h2o-danube-1.8b", arch_type="dense", num_layers=24,
+               d_model=2560, num_heads=32, num_kv_heads=8, head_dim=80,
+               d_ff=6912, vocab_size=32000, sliding_window=4096,
+               rope_theta=10_000.0),
+    # StableLM-2-1.6B (hf:stabilityai/stablelm-2-1_6b): MHA, partial rotary,
+    # LayerNorm
+    ArchConfig(name="stablelm-1.6b", arch_type="dense", num_layers=24,
+               d_model=2048, num_heads=32, num_kv_heads=32, head_dim=64,
+               d_ff=5632, vocab_size=100352, rope_theta=10_000.0,
+               rope_pct=0.25, norm="layernorm", act="silu", mlp_gated=True),
+    # Qwen2.5-14B (hf:Qwen/Qwen2.5-0.5B family card): GQA with QKV bias
+    ArchConfig(name="qwen2.5-14b", arch_type="dense", num_layers=48,
+               d_model=5120, num_heads=40, num_kv_heads=8, head_dim=128,
+               d_ff=13824, vocab_size=152064, attn_bias=True,
+               rope_theta=1_000_000.0, norm="rmsnorm", act="silu",
+               mlp_gated=True),
     # xLSTM-1.3B (arXiv:2405.04517): 48 blocks, one sLSTM every 8, the rest
     # mLSTM; d_ff 0, the blocks carry their own up-projections
     ArchConfig(name="xlstm-1.3b", arch_type="ssm", num_layers=48,
@@ -220,6 +240,20 @@ _REGISTRY = {c.name: c for c in (
                              conv_width=4),
                rope_theta=10_000.0),
 )}
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """A step's input shape (the JAX package's ``configs/base.py``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256),
+}
 
 
 def get_config(name: str) -> ArchConfig:

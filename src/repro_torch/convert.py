@@ -12,8 +12,10 @@ keeps a list of groups, each with a list of mLSTM blocks, and so does its
 recurrent cache.  The Zamba2 hybrid's ``stack`` is unstacked likewise and
 its ``shared_attn`` block is one tree on each side; its cache holds a
 segment's SSM caches on a leading layer axis and its shared-block KV caches
-on a leading application axis in JAX, lists in the port.  bf16 arrays
-(``ml_dtypes.bfloat16`` in numpy) come across bit for bit.
+on a leading application axis in JAX, lists in the port.  The LM train
+state stacks the clients' bottoms on a leading client axis in JAX; the
+port keeps a list of client trees.  bf16 arrays (``ml_dtypes.bfloat16`` in
+numpy) come across bit for bit.
 
 The functions take and give numpy arrays, not JAX arrays, so the port
 stays free of JAX: a caller holding JAX arrays passes
@@ -122,23 +124,94 @@ def lm_params_from_numpy(tree, device: str | torch.device = "cpu") -> dict:
     group's ``mlstm``) a list of per-group ``{"mlstm": [per-block trees],
     "slstm": tree}``; any other subtree (``embed``, ``shared_attn``, ...)
     comes across as it is."""
-    to_t = lambda sub: tree_map(lambda a: _tensor(a, device), sub)
+    return {"bottom": _lm_half_from_numpy(tree["bottom"], device),
+            "top": _lm_half_from_numpy(tree["top"], device)}
 
-    def half(part: dict) -> dict:
-        out = {}
-        for key, sub in part.items():
-            if key == "stack":
-                out[key] = ([] if sub is None else
-                            [to_t(layer) for layer in _unstack(sub)])
-            elif key == "groups":
-                out[key] = ([] if sub is None else
-                            [{"mlstm": [to_t(b) for b in _unstack(g["mlstm"])],
-                              "slstm": to_t(g["slstm"])}
-                             for g in _unstack(sub)])
-            else:
-                out[key] = to_t(sub)
-        return out
-    return {"bottom": half(tree["bottom"]), "top": half(tree["top"])}
+
+def _lm_half_from_numpy(part: dict, device) -> dict:
+    """One side of the split (a JAX ``bottom`` or ``top`` tree) -> the
+    port's."""
+    to_t = lambda sub: tree_map(lambda a: _tensor(a, device), sub)
+    out = {}
+    for key, sub in part.items():
+        if key == "stack":
+            out[key] = ([] if sub is None else
+                        [to_t(layer) for layer in _unstack(sub)])
+        elif key == "groups":
+            out[key] = ([] if sub is None else
+                        [{"mlstm": [to_t(b) for b in _unstack(g["mlstm"])],
+                          "slstm": to_t(g["slstm"])}
+                         for g in _unstack(sub)])
+        else:
+            out[key] = to_t(sub)
+    return out
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy, bit for bit; bf16 as ``ml_dtypes.bfloat16`` (the
+    type JAX's arrays come back in), imported only when one is met."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _stack_trees(trees: list):
+    """Trees of numpy arrays with one structure -> one tree of arrays with
+    a leading axis (JAX's stacked layout)."""
+    return tree_map(lambda *xs: np.stack(xs), *trees)
+
+
+def _lm_half_to_numpy(part: dict) -> dict:
+    """The port's dense ``bottom`` or ``top`` tree -> numpy in the JAX
+    layout, ``stack`` on a leading layer axis."""
+    out = {}
+    for key, sub in part.items():
+        leaves = tree_map(_array, sub)
+        out[key] = (_stack_trees(leaves) if key == "stack" and leaves
+                    else leaves)
+    return out
+
+
+def lm_train_state_from_numpy(state: dict,
+                              device: str | torch.device = "cpu") -> dict:
+    """The JAX LM train state (``launch/steps.py``'s ``input_specs``
+    structure) as numpy -> the port's (``repro_torch.launch.steps``).
+    JAX stacks the N clients' bottoms and teacher bottoms on a leading
+    client axis, and each bottom's layers on a second one inside
+    ``stack``; the port keeps a list of N client trees, each with a list of
+    per-layer trees.  The top, teacher top and projection heads unstack
+    as ``lm_params_from_numpy`` does; the queue goes through
+    :func:`queue_from_numpy`."""
+    def clients(stacked):
+        n = len(tree_leaves(stacked)[0])
+        return [_lm_half_from_numpy(tree_map(lambda a, i=i: a[i], stacked),
+                                    device) for i in range(n)]
+    to_t = lambda sub: tree_map(lambda a: _tensor(a, device), sub)
+    q = state["queue"]
+    return {"client_bottoms": clients(state["client_bottoms"]),
+            "teacher_bottoms": clients(state["teacher_bottoms"]),
+            "top": _lm_half_from_numpy(state["top"], device),
+            "t_top": _lm_half_from_numpy(state["t_top"], device),
+            "proj": to_t(state["proj"]), "t_proj": to_t(state["t_proj"]),
+            "queue": queue_from_numpy(q[0], q[1], q[2], q[3], q[4],
+                                      device=device)}
+
+
+def lm_train_state_to_numpy(state: dict) -> dict:
+    """The port's LM train state -> numpy in the JAX layout (the inverse of
+    :func:`lm_train_state_from_numpy`, bit for bit): client and layer
+    axes stacked, the queue as ``queue_to_numpy``'s dict."""
+    clients = lambda trees: _stack_trees([_lm_half_to_numpy(t)
+                                          for t in trees])
+    return {"client_bottoms": clients(state["client_bottoms"]),
+            "teacher_bottoms": clients(state["teacher_bottoms"]),
+            "top": _lm_half_to_numpy(state["top"]),
+            "t_top": _lm_half_to_numpy(state["t_top"]),
+            "proj": tree_map(_array, state["proj"]),
+            "t_proj": tree_map(_array, state["t_proj"]),
+            "queue": queue_to_numpy(state["queue"])}
 
 
 def lm_cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:

@@ -42,8 +42,9 @@ from repro_torch.core import losses
 from repro_torch.core.adaptation import FreqController
 from repro_torch.core.ema import ema_update
 from repro_torch.core.queue import FeatureQueue, enqueue, init_queue
-from repro_torch.core.split import (apply_projection_head, feature_dim,
-                                    init_projection_head, pool_features)
+from repro_torch.core.split import (apply_projection_head,
+                                    init_projection_head, pool_features,
+                                    proj_dim)
 from repro_torch.core.wire import (WireFormatLike, fake_quantize,
                                    parse_wire_format, quantize_grad,
                                    resolve_fmt, sparse_delta_mean)
@@ -186,14 +187,9 @@ class SemiSFLSystem:
         return SemiSFLState(
             params=params, teacher=tree_map(torch.clone, params),
             opt=self.opt.init(params),
-            queue=init_queue(self.s.queue_len, self._proj_dim(),
+            queue=init_queue(self.s.queue_len, proj_dim(self.cfg),
                              self.device),
             round=0, step=0)
-
-    def _proj_dim(self) -> int:
-        if self.s.proj_head == "none":
-            return feature_dim(self.cfg)
-        return self.s.proj_dim
 
     def _forward(self, params, x, dropout_masks=None):
         """Full forward: (logits, projected z, cut features)."""

@@ -12,7 +12,11 @@
 // positions counted from 0 on both sides) and j > i - window (window > 0).
 // Scores, the online softmax (running max from -1e30, masked keys weigh 0)
 // and the accumulators are fp32; a row that sees no key outputs 0
-// (l == 0 -> 1); the output is in the input's type.  Every tensor is
+// (l == 0 -> 1); the output is in the input's type.  Given a pointer,
+// either kernel also writes each row's log-sum-exp of its scaled scores,
+// lse = m scale + log l (fp32, (B, H, Sq) contiguous; -inf for a row that
+// sees no key), which the backward pass (flash_attention_bwd.cu) reads to
+// recompute P without a second softmax.  Every tensor is
 // addressed as (B, H, S, hd) through its batch, head and sequence strides
 // (the head dim contiguous), so the model hands in views of its (B, S, H,
 // hd) projections and gets the output in that layout, with no transposed
@@ -323,9 +327,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   __nv_bfloat16* __restrict__ o, int H, int B, int group,
-                   int Sq, int Skv, Strides os, int causal, int window,
-                   float scale_log2) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int H, int B, int group, int Sq, int Skv, Strides os,
+                   int causal, int window, float scale, float scale_log2) {
   static_assert(HD % 16 == 0 && HD <= 2 * kChunk, "head dim");
   constexpr int kChunks = (HD + kChunk - 1) / kChunk;  // boxes per row tile
   constexpr int kTileBytes = kChunks * kBoxBytes;      // Q, K or V tile
@@ -521,11 +525,16 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) mbar_arrive(&bar_empty[s]);
     }
 
-    // O / l in bf16, rows < Sq only, through the output's strides
+    // O / l in bf16, rows < Sq only, through the output's strides; the
+    // row's lse (the raw max m is unscaled here) from the quad's first lane
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int r = row + 8 * h;
+      if (lse != nullptr && lane % 4 == 0 && r < Sq)
+        lse[((long long)batch * H + head) * Sq + r] =
+            l[h] > 0.f ? fmaf(m[h], scale, logf(l[h])) : -INFINITY;
       l[h] = 1.f / (l[h] == 0.f ? 1.f : l[h]);
     }
     __nv_bfloat16* ob = o + batch * os.b + head * os.h;
@@ -584,8 +593,9 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* base,
 
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 int B, int H, int KVH, int Sq, int Skv, const long long* st,
-                 int causal, int window, cudaStream_t stream) {
+                 float* lse, int B, int H, int KVH, int Sq, int Skv,
+                 const long long* st, int causal, int window,
+                 cudaStream_t stream) {
   static_assert(kWgRows == kWgKeys, "Q and K/V share their box");
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -606,8 +616,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
       (long long)((Sq + kWgRows - 1) / kWgRows) * H * B;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_kernel_wgmma<HD><<<(unsigned)blocks, kWgThreads, bytes, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), H, B, H / KVH, Sq,
-      Skv, Strides{st[9], st[10], st[11]}, causal, window,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, H, B, H / KVH,
+      Sq, Skv, Strides{st[9], st[10], st[11]}, causal, window,
+      (float)(1.0 / sqrt((double)HD)),
       (float)(1.4426950408889634 / sqrt((double)HD)));
   return (int)cudaGetLastError();
 }
@@ -650,9 +661,10 @@ constexpr int smem_floats() {
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int group,
-             int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os,
-             int causal, int window, float sm_scale) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int group, int Sq, int Skv, Strides qs,
+             Strides ks, Strides vs, Strides os, int causal, int window,
+             float sm_scale) {
   static_assert(HD % kLanesPerRow == 0, "head dim must be a multiple of 8");
   constexpr int kOut = HD / kLanesPerRow;  // output columns per thread
   extern __shared__ float smem[];
@@ -780,6 +792,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + row0 + i;
     if (qi >= Sq) continue;
+    if (lse != nullptr && col == 0)  // m is in scaled units here
+      lse[((long long)batch * gridDim.y + head) * Sq + qi] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     const float denom = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
@@ -789,9 +804,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 
 template <int HD>
-int launch_fp32(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KVH, int Sq, int Skv, const long long* st,
-                int causal, int window, cudaStream_t stream) {
+int launch_fp32(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int KVH, int Sq, int Skv,
+                const long long* st, int causal, int window,
+                cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -799,15 +815,16 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   flash_kernel<HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H / KVH, Sq, Skv,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H / KVH, Sq,
+      Skv,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
       window, (float)(1.0 / sqrt((double)HD)));
   return (int)cudaGetLastError();
 }
 
-using Launch = int (*)(const void*, const void*, const void*, void*, int,
-                       int, int, int, int, const long long*, int, int,
+using Launch = int (*)(const void*, const void*, const void*, void*, float*,
+                       int, int, int, int, int, const long long*, int, int,
                        cudaStream_t);
 
 template <int HD>
@@ -823,12 +840,12 @@ Launch pick(bool bf16) {
 // elements, t = q, k, v, o.  dtype: 0 = float32 (flash_kernel), 1 =
 // bfloat16 (flash_kernel_wgmma, which also needs q, k and v 16-byte aligned
 // with strides that are multiples of 8 elements: the tensor maps' rule,
-// checked by the wrapper).
+// checked by the wrapper).  lse: (B, H, Sq) fp32, or null for none.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype, int B,
-                                   int H, int KVH, int Sq, int Skv, int hd,
-                                   const long long* strides, int causal,
-                                   int window, void* stream) {
+                                   const void* v, void* o, float* lse,
+                                   int dtype, int B, int H, int KVH, int Sq,
+                                   int Skv, int hd, const long long* strides,
+                                   int causal, int window, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || KVH < 1 || H % KVH ||
       Sq < 1 || Skv < 1 || window < 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
@@ -843,6 +860,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     case 128: fn = pick<128>(bf16); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return fn(q, k, v, o, B, H, KVH, Sq, Skv, strides, causal, window,
+  return fn(q, k, v, o, lse, B, H, KVH, Sq, Skv, strides, causal, window,
             static_cast<cudaStream_t>(stream));
 }

@@ -30,11 +30,17 @@ def _route(x: torch.Tensor, name: str) -> str:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """(B, H, Sq, hd) x (B, KVH, Skv, hd) -> (B, H, Sq, hd): forward GQA
-    attention, causal or not, with an optional sliding window.  On the card
-    any strides with a contiguous head dim go in, and the output has q's
-    layout."""
+    """(B, H, Sq, hd) x (B, KVH, Skv, hd) -> (B, H, Sq, hd): GQA attention,
+    causal or not, with an optional sliding window; differentiable.  On the
+    card any strides with a contiguous head dim go in, and the output has
+    q's layout; where a gradient is recorded the call goes through
+    :class:`FlashAttention` (forward kernel with its lse, backward
+    kernels), else through the forward kernel alone.  On the CPU autograd
+    differentiates the plain version."""
     if _route(q, "flash_attention") == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return _fa.FlashAttention.apply(q, k, v, causal, window)
         return _fa.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -22,8 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("clustering_loss", "flash_attention", "mamba2_scan", "quantize",
-           "slstm_scan")
+SOURCES = ("clustering_loss", "flash_attention", "flash_attention_bwd",
+           "mamba2_scan", "quantize", "slstm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,5 @@
-"""Forward GQA flash attention on the card: ``csrc/flash_attention.cu``
-bound with ctypes.
+"""GQA flash attention on the card, forward (``csrc/flash_attention.cu``)
+and backward (``csrc/flash_attention_bwd.cu``), bound with ctypes.
 
 Counterpart of the JAX package's ``kernels/flash_attention.py``
 (``flash_attention``): q (B, H, Sq, hd), k and v (B, KVH, Skv, hd), causal
@@ -11,7 +11,15 @@ tensor the wgmma kernel cannot read raises.  Both read every tensor
 through its strides, so a (B, H, S, hd) view of a (B, S, H, hd) tensor
 goes in as it is; the output is allocated with q's strides, so such a
 caller gets it back in its own layout.  Any Sq and Skv: the ragged edges
-are masked in the kernel.  One launch per call."""
+are masked in the kernel.  One launch per call.
+
+The forward can also write each row's log-sum-exp (fp32, (B, H, Sq)).
+:class:`FlashAttention` saves it with q, k, v and the output, and its
+backward launches ``flash_attention_bwd``: D = rowsum(dO o), then dK and dV
+(one block per key tile and KV head, the GQA group summed in the block, no
+atomics), then dQ, all on the CUDA cores in fp32, gradients in the inputs'
+dtype and layouts; its reference is JAX's VJP of ``_chunked_attend`` and,
+on the card, ``ref.flash_attention_bwd_ref``."""
 from __future__ import annotations
 
 import ctypes
@@ -22,9 +30,11 @@ import torch
 
 from repro_torch.kernels import build
 
-# "flash_attention" counts every launch, "flash_attention_wgmma" those of
-# the bf16 kernel
-LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
+# "flash_attention" counts every forward launch, "flash_attention_wgmma"
+# those of the bf16 kernel, "flash_attention_bwd" every backward call (its
+# three kernels)
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0,
+            "flash_attention_bwd": 0}
 
 HEAD_DIMS = (32, 64, 80, 96, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,9 +46,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
-    lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _I, _I, _P, _I, _I, _P]
+    lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, _I, _P, _I, _I, _P]
     lib.flash_attention_fwd.restype = _I
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 7 + [_P, _I, _I,
+                                                               _P]
+    lib.flash_attention_bwd.restype = _I
     return lib
 
 
@@ -79,8 +98,10 @@ def wgmma_layout_problem(q: torch.Tensor, k: torch.Tensor,
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
+           window: int, **more: torch.Tensor) -> None:
+    """Raise on what neither kernel takes; ``more`` names tensors shaped
+    like q (the output and its gradient, for the backward)."""
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash attention: {name} must lie on q's "
                              f"CUDA device, not {t.device}")
@@ -93,6 +114,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash attention takes fp32 or bf16, not {q.dtype}")
     b, h, sq, hd = q.shape
+    for name, t in more.items():
+        if t.shape != q.shape:
+            raise ValueError(f"flash attention: {name} {tuple(t.shape)} is "
+                             f"not shaped like q {tuple(q.shape)}")
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"flash attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
@@ -105,6 +130,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sq < 1 or k.shape[2] < 1 or window < 0:
         raise ValueError("flash attention needs Sq, Skv >= 1 and a "
                          "window >= 0")
+    if more:                            # the backward reads plain loads
+        return
     if q.dtype == torch.bfloat16:
         problem = wgmma_layout_problem(q, k, v)
         if problem:
@@ -113,24 +140,28 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
+                         *, causal: bool = True, window: int = 0,
+                         with_lse: bool = False):
     """Launch the kernel of q's dtype: (B, H, Sq, hd) x (B, KVH, Skv, hd)
     -> (B, H, Sq, hd) in q's dtype, as ``ref.flash_attention_ref``
     computes it (the bf16 kernel rounds P to bf16 before P V, as the JAX
-    model does)."""
+    model does).  With ``with_lse``, returns (out, lse): lse (B, H, Sq)
+    fp32 is each row's log-sum-exp of its scaled scores (as
+    ``ref.flash_attention_lse_ref``), -inf for a row that sees no key."""
     _check(q, k, v, window)
     out = torch.empty_like(q)          # q's strides, hence q's layout
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in _strides(t)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], b, h, kvh, sq, skv, hd,
-        ctypes.cast(strides, ctypes.c_void_p), int(causal), int(window),
-        stream)
+        0 if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h,
+        kvh, sq, skv, hd, ctypes.cast(strides, ctypes.c_void_p), int(causal),
+        int(window), stream)
     if status < 0:
         raise RuntimeError(f"flash attention: cuTensorMapEncodeTiled "
                            f"refused a TMA tensor map (CUresult {-status})")
@@ -138,4 +169,63 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES["flash_attention"] += 1
     if q.dtype == torch.bfloat16:
         LAUNCHES["flash_attention_wgmma"] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int = 0
+                             ) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of the forward that gave ``o`` and ``lse`` from q, k and
+    v, for the output gradient ``do``, as ``ref.flash_attention_bwd_ref``
+    computes them: each in its input's dtype and strides.  q, k, v, o and
+    do may be any views with a contiguous head dim (a ``do`` without one is
+    copied first); lse is (B, H, Sq) fp32."""
+    if do.dim() == 4 and do.stride(-1) != 1:
+        do = do.contiguous()
+    _check(q, k, v, window, o=o, do=do)
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    if (lse.dtype != torch.float32 or lse.shape != (b, h, sq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash attention backward: lse must be a "
+                         f"contiguous fp32 ({b}, {h}, {sq}) tensor on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for t in (q, k, v, o, do, dq, dk, dv) for s in _strides(t)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = _bwd_lib().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, kvh, sq,
+        skv, hd, ctypes.cast(strides, ctypes.c_void_p), int(causal),
+        int(window), stream)
+    build.check(status, "flash_attention_bwd launch")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention on the card: the forward kernel with
+    its lse, the backward kernels for dq, dk and dv.  Under a layer that is
+    recomputed in the backward pass (``torch.utils.checkpoint``), the
+    tensors saved here come from the recompute."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                              causal=ctx.causal,
+                                              window=ctx.window)
+        return dq, dk, dv, None, None

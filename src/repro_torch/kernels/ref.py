@@ -2,9 +2,11 @@
 
 The same maths as the JAX package's ``kernels/ref.py`` (``flash_attention_ref``,
 ``clustering_loss_ref``, ``quantize_dequantize_ref``, ``slstm_scan_ref`` and
-``mamba2_scan_ref``), written in the most direct form: the full (Sq, Skv)
-and (B, Q) logit matrices, one amax per tensor or per leading slice, one
-Python step per time step of the sLSTM and Mamba2 recurrences.  The wrappers
+``mamba2_scan_ref``), and the flash backward that the JAX package leaves to
+autograd (``flash_attention_bwd_ref``), written in the most direct form:
+the full (Sq, Skv) and (B, Q) logit matrices, one amax per tensor or per
+leading slice, one Python step per time step of the sLSTM and Mamba2
+recurrences.  The wrappers
 in ``repro_torch.kernels`` take these for tensors on the CPU; the CUDA
 kernels are held against them on the card."""
 from __future__ import annotations
@@ -34,18 +36,86 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.float().reshape(b, kvh, g, sq, hd)
     logits = torch.einsum("bkgqd,bksd->bkgqs", qg,
                           k.float()) / math.sqrt(hd)
-    q_pos = torch.arange(sq, device=q.device)[:, None]
-    kv_pos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kv_pos <= q_pos
-    if window:
-        mask &= kv_pos > q_pos - window
+    mask = _attn_mask(sq, skv, causal, window, q.device)
     logits = logits.masked_fill(~mask, -math.inf)
     w = torch.softmax(logits, dim=-1)
     w = torch.where(mask.any(-1)[:, None], w, 0.0)
     out = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
     return out.reshape(b, h, sq, hd).to(q.dtype)
+
+
+def _attn_mask(sq: int, skv: int, causal: bool, window: int,
+               device: torch.device) -> torch.Tensor:
+    """(Sq, Skv) True where query i may see key j."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    kv_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window:
+        mask &= kv_pos > q_pos - window
+    return mask
+
+
+def _group(t: torch.Tensor, kvh: int) -> torch.Tensor:
+    """(H, S, hd) of one sequence -> (KVH, G, S, hd) in fp32."""
+    h, s, hd = t.shape
+    return t.float().reshape(kvh, h // kvh, s, hd)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True,
+                            window: int = 0) -> torch.Tensor:
+    """(B, H, Sq) fp32: each row's log-sum-exp of its scaled fp32 scores
+    over the keys it sees (-inf for a row that sees none), the forward
+    kernels' second output.  One sequence at a time."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    mask = _attn_mask(sq, skv, causal, window, q.device)
+    out = []
+    for i in range(b):
+        s = torch.einsum("kgqd,ksd->kgqs", _group(q[i], kvh),
+                         k[i].float()) / math.sqrt(hd)
+        out.append(torch.logsumexp(s.masked_fill(~mask, -math.inf),
+                                   dim=-1).reshape(h, sq))
+    return torch.stack(out)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0
+                            ) -> tuple[torch.Tensor, ...]:
+    """The backward of :func:`flash_attention_ref` written out, from the
+    forward's output ``o`` and log-sum-exp ``lse`` (B, H, Sq) and the
+    output's gradient ``do``; returns (dq, dk, dv) in their inputs'
+    dtypes.  With s = 1 / sqrt(hd)::
+
+      P = exp(s q k^T - lse) on unmasked keys, else 0;  D = rowsum(dO o)
+      dS = P (dO v^T - D);  dv = P^T dO;  dk = s dS^T q;  dq = s dS k
+
+    dk and dv sum over the G query heads of each KV head.  A row that sees
+    no key gets zero gradients.  fp32 throughout, one sequence at a time
+    (the (H, Sq, Skv) matrices of one sequence at once)."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    mask = _attn_mask(sq, skv, causal, window, q.device)
+    dqs, dks, dvs = [], [], []
+    for i in range(b):
+        qf, dof, of = (_group(t[i], kvh) for t in (q, do, o))
+        kf, vf = k[i].float(), v[i].float()
+        s = torch.einsum("kgqd,ksd->kgqs", qf, kf) * scale
+        lse_i = lse[i].float().reshape(kvh, h // kvh, sq, 1)
+        p = torch.where(mask, torch.exp(s - lse_i), 0.0)
+        dp = torch.einsum("kgqd,ksd->kgqs", dof, vf)
+        ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+        dvs.append(torch.einsum("kgqs,kgqd->ksd", p, dof))
+        dks.append(torch.einsum("kgqs,kgqd->ksd", ds, qf) * scale)
+        dqs.append(torch.einsum("kgqs,ksd->kgqd", ds,
+                                kf).reshape(h, sq, hd) * scale)
+    return (torch.stack(dqs).to(q.dtype), torch.stack(dks).to(k.dtype),
+            torch.stack(dvs).to(v.dtype))
 
 
 def masked_contrastive(z: torch.Tensor, ref: torch.Tensor,

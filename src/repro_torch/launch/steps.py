@@ -1,22 +1,261 @@
-"""Split-inference serving steps of the decoder LMs (dense, xLSTM and the
-Zamba2 hybrid): the JAX package's ``launch/steps.py::make_prefill_step``
-and ``make_decode_step`` as plain functions, with no step plan, mesh or
-sharding.
+"""Step builders of the decoder LMs: the JAX package's ``launch/steps.py``
+without mesh or sharding.
 
-Each step runs the bottom (client) half, hands its features to the top
-(server) half, and returns the cache of both halves.  KV caches (the dense
-model's, Zamba2's shared block's) are written in place
+  * ``make_train_step`` / ``make_train_phase``: one SemiSFL cross-entity
+    iteration on a dense decoder LM (``make_train_step(plan, dist, lr,
+    wire=..., mesh=None)`` and ``make_scanned_train_phase`` in JAX), with
+    ``StepPlan`` / ``make_plan``, the state's shapes (the train branch of
+    ``input_specs``) and a seeded initial state;
+  * ``make_prefill_step`` / ``make_decode_step``: split-inference serving
+    of the dense, xLSTM and Zamba2 models.
+
+Training.  The state is a dict ``{"client_bottoms", "teacher_bottoms",
+"top", "t_top", "proj", "t_proj", "queue"}`` where JAX stacks the N clients'
+bottoms on a leading axis; here ``client_bottoms`` and ``teacher_bottoms``
+are lists of N bottom trees (``convert.lm_train_state_from_numpy`` unstacks
+the JAX state).  A batch is ``{"tokens_weak", "tokens_strong"}``, each (N, b,
+S).  The clients' bottoms run one after another, where JAX vmaps them, and
+each client's gradient is rescaled by N (Eq. (8)), as ``core/engine.py``
+does for the CNNs.  Attention differentiates through the flash kernels
+(``kernels.FlashAttention``) on the card; each layer is recomputed in the
+backward pass (``models/transformer.py``).
+
+Serving.  Each step runs the bottom (client) half, hands its features to
+the top (server) half, and returns the cache of both halves.  KV caches
+(the dense model's, Zamba2's shared block's) are written in place
 (``models/attention.py``); the recurrent states of xLSTM and of Zamba2's
 Mamba2 layers are returned anew.  xLSTM takes no positions and ignores the
 decode step's."""
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
-from repro_torch.configs import ArchConfig
-from repro_torch.models.transformer import build_model
+from repro_torch import kernels
+from repro_torch.configs import ArchConfig, InputShape
+from repro_torch.core import losses
+from repro_torch.core.ema import ema_update
+from repro_torch.core.engine import requires_grad
+from repro_torch.core.queue import FeatureQueue, enqueue, init_queue
+from repro_torch.core.split import (apply_projection_head,
+                                    init_projection_head, pool_features,
+                                    proj_dim)
+from repro_torch.core.wire import (WireFormatLike, fake_quantize,
+                                   parse_wire_format, quantize_grad,
+                                   resolve_fmt)
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import DecoderLM, build_model
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+# ===========================================================================
+# training
+# ===========================================================================
+
+@dataclass(frozen=True)
+class StepPlan:
+    """Static plan for one (arch, shape) pair."""
+
+    cfg: ArchConfig
+    shape: InputShape
+    n_clients: int             # the clients' bottoms
+    per_client_batch: int
+
+
+def make_plan(cfg: ArchConfig, shape: InputShape, *,
+              n_clients: int = 16) -> StepPlan:
+    n = min(n_clients, shape.global_batch)
+    return StepPlan(cfg=cfg, shape=shape, n_clients=n,
+                    per_client_batch=shape.global_batch // n)
+
+
+def _train_model(plan: StepPlan) -> DecoderLM:
+    model = build_model(plan.cfg)
+    if type(model) is not DecoderLM:
+        raise NotImplementedError(
+            f"{plan.cfg.name}: the port trains dense decoder LMs only (the "
+            "sLSTM and Mamba2 kernels have no backward yet)")
+    return model
+
+
+def init_train_state(plan: StepPlan, seed: int = 0,
+                     device: str | torch.device = "cuda") -> dict:
+    """A train state drawn from ``seed`` on ``device`` (which may be
+    ``meta``, for shapes only): one model init whose bottom every client
+    and every client's teacher starts from (the broadcast of a round's
+    start), the teacher top and projection head copies of the student's,
+    and an empty queue."""
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(device)
+    gen = torch.Generator(device=dev if dev.type != "meta" else "cpu")
+    gen.manual_seed(seed)
+    cfg = plan.cfg
+    params = _train_model(plan).init(gen, dev)
+    proj = init_projection_head(cfg, gen, dev)
+    copies = lambda tree, n: [tree_map(torch.clone, tree) for _ in range(n)]
+    n = plan.n_clients
+    return {"client_bottoms": copies(params["bottom"], n),
+            "teacher_bottoms": copies(params["bottom"], n),
+            "top": params["top"], "t_top": tree_map(torch.clone,
+                                                     params["top"]),
+            "proj": proj, "t_proj": tree_map(torch.clone, proj),
+            "queue": init_queue(cfg.semisfl.queue_len, proj_dim(cfg), dev)}
+
+
+def train_state_shapes(plan: StepPlan) -> dict:
+    """(shape, dtype) of every leaf of the train state, with the state's
+    structure (the train branch of the JAX ``input_specs``), and of the
+    batch; nothing is allocated.  The queue's ptr is a host int."""
+    state = init_train_state(plan, device="meta")
+    leaf = lambda t: (tuple(t.shape), t.dtype)
+    q = state.pop("queue")
+    out = tree_map(leaf, state)
+    out["queue"] = FeatureQueue(z=leaf(q.z), label=leaf(q.label),
+                                conf=leaf(q.conf), valid=leaf(q.valid),
+                                ptr=((), int))
+    n, b, s = plan.n_clients, plan.per_client_batch, plan.shape.seq_len
+    tokens = ((n, b, s), torch.int64)
+    return {"state": out, "batch": {"tokens_weak": tokens,
+                                    "tokens_strong": tokens}}
+
+
+def make_train_step(plan: StepPlan, lr: float = 0.02, *,
+                    wire: WireFormatLike = None) -> Callable:
+    """``step(state, batch) -> (new state, metrics)``: one LM-task SemiSFL
+    iteration, as the JAX ``make_train_step`` with no mesh.
+
+    Teacher path (no gradient): each client's teacher bottom on its weak
+    tokens, the wire's uplink quantization of the features (one scale per
+    client), the teacher top; token pseudo-labels and their confidence mask
+    (tau); sequence pseudo-labels from the mean over S of the teacher's
+    fp32 softmax, confident above tau / 2; the pooled teacher features
+    through the teacher projection head (z for the queue).  Student path:
+    each client's bottom on its strong tokens, quantized up (straight
+    through) and with its cotangent quantized down, the top; loss = the
+    masked token CE in sum form (sum of NLL / max(count, 1)) + Eq. (5)
+    through the clustering kernel + 0.001 aux.  Updates: plain SGD on top
+    and projection head, on each client's bottom with N times its gradient
+    (Eq. (8)), in fp32 and cast back; the clients' teacher EMA; the enqueue
+    last.  ``t_top`` and ``t_proj`` do not move.  Metrics (0-d tensors):
+    loss, consistency, clustering, mask_rate."""
+    cfg = plan.cfg
+    s = cfg.semisfl
+    model = _train_model(plan)
+    n = plan.n_clients
+    wf = parse_wire_format(wire)
+    act_fmt = resolve_fmt(wf.activations)
+    grad_fmt = resolve_fmt(wf.gradients)
+
+    def bottoms_forward(bottoms: list, tokens: torch.Tensor, student: bool):
+        """Each client's bottom on its (b, S) tokens -> stacked (N, b, S,
+        d) features on the wire and the flat-batch extras for the top."""
+        outs = [model.bottom_apply(bottoms[i], {"tokens": tokens[i]},
+                                   mode="train") for i in range(n)]
+        feats = torch.stack([f for f, _, _ in outs])
+        if act_fmt is not None:
+            # uplink: per-client quantized features (straight through)
+            feats = fake_quantize(feats, act_fmt)
+        if student and grad_fmt is not None:
+            # downlink: the cotangent at the cut ships quantized
+            feats = quantize_grad(feats, grad_fmt)
+        extras = {"positions": torch.cat([e["positions"]
+                                          for _, _, e in outs]),
+                  "aux_loss": torch.stack([e["aux_loss"]
+                                           for _, _, e in outs]).sum()}
+        return feats.reshape((-1,) + feats.shape[2:]), extras
+
+    def top_forward(top: dict, feats: torch.Tensor, extras: dict) -> dict:
+        return model.top_apply(top, feats, extras=extras, mode="train")[0]
+
+    def step(state: dict, batch: dict):
+        queue: FeatureQueue = state["queue"]
+        with torch.no_grad():
+            t_feats, t_extras = bottoms_forward(
+                state["teacher_bottoms"], batch["tokens_weak"], False)
+            t_logits = top_forward(state["t_top"], t_feats,
+                                   t_extras)["logits"]
+            pseudo_tok, ok_tok, _ = losses.pseudo_labels(
+                t_logits, s.confidence_threshold)
+            # sequence-level pseudo-labels for the clustering term
+            probs_mean = torch.softmax(t_logits.float(), -1).mean(dim=1)
+            del t_logits
+            conf_seq, pseudo_seq = probs_mean.max(-1)
+            conf_seq = conf_seq > s.confidence_threshold * 0.5
+            tz = apply_projection_head(state["t_proj"],
+                                       pool_features(t_feats))
+            del t_feats, probs_mean
+
+        live = requires_grad({"bottoms": state["client_bottoms"],
+                              "top": state["top"], "proj": state["proj"]})
+        feats, extras = bottoms_forward(live["bottoms"],
+                                        batch["tokens_strong"], True)
+        out = top_forward(live["top"], feats, extras)
+        nll_sum, m_cnt = losses.cross_entropy_sum(out["logits"], pseudo_tok,
+                                                  ok_tok)
+        h = nll_sum / m_cnt.clamp(min=1.0)
+        z = apply_projection_head(live["proj"], pool_features(feats))
+        c = kernels.clustering_loss(z, pseudo_seq, conf_seq, queue.z,
+                                    queue.label, queue.conf, queue.valid,
+                                    s.temperature)
+        loss = h + c + out["aux_loss"].sum() * 0.001
+        del out, feats, extras
+        leaves = tree_leaves(live)
+        grads = tree_unflatten(live, list(torch.autograd.grad(loss,
+                                                              leaves)))
+        del live, leaves
+        with torch.no_grad():
+            # Eq. (8): each client applies its own gradient, N times its
+            # share of the mean over the N b sequences
+            g_b = [tree_map(lambda g: g * n, gb) for gb in grads["bottoms"]]
+            sub = lambda p, g: tree_map(
+                lambda a, b: (a.float() - lr * b.float()).to(a.dtype), p, g)
+            new_bottoms = [sub(p, g) for p, g in zip(state["client_bottoms"],
+                                                     g_b)]
+            new_top = sub(state["top"], grads["top"])
+            new_proj = sub(state["proj"], grads["proj"])
+            del grads, g_b
+            new_t_bottoms = [ema_update(t, b, s.ema_decay) for t, b in
+                             zip(state["teacher_bottoms"], new_bottoms)]
+            new_queue = enqueue(queue, tz, pseudo_seq, conf_seq)
+            metrics = {"loss": loss.detach(), "consistency": h.detach(),
+                       "clustering": c.detach(),
+                       "mask_rate": 1.0 - ok_tok.float().mean()}
+        new_state = dict(state, client_bottoms=new_bottoms, top=new_top,
+                         proj=new_proj, teacher_bottoms=new_t_bottoms,
+                         queue=new_queue)
+        return new_state, metrics
+
+    return step
+
+
+def make_train_phase(plan: StepPlan, lr: float = 0.02, *,
+                     wire: WireFormatLike = None) -> Callable:
+    """``phase(state, batches) -> (state, metrics)``: K iterations of
+    :func:`make_train_step` over batches whose leaves have a leading K
+    axis, the metrics stacked to (K,) tensors on the device, as the JAX
+    ``make_scanned_train_phase`` returns them (a Python loop here, not a
+    compiled scan)."""
+    step = make_train_step(plan, lr, wire=wire)
+
+    def phase(state: dict, batches: dict):
+        k = len(next(iter(batches.values())))
+        out = []
+        for i in range(k):
+            state, metrics = step(state, {key: v[i]
+                                          for key, v in batches.items()})
+            out.append(metrics)
+        return state, {key: torch.stack([m[key] for m in out])
+                       for key in out[0]}
+
+    return phase
+
+
+# ===========================================================================
+# serving
+# ===========================================================================
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

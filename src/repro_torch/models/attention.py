@@ -3,8 +3,9 @@ decode (a ring buffer for sliding-window attention): the JAX package's
 ``models/attention.py`` for the dense decoder.
 
 Train and prefill attention go through the flash-attention wrapper
-(``repro_torch.kernels.flash_attention``: the CUDA kernel on the card, its
-plain version on the CPU), where the JAX model runs its jnp stand-in
+(``repro_torch.kernels.flash_attention``: the CUDA kernels on the card,
+forward and, where a gradient is recorded, backward; the plain version
+under autograd on the CPU), where the JAX model runs its jnp stand-in
 ``_chunked_attend``.  The wrapper reads the model's (B, S, H, hd)
 projections through (B, H, S, hd) views and gives its output back in the
 model's layout, so no transposed copy is made on the card.  Decode attention

@@ -16,7 +16,10 @@ def dense_init(d_in: int, d_out: int, generator: torch.Generator,
                device: torch.device | str,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(d_in, d_out) weight, N(0, 1/d_in), JAX's layout; drawn in fp32 on
-    the generator's device, then cast to ``dtype``."""
+    the generator's device, then cast to ``dtype``.  On the ``meta``
+    device nothing is drawn: only the shape and dtype exist."""
+    if torch.device(device).type == "meta":
+        return torch.empty(d_in, d_out, device="meta", dtype=dtype)
     w = torch.randn(d_in, d_out, generator=generator,
                     device=generator.device)
     return (w * (1.0 / math.sqrt(d_in))).to(device=device, dtype=dtype)
@@ -25,7 +28,9 @@ def dense_init(d_in: int, d_out: int, generator: torch.Generator,
 def embed_init(vocab: int, d: int, generator: torch.Generator,
                device: torch.device | str,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """(vocab, d) embedding table, N(0, 0.02^2)."""
+    """(vocab, d) embedding table, N(0, 0.02^2); shape only on ``meta``."""
+    if torch.device(device).type == "meta":
+        return torch.empty(vocab, d, device="meta", dtype=dtype)
     w = torch.randn(vocab, d, generator=generator, device=generator.device)
     return (w * 0.02).to(device=device, dtype=dtype)
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import xlstm as xl
@@ -34,6 +35,12 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 def _lm_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"]
+
+
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    """The auxiliary loss of layers that have none (MoE's load balancing
+    is not ported): a zero fp32 scalar on x's device."""
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ===========================================================================
@@ -68,14 +75,27 @@ def _run_attn_stack(stack: list, cfg: ArchConfig, x: torch.Tensor, *,
                     positions: torch.Tensor, mode: str,
                     caches: Optional[list]):
     """Run x through a segment's layers in order; returns the new caches
-    (None without caches)."""
+    (None without caches).  A train-mode pass that records gradients keeps
+    only each layer's input and recomputes the layer in the backward pass,
+    as the JAX model's ``jax.checkpoint`` over its layer scan does: memory
+    changes, the numbers do not."""
     new_caches = [] if caches is not None else None
     for i, p_i in enumerate(stack):
+        if mode == "train" and torch.is_grad_enabled():
+            x = checkpoint(_train_layer, p_i, cfg, x, positions,
+                           use_reentrant=False)
+            continue
         x, c = _apply_attn_layer(p_i, cfg, x, positions=positions, mode=mode,
                                  cache=None if caches is None else caches[i])
         if new_caches is not None:
             new_caches.append(c)
     return x, new_caches
+
+
+def _train_layer(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    return _apply_attn_layer(p, cfg, x, positions=positions, mode="train",
+                             cache=None)[0]
 
 
 def _init_stacked_kv_cache(n: int, batch: int, max_len: int,
@@ -156,19 +176,23 @@ class DecoderLM:
         x, new_stack_cache = _run_attn_stack(
             params["stack"], self.cfg, x, positions=positions, mode=mode,
             caches=cache.get("stack"))
-        return x, {"stack": new_stack_cache}, {"positions": positions}
+        return x, {"stack": new_stack_cache}, {"positions": positions,
+                                               "aux_loss": _no_aux(x)}
 
     def top_apply(self, params: dict, features: torch.Tensor, *,
                   extras: dict, mode: str = "train",
                   cache: Optional[dict] = None):
-        """Server side: the top layers, the final norm and the LM head."""
+        """Server side: the top layers, the final norm and the LM head.
+        ``aux_loss`` adds the bottom's (``extras``) to the top's; dense
+        layers have none, so it is a zero fp32 scalar, as in JAX."""
         cfg = self.cfg
         cache = cache or {"stack": None}
         x, new_stack_cache = _run_attn_stack(
             params["stack"], cfg, features, positions=extras["positions"],
             mode=mode, caches=cache.get("stack"))
         x = apply_norm(params["final_norm"], x, cfg.norm)
-        out = {"logits": _lm_logits(params, x)}
+        out = {"logits": _lm_logits(params, x),
+               "aux_loss": _no_aux(x) + extras.get("aux_loss", 0.0)}
         return out, {"stack": new_stack_cache}
 
 

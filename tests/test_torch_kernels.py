@@ -713,8 +713,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert all(v == 0 for v in kernels.launch_counts().values())
     assert set(kernels.launch_counts()) == {
         "clustering_fwd", "clustering_bwd", "quantize_fused",
-        "quantize_amax", "quantize_qdq", "flash_attention", "flash_attention_wgmma", "slstm_scan",
-        "mamba2_scan", "mamba2_scan_mma"}
+        "quantize_amax", "quantize_qdq", "flash_attention", "flash_attention_wgmma",
+        "flash_attention_bwd", "slstm_scan", "mamba2_scan", "mamba2_scan_mma"}
 
 
 def test_wrappers_refuse_other_devices():
