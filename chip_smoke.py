@@ -30,7 +30,8 @@ Phases, in order; any failure exits nonzero:
      then in bf16 off the 128-row tiles, with a window across tile edges,
      groups of 5 and 8, a peaked softmax and every head dim, and at
      Qwen3-14B's and Zamba2-7B's prefill shapes; (3b) flash attention's
-     backward, with the forward's log-sum-exp, in fp32 and bf16 at small
+     backward, with the forward's log-sum-exp, fp32 through the CUDA-core
+     kernels and bf16 through the wgmma ones (their ptxas report), at small
      shapes (GQA groups 1 to 5, ragged tiles, windows, non-causal, every
      head dim, rows that see no key) and at H2O-Danube-1.8B's training
      shape (windows 0 and 1024, head dims 64, 80 and 128; two launches bit
@@ -116,8 +117,9 @@ Phases, in order; any failure exits nonzero:
      width 2560, bf16, the ``int8`` wire, tau 0, weights and tokens drawn on
      the card from seed 0), 4 clients x 1 sequence x 4096 tokens, a warm-up
      step and 3 timed steps with every kernel's launches required (flash
-     forward 126 a step, its backward 42, the clustering pair 1, the
-     two-pass quantizer 3), peak memory, then one step under the profiler;
+     forward 126 a step, its backward 42, all through the wgmma kernels,
+     the clustering pair 1, the two-pass quantizer 3), peak memory, then
+     one step under the profiler (no CUDA-core backward kernel in it);
  14. card against CPU on the LM training path: one step of a 2-layer fp32
      H2O-Danube-1.8B at full width (split 1 + 1), 2 clients x 512 tokens,
      every metric and state leaf to 1e-3, the queue's pseudo-labels equal;
@@ -2205,14 +2207,18 @@ def _check_bwd(q, k, v, g, what, tol, causal=True, window=0) -> float:
                                rtol=1e-5)):
         fail(f"flash lse {what} differs from the plain version by "
              f"{float((lse[seen] - lse_want[seen]).abs().max())}")
-    before = fa.LAUNCHES["flash_attention_bwd"]
+    before = dict(fa.LAUNCHES)
     got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g, causal=causal,
                                       window=window)
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, g, causal=causal,
                                        window=window)
     torch.cuda.synchronize()
-    if fa.LAUNCHES["flash_attention_bwd"] - before != 1:
-        fail(f"flash backward {what}: not counted once")
+    wgmma = int(q.dtype == torch.bfloat16)
+    if (fa.LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"],
+            fa.LAUNCHES["flash_attention_bwd_wgmma"]
+            - before["flash_attention_bwd_wgmma"]) != (1, wgmma):
+        fail(f"flash backward {what}: not counted once, or bf16 did not "
+             "take the tensor-core kernels (or fp32 did)")
     atol, rtol = tol
     err, worst, sizes = 0.0, 0.0, []
     for name, gr, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
@@ -2246,20 +2252,40 @@ def _model_views(gen, dt, b, s, h, kvh, hd, extra=()):
     return [view(h), view(kvh), view(kvh)] + [view(h) for _ in extra]
 
 
-def phase_flash_bwd(card: str) -> dict:
+def _ptxas_rows(log: str, kernel: str) -> list:
+    """One line a template instance of ``kernel`` from a ptxas report:
+    its head dim, registers, shared memory, stack and spills."""
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(rf"{kernel}ILi(\d+)E", line)
+        if "Compiling entry function" in line:
+            name = f"{kernel}<{m.group(1)}>" if m else None
+            if name:
+                rows.append([name])
+        elif name and ("spill" in line or "Used" in line):
+            rows[-1].append(line.split(":", 1)[-1].strip())
+    return [": ".join([r[0], "; ".join(r[1:])]) for r in rows]
+
+
+def phase_flash_bwd(card: str, ptxas: str = "") -> dict:
     """Flash attention's backward on the card: every ``FLASH_BWD_CASES``
-    entry in fp32 and bf16, every head dim in bf16, rows that see no key
-    (zero gradients, no NaN), then H2O-Danube-1.8B's training shape (model
-    views) at windows 0 and 1024 in both types, and at head dims 64 and 128,
-    where two launches must agree bit for bit; then timed at that shape in
-    bf16, causal: kernel, plain version, the library's backward
+    entry in fp32 (the CUDA-core kernels) and bf16 (the tensor-core ones),
+    every head dim in bf16, rows that see no key (zero gradients, no NaN),
+    then H2O-Danube-1.8B's training shape (model views) at windows 0 and
+    1024 in both types, and at head dims 64 and 128, where two launches
+    must agree bit for bit; then timed at that shape in bf16, causal:
+    kernel, plain version, the library's backward
     (``scaled_dot_product_attention``'s forward and backward less its
-    forward) and the bound."""
+    forward) and the bound, with the kernel's rate counted over the 5
+    products the bound counts and over those the bf16 kernels issue."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    for kernel in ("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"):
+        for row in _ptxas_rows(ptxas, kernel):
+            print(f"[kernels] flash backward ptxas: {row}")
     gen = torch.Generator(device="cuda").manual_seed(21)
     randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     err = 0.0
@@ -2316,6 +2342,7 @@ def phase_flash_bwd(card: str) -> dict:
     q, k, v, o, lse, g = timed
     pairs = _attn_pairs(s, s, True, 0)
     n_flops = 5 * 2 * b * h * LM_HD * pairs
+    issued = 4 + 2 * fa.BWD_KV_TERMS + fa.BWD_DQ_TERMS
     n_bytes = (sum(t.numel() * t.element_size() for t in (q, k, v, o, g))
                + lse.numel() * 4 + sum(t.numel() * t.element_size()
                                        for t in (q, k, v)))
@@ -2343,7 +2370,12 @@ def phase_flash_bwd(card: str) -> dict:
           f"{library[0]:.4f} ms (events {library[1]:.4f}), bound "
           f"{t['bound'][0]:.4f} ms ({t['bound'][1]}; "
           f"{n_flops / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 CUDA-core "
-          f"peak); kernel at {n_flops / t['ms'][0] / 1e9:.1f} TFLOP/s, "
+          f"peak); kernel at {n_flops / t['ms'][0] / 1e9:.1f} TFLOP/s "
+          f"counting the 5 products, "
+          f"{issued * n_flops / 5 / t['ms'][0] / 1e9:.1f} counting the "
+          f"{issued} the bf16 kernels issue (S and dP twice; P and dS as "
+          f"{fa.BWD_KV_TERMS} bf16 terms for dK and dV, dS as "
+          f"{fa.BWD_DQ_TERMS} for dQ), "
           f"{t['bound'][0] / t['ms'][0]:.4f} of the bound, "
           f"{t['ms'][0] / library[0]:.2f}x the library's time; on {card}")
     return {"err": err, "timing": {"ms": t["ms"][0],
@@ -2378,10 +2410,11 @@ def _lm_launches(cfg, n: int, wire) -> dict:
     layer per forward pass (each client's bottom layers on its own batch,
     the top's on the flat one) in the teacher pass, the student pass and
     the student's recompute in the backward pass, all the wgmma kernel's in
-    bf16; its backward once per layer; the clustering pair once; the int8
-    wire's two-pass quantizer (a client slice of S x d_model floats is
-    past what a cluster holds) three times: teacher and student features,
-    and the cut's gradient, where the wire is ``int8``."""
+    bf16; its backward once per layer (the tensor-core kernels in bf16);
+    the clustering pair once; the int8 wire's two-pass quantizer (a client
+    slice of S x d_model floats is past what a cluster holds) three times:
+    teacher and student features, and the cut's gradient, where the wire
+    is ``int8``."""
     from repro_torch.models.transformer import build_model
     split = build_model(cfg).split
     layers = n * split + cfg.num_layers - split
@@ -2389,7 +2422,9 @@ def _lm_launches(cfg, n: int, wire) -> dict:
     return {"flash_attention": 3 * layers,
             "flash_attention_wgmma": 3 * layers if cfg.dtype == "bfloat16"
             else 0,
-            "flash_attention_bwd": layers, "clustering_fwd": 1,
+            "flash_attention_bwd": layers,
+            "flash_attention_bwd_wgmma": layers if cfg.dtype == "bfloat16"
+            else 0, "clustering_fwd": 1,
             "clustering_bwd": 1, "quantize_amax": quant,
             "quantize_qdq": quant, "quantize_fused": 0}
 
@@ -2500,8 +2535,8 @@ def phase_lm_train(card: str) -> dict:
     ours = {name: (sum(_dev_us(e) for e in kernels if name in e.key) / 1e6,
                    sum(e.count for e in kernels if name in e.key))
             for name in ("flash_kernel_wgmma", "flash_bwd_delta",
-                         "flash_bwd_dkdv", "flash_bwd_dq", "clustering_",
-                         "amax_kernel", "qdq_kernel")}
+                         "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma",
+                         "clustering_", "amax_kernel", "qdq_kernel")}
     print(f"[lm-train-profile] one step under the profiler: wall "
           f"{wall_prof:.6f} s, device busy {busy:.6f} s (idle share "
           f"{1 - busy / wall_prof:.4f}), {sum(e.count for e in kernels)} "
@@ -2514,6 +2549,10 @@ def phase_lm_train(card: str) -> dict:
               f"x{e.count:<5d} {e.key[:100]}")
     if any(n == 0 for _, n in ours.values()):
         fail(f"the profiled LM step shows no launch of some kernel: {ours}")
+    cuda_cores = [e.key for e in kernels
+                  if "flash_bwd_dkdv<" in e.key or "flash_bwd_dq<" in e.key]
+    if cuda_cores:
+        fail(f"the bf16 LM step ran the CUDA-core backward: {cuda_cores}")
     del state
     torch.cuda.empty_cache()
     return launches
@@ -2648,7 +2687,7 @@ def main() -> int:
     flash = phase_flash(card)
     checked["errs"]["flash_attention"] = flash["err"]
     checked["timings"]["flash_attention"] = flash["timing"]
-    flash_bwd = phase_flash_bwd(card)
+    flash_bwd = phase_flash_bwd(card, ptxas.get("flash_attention_bwd", ""))
     checked["errs"]["flash_attention_bwd"] = flash_bwd["err"]
     checked["timings"]["flash_attention_bwd"] = flash_bwd["timing"]
     slstm = phase_slstm(card, ptxas.get("slstm_scan", ""))

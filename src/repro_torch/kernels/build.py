@@ -2,8 +2,9 @@
 
 Each ``src/repro_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface under
-``<repo>/build/repro_torch/``, named by a hash of its source and flags, so
-a changed source is rebuilt and an unchanged one is loaded as it is.  The
+``<repo>/build/repro_torch/``, named by a hash of its source, the headers
+it includes (``csrc/hopper.cuh``) and the flags, so a changed source or
+header is rebuilt and an unchanged one is loaded as it is.  The
 sources are compiled without ``--use_fast_math``: the quantizer must be
 bit-exact, which needs IEEE division and round-half-to-even, and flash
 attention's exponent of masked scores and the sLSTM's of its -1e30
@@ -16,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,6 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("clustering_loss", "flash_attention", "flash_attention_bwd",
            "mamba2_scan", "quantize", "slstm_scan")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,11 +46,26 @@ def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
     return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
+def _sources(path: Path, seen: tuple[Path, ...] = ()) -> tuple[Path, ...]:
+    """``path`` and every file it includes with quotes (``#include
+    "x.cuh"``, found beside it), recursively, each once, in the order met."""
+    seen = seen + (path,)
+    for inc in _INCLUDE.findall(path.read_text()):
+        dep = (path.parent / inc).resolve()
+        if dep not in seen:
+            seen = _sources(dep, seen)
+    return seen
+
+
 def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()
-                            ).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    """The library of ``csrc/<name>.cu``, named by a digest of the source,
+    every header it includes and the flags, so that an edit to any of them
+    builds anew."""
+    digest = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu"):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(_flags(defines)).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES, defines: tuple[str, ...] = ()
