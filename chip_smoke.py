@@ -39,7 +39,13 @@ Phases, in order; any failure exits nonzero:
      backward and the bound; the sLSTM scan, h and
      final state, at
      the JAX kernel tests' shapes, at S = 1, from a non-fresh state, at the
-     xLSTM smoke shape and at xLSTM-1.3B's prefill shape; the Mamba2 scan,
+     xLSTM smoke shape and at xLSTM-1.3B's prefill shape; (3c) its backward
+     kernel (its ptxas report), with the training forward's saved
+     pre-activations and (c, n, m), against the plain backward (dwx, dh_0,
+     dR) and the differentiable scan against autograd of the plain scan,
+     at those shapes, the plan's edges and xLSTM-1.3B's training shapes (B
+     1 and 4, S 4096; two launches bit for bit), an hd the plan refuses
+     raising before any launch, timed at B 4 and 1; the Mamba2 scan,
      y and final state, fp32 through the CUDA-core kernel and bf16 through
      the mma one, at the JAX kernel tests' shapes, at S = 1 and ragged S,
      on bf16 strided slices of a conv output, where a chunk's decay passes
@@ -123,7 +129,20 @@ Phases, in order; any failure exits nonzero:
  14. card against CPU on the LM training path: one step of a 2-layer fp32
      H2O-Danube-1.8B at full width (split 1 + 1), 2 clients x 512 tokens,
      every metric and state leaf to 1e-3, the queue's pseudo-labels equal;
- 15. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
+ 15. the sixth path: LM training of xLSTM-1.3B at full width, as phase 13
+     (width 2048, bf16 with the fp32 sLSTM weights), cut to its first 16
+     blocks (two groups of 7 mLSTM + 1 sLSTM, split 1 + 1) at rate 2e-4,
+     where the full 48 blocks' SemiSFL steps go non-finite at random init
+     (LM_TRAIN_PATHS), with the sLSTM scan 15 times a step (teacher,
+     student, recompute; 4 client bottoms and the top) and its backward
+     kernel 5, the clustering pair and the quantizer as there, no flash;
+     each block recomputed in the backward pass;
+ 16. card against CPU on it: one step of a 4-block fp32 xLSTM-1.3B at full
+     width (sLSTM every 2 blocks, split 1 + 1 group), 2 clients x 256
+     tokens (two mLSTM chunks), as phase 14;
+ 17. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
+Every profiled run's device records are read raw from the profiler
+(``_device_ops``), not through ``key_averages()``.
 
 Needs one CUDA card, ``nvcc`` and this checkout's ``src/``; imports nothing
 of JAX."""
@@ -237,6 +256,18 @@ SLSTM_EDGE_CASES = [(2, 100, 8, 40, True, 3.0), (3, 64, 6, 96, False, 0.0),
 # as tests/test_kernels.py holds the Pallas kernel: the recurrent product
 # sums in another order
 SLSTM_TOL = dict(atol=1e-5, rtol=1e-4)
+# the sLSTM backward against its plain version, and the differentiable scan
+# against autograd of the plain scan: max|err| / max|ref| per tensor (dwx,
+# dR), the forward's rtol.  Both sides are fp32 and sum dh_{t-1} = R dwx_t in
+# other orders; the plain fp32 forward and backward at (1, 4096, 4, 512) are
+# 3.1e-6 (dwx) and 1.2e-6 (dR) off an fp64 run of the same (measured on a
+# CPU).  Cases as SLSTM_CASES: the small ones, the plan's edges, then
+# xLSTM-1.3B's training shapes, a client's bottom (B 1) and the top (B 4)
+# over train_4k's 4096 tokens from the zero state
+SLSTM_BWD_TOL = 1e-4
+SLSTM_BWD_CASES = (SLSTM_CASES[:6] + SLSTM_EDGE_CASES
+                   + [(1, 4096, 4, 512, False, 3.0),
+                      (4, 4096, 4, 512, False, 3.0)])
 
 # the Mamba2 scan against its plain version: (b, s, nh, hd, n, dtype,
 # inputs).  "test": tests/test_kernels.py's distributions (dt in [0.01,
@@ -268,11 +299,6 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def _dev_us(e) -> float:
-    return (getattr(e, "self_device_time_total", None)
-            or getattr(e, "self_cuda_time_total", 0))
-
-
 def l2_bytes() -> int:
     import torch
     return getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
@@ -296,7 +322,6 @@ def time_ms(fn, iters: int = 50, warmup: int = 5,
     L2 unless ``fn`` cycles through :func:`cold_copies`.  ``by_kernel``, if
     given, receives each kernel's device ms per call by profiler name."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -317,17 +342,17 @@ def time_ms(fn, iters: int = 50, warmup: int = 5,
     # the profiler can lose some of a kernel's records (on the H100 it kept
     # 4 of 10 launches of the Mamba2 scan after earlier profiled phases);
     # every call launches each kernel the same number of times, so a kernel
-    # is counted at the next multiple of ``iters`` at its mean duration
+    # is counted at the next multiple of ``iters`` at its mean duration.
+    # The records are read raw (_device_ops): a plain version's hundred
+    # thousand launches took key_averages() minutes
     dev, lost = 0.0, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.count == 0:
-            continue
-        calls = -(-e.count // iters) * iters
-        if calls != e.count:
-            lost.append(f"{e.key[:60]} ({e.count} of {calls})")
-        dev += _dev_us(e) / e.count * calls
+    for name, total_s, count in _by_name(_device_ops(prof)):
+        calls = -(-count // iters) * iters
+        if calls != count:
+            lost.append(f"{name[:60]} ({count} of {calls})")
+        dev += total_s * 1e6 / count * calls
         if by_kernel is not None:
-            by_kernel[e.key] = _dev_us(e) / e.count * calls / iters / 1e3
+            by_kernel[name] = total_s * 1e3 / count * calls / iters
     if lost:
         print("[timing] torch.profiler lost records of "
               + "; ".join(lost) + "; counted at their mean duration")
@@ -336,6 +361,48 @@ def time_ms(fn, iters: int = 50, warmup: int = 5,
               "event time")
         return event_ms, event_ms
     return dev / 1e3 / iters, event_ms
+
+
+def _device_ops(prof) -> list:
+    """(name, start ns, duration ns) of every device op of a profiled run,
+    from the profiler's raw records: ``key_averages()`` builds an event
+    tree in Python first, which for the hundreds of thousands of records
+    of an xLSTM step (or a serving run) takes minutes."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.start_ns(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation()]
+
+
+def _by_name(ops) -> list:
+    """[(name, total device s, count)] of device ops, largest first."""
+    acc: dict[str, list] = {}
+    for name, _, dur in ops:
+        a = acc.setdefault(name, [0.0, 0])
+        a[0] += dur / 1e9
+        a[1] += 1
+    return sorted(((k, t, c) for k, (t, c) in acc.items()),
+                  key=lambda x: -x[1])
+
+
+def _ours(kernels, names) -> dict:
+    """{name: (device s, launches)} of the ops of ``kernels`` (from
+    :func:`_by_name`) whose profiler name holds each of ``names``."""
+    return {k: (sum(t for n, t, _ in kernels if k in n),
+                sum(c for n, _, c in kernels if k in n)) for k in names}
+
+
+def _host_spans(prof, prefix: str) -> dict:
+    """{name: total host s} of the profiled run's spans (``record_function``
+    ranges on the host) whose name starts with ``prefix``, from the raw
+    records."""
+    from torch.autograd import DeviceType
+    out: dict[str, float] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU and e.name().startswith(prefix):
+            out[e.name()] = out.get(e.name(), 0.0) + e.duration_ns() / 1e9
+    return out
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -1067,6 +1134,157 @@ def phase_slstm(card: str, ptxas: str) -> dict:
     return {"err": err, "timing": t}
 
 
+def _rel_err(got, want, abs_errs: list) -> float:
+    """max|got - want| / max|want|; max|got - want| goes to ``abs_errs``."""
+    err = (got - want).abs().max()
+    abs_errs.append(float(err))
+    return float(err / want.abs().max().clamp(min=1e-30))
+
+
+def _check_slstm_bwd(case, seed) -> float:
+    """One case: the training forward's saved pre-activations and (c, n, m)
+    against the plain scan's (SLSTM_TOL); the backward kernel against the
+    plain backward on the same saved tensors, dwx, dh_0 and dR (dR as the
+    Function forms it from dwx); then :class:`SLSTMScan` (both kernels)
+    against autograd of the plain scan on the card, dwx and dR; each
+    max|err| / max|ref| within SLSTM_BWD_TOL.  Returns the largest
+    max|err|."""
+    import torch
+
+    from repro_torch.kernels import ref
+    sl = importlib.import_module("repro_torch.kernels.slstm_scan")
+    b, s, nh, hd, with_state, f_bias = case
+    t0 = time.perf_counter()
+    wx, r, state = _slstm_inputs(b, s, nh, hd, with_state, f_bias, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    dh = torch.randn(b, s, nh, hd, generator=gen, device="cuda")
+    h, _, saved = sl.slstm_scan_cuda(wx, r, state, save=True)
+    _, _, want_saved = ref.slstm_scan_ref(wx, r, state, save=True)
+    for name, g, w in zip(("pre", "c", "n", "m"), saved, want_saved):
+        if not torch.allclose(g, w, **SLSTM_TOL):
+            fail(f"slstm scan ({b}, {s}, {nh}, {hd}) saves {name} "
+                 f"{float((g - w).abs().max())} off the plain scan's")
+    dwx, dh0 = sl.slstm_scan_bwd_cuda(r, *saved, state, dh)
+    want_dwx, want_dh0 = ref.slstm_scan_bwd_ref(r, *saved, state, dh)
+    h0, abs_errs = state and state[0], []
+    errs = {"dwx": _rel_err(dwx, want_dwx, abs_errs),
+            "dh0": _rel_err(dh0, want_dh0, abs_errs),
+            "dR": _rel_err(ref.slstm_dr(h, h0, dwx),
+                           ref.slstm_dr(h, h0, want_dwx), abs_errs)}
+    # the Function against autograd of the plain scan, each its own forward
+    wx_g, r_g = wx.clone().requires_grad_(), r.clone().requires_grad_()
+    h_g, *_ = sl.SLSTMScan.apply(wx_g, r_g, *(state or (None,) * 4))
+    h_g.backward(dh)
+    wx_a, r_a = wx.clone().requires_grad_(), r.clone().requires_grad_()
+    ref.slstm_scan_ref(wx_a, r_a, state)[0].backward(dh)
+    errs["fn dwx"] = _rel_err(wx_g.grad, wx_a.grad, abs_errs)
+    errs["fn dR"] = _rel_err(r_g.grad, r_a.grad, abs_errs)
+    torch.cuda.synchronize()
+    p = sl.plan_bwd(b, nh, hd, *sl.card_limits(0))
+    print(f"[kernels] slstm backward ({b}, {s}, 4, {nh}, {hd}) from "
+          f"{'a given' if with_state else 'the zero'} state, forget bias "
+          f"{f_bias}, {p.blocks} blocks of {p.units} units x {p.slices} "
+          f"slices: max|err| / max|ref| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (max|dwx| {float(want_dwx.abs().max()):.4g}, largest "
+          f"max|err| {max(abs_errs):.3g}; tol {SLSTM_BWD_TOL}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    bad = {k: v for k, v in errs.items() if not v <= SLSTM_BWD_TOL}
+    if bad:
+        fail(f"slstm backward ({b}, {s}, {nh}, {hd}) state={with_state}: "
+             f"{bad} over {SLSTM_BWD_TOL} of max|ref|")
+    return max(abs_errs)
+
+
+def phase_slstm_bwd(card: str, ptxas: str) -> dict:
+    """The sLSTM backward kernel against its plain version on the card at
+    SLSTM_BWD_CASES (and the Function against autograd of the plain scan);
+    an hd that :func:`plan_bwd` refuses must raise before any launch; two
+    launches at the top's shape must agree bit for bit.  Then timed at the
+    top's shape (B 4) and a bottom's (B 1), against the plain backward and
+    the bound, with the time a step."""
+    import torch
+
+    from repro_torch.kernels import ref
+    sl = importlib.import_module("repro_torch.kernels.slstm_scan")
+    n_sm, smem_optin = sl.card_limits(0)
+    for line in ptxas.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print(f"[kernels] slstm backward ptxas: {line.strip()}")
+    err = 0.0
+    for i, case in enumerate(SLSTM_BWD_CASES):
+        err = max(err, _check_slstm_bwd(case, 60 + i))
+    for refused in itertools.count(512):
+        try:
+            sl.plan_bwd(SERVE_BATCH, 4, refused, n_sm, smem_optin)
+        except ValueError:
+            break
+    err = max(err, _check_slstm_bwd(
+        (SERVE_BATCH, 64, 4, refused - 1, True, 3.0), 80))
+    wx, r, _ = _slstm_inputs(SERVE_BATCH, 8, 4, refused, False, 0.0, 81)
+    _, _, saved = sl.slstm_scan_cuda(wx, r, save=True)
+    before = sl.LAUNCHES["slstm_scan_bwd"]
+    try:
+        sl.slstm_scan_bwd_cuda(r, *saved, None, torch.ones_like(saved[1]))
+    except ValueError as e:
+        print(f"[kernels] slstm backward at 4 heads of {refused} raises: {e}")
+    else:
+        fail(f"slstm backward at 4 heads of {refused} did not raise")
+    torch.cuda.synchronize()
+    if sl.LAUNCHES["slstm_scan_bwd"] != before:
+        fail(f"slstm backward at 4 heads of {refused} launched before "
+             f"raising")
+    del wx, r, saved
+
+    timing = None
+    for b in (LM_CLIENTS, 1):
+        wx, r, _ = _slstm_inputs(b, LM_SEQ, 4, 512, False, 3.0, 82 + b)
+        _, _, saved = sl.slstm_scan_cuda(wx, r, save=True)
+        dh = torch.randn(b, LM_SEQ, 4, 512, device="cuda")
+        one, two = (sl.slstm_scan_bwd_cuda(r, *saved, None, dh)
+                    for _ in range(2))
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(one, two))
+        print(f"[kernels] slstm backward two launches at pre "
+              f"{tuple(saved[0].shape)}: dwx and dh_0 bit-identical {same}")
+        if not same:
+            fail("two launches of the slstm backward on the same inputs "
+                 "differ")
+        del one, two
+        s, nh, hd = LM_SEQ, 4, 512
+        d = nh * hd
+        n_bytes = 12 * b * s * d * 4 + r.numel() * 4
+        n_flops = 2 * b * s * nh * hd * 4 * hd
+        # the plain version (about 4 s a call, host-bound) is timed at the
+        # top's shape only, once after a warm-up call
+        t = dict(ms=time_ms(lambda: sl.slstm_scan_bwd_cuda(r, *saved, None,
+                                                           dh),
+                            iters=10, warmup=2),
+                 plain_ms=(time_ms(lambda: ref.slstm_scan_bwd_ref(
+                     r, *saved, None, dh), iters=1, warmup=1)
+                     if timing is None else (float("nan"),) * 2),
+                 library_ms=None, bound=bound_ms(n_bytes, n_flops))
+        p = sl.plan_bwd(b, nh, hd, n_sm, smem_optin)
+        print(f"[timing] slstm_scan_bwd at pre {tuple(saved[0].shape)} fp32 "
+              f"({n_flops:.4g} operations, {n_bytes / 1e6:.1f} MB): kernel "
+              f"{t['ms'][0]:.4f} ms (events {t['ms'][1]:.4f}; "
+              f"{t['ms'][0] / s * 1e3:.4f} us a step), "
+              + (f"plain {t['plain_ms'][0]:.4f} ms (events "
+                 f"{t['plain_ms'][1]:.4f}), " if timing is None
+                 else "plain not timed at this shape, ")
+              + f"library n/a (no single PyTorch call), bound "
+              f"{t['bound'][0]:.4f} ms ({t['bound'][1]}); kernel at "
+              f"{n_flops / t['ms'][0] / 1e9:.3f} TFLOP/s, "
+              f"{t['bound'][0] / t['ms'][0]:.4f} of the bound; plan "
+              f"{p.blocks} blocks of {p.units} units x {p.slices} slices, "
+              f"{p.smem_bytes} bytes of shared memory a block; on {card}")
+        if timing is None:             # the top's shape goes in the row
+            timing = {"ms": t["ms"][0], "plain_ms": t["plain_ms"][0],
+                      "library_ms": None, "bound": t["bound"]}
+        del wx, r, saved, dh
+    return {"err": err, "timing": timing}
+
+
 def _mamba2_inputs(b, s, nh, hd, n, dtype, kind, seed):
     """x, dt, A, B, C, D for one case; x, B and C are views of one (B, S,
     nh hd + 2N) tensor, as the model's conv output hands them over."""
@@ -1434,7 +1652,6 @@ def phase_profile(card: str, trained) -> None:
     round under ``torch.profiler`` for device busy time, kernel time by
     name and the host time of the round's three phase spans."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.train import build_run
@@ -1465,24 +1682,20 @@ def phase_profile(card: str, trained) -> None:
           f"rounds: {', '.join(f'{m:.4f}' for m in masks)}")
     if masks[-1] >= 1.0:
         fail("the profiled round had no confident anchor")
-    events = prof.key_averages()
     # device-side entries only: kernels and copies (the spans' device-side
     # mirrors cover whole phases and would count every kernel twice)
-    kernels = sorted((e for e in events
-                      if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
-                      and not e.key.startswith("semisfl.")),
-                     key=_dev_us, reverse=True)
-    busy = sum(_dev_us(e) for e in kernels) / 1e6
-    ours = {k: (sum(_dev_us(e) for e in kernels if k in e.key) / 1e6,
-                sum(e.count for e in kernels if k in e.key))
-            for k in OUR_KERNELS}
+    device = [op for op in _device_ops(prof)
+              if not op[0].startswith("semisfl.")]
+    kernels = _by_name(device)
+    busy = sum(t for _, t, _ in kernels)
+    ours = _ours(kernels, OUR_KERNELS)
     print(f"[profile] round wall (no profiler) "
           f"{', '.join(f'{w:.6f}' for w in walls)} s; under the profiler "
           f"{wall_prof:.6f} s, device busy {busy:.6f} s (idle share "
           f"{1 - busy / wall_prof:.4f}); the ported kernels "
           f"{sum(t for t, _ in ours.values()):.6f} s ("
           f"{', '.join(f'{k} {t:.6f} x{n}' for k, (t, n) in ours.items())}"
-          f"); {sum(e.count for e in kernels)} device ops; on {card}")
+          f"); {len(device)} device ops; on {card}")
     quant = [ours[k] for k in QUANT_KERNELS]
     print(f"[profile] the quantizer a round: "
           f"{sum(t for t, _ in quant) * 1e3:.4f} ms of device time in "
@@ -1490,13 +1703,10 @@ def phase_profile(card: str, trained) -> None:
     unseen = [k for k in ROUND_KERNELS if ours[k][1] == 0]
     if unseen:
         fail(f"the profiled round shows no launch of {unseen}")
-    for e in events:
-        if e.key.startswith("semisfl.") and e.device_type == DeviceType.CPU:
-            print(f"[profile] span {e.key}: host {e.cpu_time_total / 1e3:.3f}"
-                  f" ms")
-    for e in kernels[:12]:
-        print(f"[profile] device {_dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
-              f"{e.key[:100]}")
+    for name, host_s in _host_spans(prof, "semisfl.").items():
+        print(f"[profile] span {name}: host {host_s * 1e3:.3f} ms")
+    for name, t, n in kernels[:12]:
+        print(f"[profile] device {t * 1e3:9.3f} ms x{n:<5d} {name[:100]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1802,7 +2012,6 @@ def _profile_round(card: str, arch: str, wire: str, lr: float,
     wall, device busy time and idle share, the ported kernels' device time
     a launch, and the top kernels."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.train import build_run
@@ -1815,24 +2024,21 @@ def _profile_round(card: str, arch: str, wire: str, lr: float,
                                     run.controller, rng_np=run.select_rng)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
-                      and not e.key.startswith("semisfl.")),
-                     key=_dev_us, reverse=True)
-    busy = sum(_dev_us(e) for e in kernels) / 1e6
-    ours = ", ".join(
-        f"{k} {sum(_dev_us(e) for e in kernels if k in e.key) / 1e3:.4f} ms"
-        f" x{sum(e.count for e in kernels if k in e.key)}"
-        for k in OUR_KERNELS)
+    device = [op for op in _device_ops(prof)
+              if not op[0].startswith("semisfl.")]
+    kernels = _by_name(device)
+    busy = sum(t for _, t, _ in kernels)
+    ours = ", ".join(f"{k} {t * 1e3:.4f} ms x{n}" for k, (t, n)
+                     in _ours(kernels, OUR_KERNELS).items())
     if not np.isfinite([m.f_s, m.f_u]).all():
         fail(f"{arch}: non-finite metrics in the profiled round: {m}")
     print(f"[profile] {arch} wire={wire} round under the profiler: wall "
           f"{wall:.6f} s, device busy {busy:.6f} s (idle share "
-          f"{1 - busy / wall:.4f}), {sum(e.count for e in kernels)} device "
-          f"ops; the ported kernels: {ours}; on {card}")
-    for e in kernels[:8]:
-        print(f"[profile] {arch} device {_dev_us(e) / 1e3:9.3f} ms "
-              f"x{e.count:<5d} {e.key[:100]}")
+          f"{1 - busy / wall:.4f}), {len(device)} device ops; the ported "
+          f"kernels: {ours}; on {card}")
+    for name, t, n in kernels[:8]:
+        print(f"[profile] {arch} device {t * 1e3:9.3f} ms x{n:<5d} "
+              f"{name[:100]}")
 
 
 def phase_models(card: str) -> dict:
@@ -2044,48 +2250,42 @@ def phase_serve_profile(card: str, arch: str) -> None:
     idle share and device time by kernel, for the whole run and for each
     of its two spans (``serve.prefill``, ``serve.decode``: device ops are
     assigned to the span in which they start), with the share of each
-    span's device time in each of the path's ported kernels."""
+    span's device time in each of the path's ported kernels.  The records
+    are read raw (:func:`_device_ops`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     kernels, _, tag = SERVE_PATHS[arch]
     tag += "-profile"
+    t_all = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = _serve_full(arch, lambda _: None)
         wall = time.perf_counter() - t0
-    by_key = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
-                     and not e.key.startswith("serve.")),
-                    key=_dev_us, reverse=True)
-    busy = sum(_dev_us(e) for e in by_key) / 1e6
-    ours = {k: sum(_dev_us(e) for e in by_key if name in e.key) / 1e6
+    device = [op for op in _device_ops(prof)
+              if not op[0].startswith("serve.")]
+    busy = sum(dur for _, _, dur in device) / 1e9
+    ours = {k: sum(dur for n, _, dur in device if name in n) / 1e9
             for k, name in kernels.items()}
     print(f"[{tag}] under the profiler: prefill {res.prefill_s:.6f} "
           f"s, decode {res.decode_s:.6f} s, serve_config {wall:.6f} s "
           f"(weight init included); device busy {busy:.6f} s (idle share "
           f"{1 - busy / wall:.4f} of serve_config's wall); "
           + ", ".join(f"{k} {v:.6f} s" for k, v in ours.items())
-          + f"; {sum(e.count for e in by_key)} device ops; on {card}")
-    events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("serve.")]
+          + f"; {len(device)} device ops; on {card}")
+    spans = {e.name(): (e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CPU
+             and e.name() in ("serve.prefill", "serve.decode")}
     for span in ("serve.prefill", "serve.decode"):
-        rng = next(e.time_range for e in events if e.name == span
-                   and e.device_type == DeviceType.CPU)
-        inside = [e for e in device
-                  if rng.start <= e.time_range.start < rng.end]
-        span_busy = sum(e.time_range.elapsed_us() for e in inside) / 1e6
-        span_wall = rng.elapsed_us() / 1e6
-        by_name: dict[str, list] = {}
-        for e in inside:
-            acc = by_name.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us() / 1e3
-            acc[1] += 1
+        start, end = spans[span]
+        inside = [op for op in device if start <= op[1] < end]
+        by_name = _by_name(inside)
+        span_busy = sum(t for _, t, _ in by_name)
+        span_wall = (end - start) / 1e9
         shares = []
         for k, name in kernels.items():
-            span_ours = sum(ms for n, (ms, _) in by_name.items()
-                            if name in n) / 1e3
+            span_ours = sum(t for n, t, _ in by_name if name in n)
             shares.append(f"{k} {span_ours:.6f} s "
                           f"({span_ours / max(span_busy, 1e-12):.4f} of the "
                           f"device time)")
@@ -2093,10 +2293,11 @@ def phase_serve_profile(card: str, arch: str) -> None:
               f"device busy {span_busy:.6f} s (idle share "
               f"{1 - span_busy / span_wall:.4f}), {len(inside)} device ops; "
               + "; ".join(shares))
-        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
-                                    )[:8]:
-            print(f"[{tag}]   {span} device {ms:10.3f} ms x{n:<6d} "
+        for name, t, n in by_name[:8]:
+            print(f"[{tag}]   {span} device {t * 1e3:10.3f} ms x{n:<6d} "
                   f"{name[:90]}")
+    print(f"[{tag}] the profiled run and its read took "
+          f"{time.perf_counter() - t_all:.1f} s")
 
 
 def phase_serve_cross_check(arch: str) -> None:
@@ -2406,32 +2607,69 @@ def _lm_tokens(cfg, k: int, n: int, seq: int, seed: int) -> dict:
 
 
 def _lm_launches(cfg, n: int, wire) -> dict:
-    """Each kernel's launches in one LM train step: flash attention once per
-    layer per forward pass (each client's bottom layers on its own batch,
-    the top's on the flat one) in the teacher pass, the student pass and
-    the student's recompute in the backward pass, all the wgmma kernel's in
-    bf16; its backward once per layer (the tensor-core kernels in bf16);
-    the clustering pair once; the int8 wire's two-pass quantizer (a client
-    slice of S x d_model floats is past what a cluster holds) three times:
-    teacher and student features, and the cut's gradient, where the wire
-    is ``int8``."""
+    """Each kernel's launches in one LM train step.  Each client's bottom
+    runs on its own batch, the top on the flat one, in three forward
+    passes: the teacher's, the student's and the student's recompute in
+    the backward pass.  Dense: flash attention once per layer a pass, all
+    the wgmma kernel's in bf16, and its backward once per layer (the
+    tensor-core kernels in bf16).  xLSTM: the sLSTM scan once per sLSTM
+    block a pass (one a group), its backward once per block; no flash.
+    Both: the clustering pair once; the int8 wire's two-pass quantizer (a
+    client slice of S x d_model floats is past what a cluster holds) three
+    times: teacher and student features, and the cut's gradient, where the
+    wire is ``int8``."""
     from repro_torch.models.transformer import build_model
-    split = build_model(cfg).split
-    layers = n * split + cfg.num_layers - split
+    model = build_model(cfg)
     quant = 3 if wire == "int8" else 0
-    return {"flash_attention": 3 * layers,
-            "flash_attention_wgmma": 3 * layers if cfg.dtype == "bfloat16"
-            else 0,
-            "flash_attention_bwd": layers,
-            "flash_attention_bwd_wgmma": layers if cfg.dtype == "bfloat16"
-            else 0, "clustering_fwd": 1,
-            "clustering_bwd": 1, "quantize_amax": quant,
-            "quantize_qdq": quant, "quantize_fused": 0}
+    want = {"clustering_fwd": 1, "clustering_bwd": 1, "quantize_amax": quant,
+            "quantize_qdq": quant, "quantize_fused": 0, "mamba2_scan": 0}
+    if cfg.xlstm:
+        blocks = n * model.split_groups + model.n_groups - model.split_groups
+        return dict(want, slstm_scan=3 * blocks, slstm_scan_bwd=blocks,
+                    flash_attention=0, flash_attention_bwd=0)
+    layers = n * model.split + cfg.num_layers - model.split
+    bf16 = cfg.dtype == "bfloat16"
+    return dict(want, flash_attention=3 * layers,
+                flash_attention_wgmma=3 * layers if bf16 else 0,
+                flash_attention_bwd=layers,
+                flash_attention_bwd_wgmma=layers if bf16 else 0,
+                slstm_scan=0, slstm_scan_bwd=0)
 
 
-def phase_lm_train(card: str) -> dict:
-    """The LM training path: ``h2o-danube-1.8b`` at full width and depth
-    (24 layers, split 6 + 18), bf16, through
+# the LM training paths: arch -> (the log tag; the depth and rate of the
+# trained config; the config cut in depth for the card-vs-CPU step and its
+# tokens a client there; the profiler names of the path's ported kernels;
+# a kernel that must not run in the bf16 step).  Danube trains at full
+# depth and JAX's default rate.  xLSTM-1.3B trains at full width cut to 16
+# blocks (its first two groups of 7 mLSTM + 1 sLSTM, split 1 + 1) at rate
+# 2e-4: at random init the SemiSFL step (plain SGD, each client's bottom
+# gradient times N) meets a first gradient of 8.4e4 on a client bottom at
+# 48 blocks (172 at 16) and takes them to non-finite values in the second
+# step at rates 2e-4 and 2e-5, and 24 blocks in the third, where 16 stay
+# finite (scripts/xlstm_depth_probe.py); JAX's step from its own init does
+# the same at the smoke width (the study in tests/test_torch_xlstm_train.py).
+# At a rate that keeps 48 blocks finite (2e-8) the random model's
+# pseudo-labels gave Eq. (5) no positive in 4 steps
+LM_TRAIN_PATHS = {
+    "h2o-danube-1.8b": (
+        "lm-train", None, 0.02,
+        lambda cfg: replace(cfg, num_layers=2, semisfl=replace(
+            cfg.semisfl, split_layer=1)), 512,
+        ("flash_kernel_wgmma", "flash_bwd_delta", "flash_bwd_dkdv_wgmma",
+         "flash_bwd_dq_wgmma", "clustering_", "amax_kernel", "qdq_kernel"),
+        ("flash_bwd_dkdv<", "flash_bwd_dq<")),
+    "xlstm-1.3b": (
+        "lm-train-xlstm", 16, 2e-4,
+        lambda cfg: replace(cfg, num_layers=4, xlstm=replace(
+            cfg.xlstm, slstm_period=2)), 256,
+        ("slstm_scan_kernel", "slstm_scan_bwd_kernel", "clustering_",
+         "amax_kernel", "qdq_kernel"), ()),
+}
+
+
+def phase_lm_train(card: str, arch: str) -> dict:
+    """An LM training path at full width (and the depth and rate of
+    LM_TRAIN_PATHS), bf16, through
     ``repro_torch.launch.steps.make_train_phase`` with the ``int8`` wire and
     tau 0: 4 clients x 1 sequence x 4096 tokens (train_4k's sequence; the
     global batch cut from 256 to 4 for one card's memory), weights and
@@ -2439,21 +2677,23 @@ def phase_lm_train(card: str) -> dict:
     :func:`_lm_tokens`).  One warm-up step, then 3 timed steps (host clock
     ending in a synchronize), every kernel's count set to 0 just before the
     4 steps and read after; peak device memory; then one step under
-    ``torch.profiler``.  Fails unless every metric is finite, Eq. (5) is
-    live after the first step, the top, the bottoms and the teacher bottoms
-    moved, the queue's pointer advanced, and each kernel ran as often as
-    :func:`_lm_launches` says."""
+    ``torch.profiler`` (its device ops read raw, :func:`_device_ops`).
+    Fails unless every metric is finite, Eq. (5) is live after the first
+    step, the top, the bottoms and the teacher bottoms moved, the queue's
+    pointer advanced, every leaf of the state is finite, each kernel ran
+    as often as :func:`_lm_launches` says, and the profiled step shows
+    each of the path's kernels."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import init_train_state, make_train_phase
     from repro_torch.tree import tree_leaves
-    base = get_config(LM_ARCH)
-    cfg = replace(base, semisfl=replace(base.semisfl,
-                                        confidence_threshold=0.0))
+    tag, depth, lr, _, _, names, refused = LM_TRAIN_PATHS[arch]
+    base = get_config(arch)
+    cfg = replace(base, num_layers=depth or base.num_layers,
+                  semisfl=replace(base.semisfl, confidence_threshold=0.0))
     plan = _lm_plan(cfg, LM_CLIENTS, LM_SEQ)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2466,19 +2706,18 @@ def phase_lm_train(card: str) -> dict:
     n_params = sum(t.numel() for t in tensors(
         [state["client_bottoms"][0], state["top"]]))
     n_bytes = sum(t.numel() * t.element_size() for t in tensors(state))
-    print(f"[lm-train] {LM_ARCH} as built: {n_params / 1e9:.4f} B "
+    print(f"[{tag}] {arch} as built: {n_params / 1e9:.4f} B "
           f"parameters (one bottom + the top); the state "
           f"{n_bytes / 2**30:.3f} GiB ({LM_CLIENTS} client and teacher "
           f"bottoms, top, teacher top, heads, queue); drawn in "
           f"{init_s:.2f} s")
-    snap = lambda st: [st["top"]["lm_head"][:4].clone(),
-                       st["client_bottoms"][0]["stack"][0]["attn"]["wq"][:4]
-                       .clone(),
-                       st["teacher_bottoms"][0]["stack"][0]["attn"]["wq"][:4]
-                       .clone(), st["queue"].ptr]
+    # copies on the host, so that they do not count in the peak
+    snap = lambda st: [[t.cpu() for t in tensors(tree)] for tree in (
+        st["top"], st["client_bottoms"][0], st["teacher_bottoms"][0])] + [
+        st["queue"].ptr]
     before = snap(state)
     tokens = _lm_tokens(cfg, 5, LM_CLIENTS, LM_SEQ, seed=0)
-    phase = make_train_phase(plan, lr=0.02, wire="int8")
+    phase = make_train_phase(plan, lr=lr, wire="int8")
     part = lambda a, b: {k: v[a:b] for k, v in tokens.items()}
 
     reset_launch_counts()
@@ -2494,91 +2733,100 @@ def phase_lm_train(card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     metrics = {k: torch.cat([m_warm[k], m[k]]).tolist() for k in m}
     tokens_step = LM_CLIENTS * LM_SEQ
-    print(f"[lm-train] {LM_ARCH} full width and depth, bf16, int8 wire, tau "
-          f"0, {LM_CLIENTS} clients x 1 x {LM_SEQ} tokens: warm-up step "
+    print(f"[{tag}] {arch} full width, {cfg.num_layers} of "
+          f"{base.num_layers} layers, bf16, int8 wire, tau 0, rate {lr}, "
+          f"{LM_CLIENTS} clients x 1 x {LM_SEQ} tokens: warm-up step "
           f"{warm_s:.4f} s; 3 timed steps {wall:.6f} s a step, "
           f"{tokens_step / wall:.1f} tokens/s; peak device memory "
           f"{peak / 2**30:.3f} GiB; on {card}")
-    print(f"[lm-train] metrics of the 4 steps: " + "; ".join(
+    print(f"[{tag}] metrics of the 4 steps: " + "; ".join(
         f"{k} {', '.join(f'{x:.6g}' for x in v)}" for k, v in
         metrics.items()))
     want = _lm_launches(cfg, LM_CLIENTS, "int8")
-    print(f"[lm-train] launches in the 4 steps: {launches}; want a step: "
+    print(f"[{tag}] launches in the 4 steps: {launches}; want a step: "
           f"{want}")
     for kernel, n in want.items():
         if launches[kernel] != 4 * n:
-            fail(f"LM training launched {kernel} {launches[kernel]} times "
-                 f"in 4 steps, want {4 * n}")
+            fail(f"{arch} training launched {kernel} {launches[kernel]} "
+                 f"times in 4 steps, want {4 * n}")
     if not np.isfinite([x for v in metrics.values() for x in v]).all():
-        fail(f"LM training gave non-finite metrics {metrics}")
+        fail(f"{arch} training gave non-finite metrics {metrics}")
     if max(metrics["clustering"][1:]) <= 0.0:
-        fail("LM training: Eq. (5) found no positive after the first step")
+        fail(f"{arch} training: Eq. (5) found no positive after the first "
+             f"step")
     after = snap(state)
-    moved = [float((a.float() - b.float()).abs().max())
-             for a, b in zip(before[:3], after[:3])]
-    print(f"[lm-train] max|change| over 4 steps: top lm_head {moved[0]:.4g}, "
-          f"client 0 bottom layer 0 wq {moved[1]:.4g}, its teacher "
-          f"{moved[2]:.4g}; queue ptr {before[3]} -> {after[3]}")
-    if min(moved) <= 0.0 or after[3] == before[3]:
-        fail("LM training: a parameter group or the queue did not move")
+    moved = [max(float((a.float() - b.float()).abs().max())
+                 for a, b in zip(was, now))
+             for was, now in zip(before[:3], after[:3])]
+    print(f"[{tag}] max|change| over 4 steps, over every leaf: the top "
+          f"{moved[0]:.4g}, client 0's bottom {moved[1]:.4g}, its "
+          f"teacher {moved[2]:.4g}; queue ptr {before[3]} -> {after[3]}")
+    if not (np.isfinite(moved).all() and min(moved) > 0.0) \
+            or after[3] == before[3]:
+        fail(f"{arch} training: a parameter group or the queue did not "
+             f"move")
+    bad = [i for i, t in enumerate(tensors(state))
+           if not bool(torch.isfinite(t.float()).all())]
+    if bad:
+        fail(f"{arch} training: {len(bad)} leaves of the state are not "
+             f"finite after 4 steps")
 
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         state, _ = phase(state, part(4, 5))
         torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and _dev_us(e) > 0),
-                     key=_dev_us, reverse=True)
-    busy = sum(_dev_us(e) for e in kernels) / 1e6
-    ours = {name: (sum(_dev_us(e) for e in kernels if name in e.key) / 1e6,
-                   sum(e.count for e in kernels if name in e.key))
-            for name in ("flash_kernel_wgmma", "flash_bwd_delta",
-                         "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma",
-                         "clustering_", "amax_kernel", "qdq_kernel")}
-    print(f"[lm-train-profile] one step under the profiler: wall "
+        wall_prof = time.perf_counter() - t1
+    ops = _device_ops(prof)
+    kernels = _by_name(ops)
+    busy = sum(t for _, t, _ in kernels)
+    ours = _ours(kernels, names)
+    print(f"[{tag}-profile] one step under the profiler: wall "
           f"{wall_prof:.6f} s, device busy {busy:.6f} s (idle share "
-          f"{1 - busy / wall_prof:.4f}), {sum(e.count for e in kernels)} "
-          f"device ops; " + ", ".join(
+          f"{1 - busy / wall_prof:.4f}), {len(ops)} device ops; " + ", ".join(
               f"{k} {t:.6f} s x{n} ({t / max(busy, 1e-12):.4f} of the device "
               "time)"
-              for k, (t, n) in ours.items()) + f"; on {card}")
-    for e in kernels[:12]:
-        print(f"[lm-train-profile] device {_dev_us(e) / 1e3:10.3f} ms "
-              f"x{e.count:<5d} {e.key[:100]}")
+              for k, (t, n) in ours.items()) + f"; profiler and its read "
+          f"{time.perf_counter() - t0 - wall_prof:.1f} s; on {card}")
+    for k, t, c in kernels[:12]:
+        print(f"[{tag}-profile] device {t * 1e3:10.3f} ms x{c:<6d} "
+              f"{k[:100]}")
     if any(n == 0 for _, n in ours.values()):
-        fail(f"the profiled LM step shows no launch of some kernel: {ours}")
-    cuda_cores = [e.key for e in kernels
-                  if "flash_bwd_dkdv<" in e.key or "flash_bwd_dq<" in e.key]
-    if cuda_cores:
-        fail(f"the bf16 LM step ran the CUDA-core backward: {cuda_cores}")
-    del state
+        fail(f"the profiled {arch} step shows no launch of some kernel: "
+             f"{ours}")
+    wrong = [k for k, _, _ in kernels if any(r in k for r in refused)]
+    if wrong:
+        fail(f"the bf16 {arch} step ran the CUDA-core backward: {wrong}")
+    del state, prof, ops
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_lm_cross_check() -> None:
+def phase_lm_cross_check(arch: str) -> None:
     """One LM train step on the card against the same step on the CPU:
-    ``h2o-danube-1.8b`` at full width cut to 2 layers (split 1 + 1), fp32
-    with TF32 off, 2 clients x 1 sequence x 512 tokens, tau 0, no wire,
-    from one state (drawn on the card from seed 1, then one step on the
-    same batch to fill the queue) copied to the CPU.  Every
-    metric and every leaf of the new state within 1e-3 (cuBLAS and the CPU
-    sum in other orders, the kernels against their plain versions too: the
-    tolerance of phase 5), and the sequence pseudo-labels written to the
-    queue equal; the card's step must launch each kernel as
-    :func:`_lm_launches` says."""
+    ``arch`` at full width cut in depth (LM_TRAIN_PATHS: danube to 2
+    layers, split 1 + 1; xLSTM to 4 blocks with an sLSTM every 2, split 1
+    + 1 group), fp32 with TF32 off, 2 clients x 1 sequence (512 tokens for
+    danube, 256 for xLSTM: two mLSTM chunks, so the chunk carry is
+    differentiated), tau 0, no wire, from one state (drawn on the card
+    from seed 1, then one step on the same batch to fill the queue) copied
+    to the CPU.  Every metric and every leaf of the new state within 1e-3
+    (cuBLAS and the CPU sum in other orders, the kernels against their
+    plain versions too: the tolerance of phase 5), and the sequence
+    pseudo-labels written to the queue equal; the card's step must launch
+    each kernel as :func:`_lm_launches` says."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_train_state_to_numpy
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import init_train_state, make_train_step
-    base = get_config(LM_ARCH)
-    cfg = replace(base, num_layers=2, dtype="float32", semisfl=replace(
-        base.semisfl, split_layer=1, confidence_threshold=0.0))
-    n, seq = 2, 512
+    tag, _, _, cut, seq, _, _ = LM_TRAIN_PATHS[arch]
+    base = cut(get_config(arch))
+    cfg = replace(base, dtype="float32", semisfl=replace(
+        base.semisfl, confidence_threshold=0.0))
+    n = 2
     plan = _lm_plan(cfg, n, seq)
     batch = {k: v[0] for k, v in _lm_tokens(cfg, 1, n, seq, seed=2).items()}
     step = make_train_step(plan, lr=0.02)
@@ -2601,15 +2849,15 @@ def phase_lm_cross_check() -> None:
     worst, worst_at = 0.0, ""
     for (path, a), (path_w, b) in leaves:
         if path != path_w or a.shape != b.shape:
-            fail(f"LM cross-check: state leaves {path} {a.shape} and "
+            fail(f"{arch} LM cross-check: state leaves {path} {a.shape} and "
                  f"{path_w} {b.shape} do not pair up")
         e = float(np.abs(a.astype(np.float32) - b.astype(np.float32)).max())
         if e > worst:
             worst, worst_at = e, path
         if not np.allclose(a, b, atol=1e-3, rtol=1e-3):
-            fail(f"LM cross-check: {path} differs card vs CPU by {e}")
-    print(f"[cross-lm-train] {LM_ARCH} width {cfg.d_model}, 2 layers (split "
-          f"1 + 1), fp32, {n} clients x 1 x {seq} tokens, one step: card vs "
+            fail(f"{arch} LM cross-check: {path} differs card vs CPU by {e}")
+    print(f"[cross-{tag}] {arch} width {cfg.d_model}, {cfg.num_layers} "
+          f"layers, fp32, {n} clients x 1 x {seq} tokens, one step: card vs "
           f"CPU metrics {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
           f" (loss {float(m_cpu['loss']):.6g}, clustering "
           f"{float(m_cpu['clustering']):.6g}); {len(leaves)} state leaves, "
@@ -2617,18 +2865,21 @@ def phase_lm_cross_check() -> None:
           f"{q_gpu['label'][:n].tolist()} CPU {q_cpu['label'][:n].tolist()};"
           f" launches on the card {counts}; {time.perf_counter() - t0:.1f} s")
     if float(m_cpu["clustering"]) <= 0.0:
-        fail("LM cross-check: Eq. (5) had no positive in the step compared")
+        fail(f"{arch} LM cross-check: Eq. (5) had no positive in the step "
+             f"compared")
     if any(v > 1e-3 * max(1.0, abs(float(m_cpu.get(k, 0.0))))
            for k, v in errs.items()):
-        fail(f"LM cross-check: metrics or queue features differ: {errs}")
+        fail(f"{arch} LM cross-check: metrics or queue features differ: "
+             f"{errs}")
     for f in ("label", "conf", "valid"):
         if not np.array_equal(q_gpu[f], q_cpu[f]):
-            fail(f"LM cross-check: the queue's {f} differs card vs CPU")
+            fail(f"{arch} LM cross-check: the queue's {f} differs card vs "
+                 f"CPU")
     if q_gpu["ptr"] != q_cpu["ptr"]:
-        fail("LM cross-check: the queue pointers differ")
+        fail(f"{arch} LM cross-check: the queue pointers differ")
     for kernel, k_n in _lm_launches(cfg, n, None).items():
         if counts[kernel] != k_n:
-            fail(f"LM cross-check: the card launched {kernel} "
+            fail(f"{arch} LM cross-check: the card launched {kernel} "
                  f"{counts[kernel]} times, want {k_n}")
 
 
@@ -2661,6 +2912,10 @@ KERNEL_META = {
                             "src/repro/models/attention.py:74"),
     "slstm_scan": ("src/repro_torch/csrc/slstm_scan.cu",
                    "src/repro/kernels/slstm_scan.py:77"),
+    # as flash's backward: the JAX model trains through the VJP of its
+    # lax.scan over slstm_step
+    "slstm_scan_bwd": ("src/repro_torch/csrc/slstm_scan_bwd.cu",
+                       "src/repro/models/xlstm.py:241"),
     "mamba2_scan": ("src/repro_torch/csrc/mamba2_scan.cu",
                     "src/repro/kernels/mamba2_scan.py:88"),
 }
@@ -2693,6 +2948,9 @@ def main() -> int:
     slstm = phase_slstm(card, ptxas.get("slstm_scan", ""))
     checked["errs"]["slstm_scan"] = slstm["err"]
     checked["timings"]["slstm_scan"] = slstm["timing"]
+    slstm_bwd = phase_slstm_bwd(card, ptxas.get("slstm_scan_bwd", ""))
+    checked["errs"]["slstm_scan_bwd"] = slstm_bwd["err"]
+    checked["timings"]["slstm_scan_bwd"] = slstm_bwd["timing"]
     mamba2 = phase_mamba2(card, ptxas.get("mamba2_scan", ""))
     checked["errs"]["mamba2_scan"] = mamba2["err"]
     checked["timings"]["mamba2_scan"] = mamba2["timing"]
@@ -2739,12 +2997,15 @@ def main() -> int:
         phase_serve_cross_check(arch)
         lap(f"{arch} serving path")
 
-    # the LM training path reads its own counts (set to 0 inside, just
-    # before its steps); flash attention keeps its serving count
-    lm = phase_lm_train(card)
-    launches["flash_attention_bwd"] = lm["flash_attention_bwd"]
-    phase_lm_cross_check()
-    lap("LM training path")
+    # each LM training path reads its own counts (set to 0 inside, just
+    # before its steps); a kernel already counted on a serving path (flash
+    # attention, the sLSTM scan) keeps that count
+    for arch in LM_TRAIN_PATHS:
+        lm = phase_lm_train(card, arch)
+        for kernel, n in lm.items():
+            launches[kernel] = launches[kernel] or n
+        phase_lm_cross_check(arch)
+        lap(f"{arch} training path")
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -164,13 +164,20 @@ def _stack_trees(trees: list):
 
 
 def _lm_half_to_numpy(part: dict) -> dict:
-    """The port's dense ``bottom`` or ``top`` tree -> numpy in the JAX
-    layout, ``stack`` on a leading layer axis."""
+    """The port's ``bottom`` or ``top`` tree -> numpy in the JAX layout
+    (the inverse of :func:`_lm_half_from_numpy`): ``stack`` on a leading
+    layer axis; xLSTM's ``groups`` as ``{"mlstm": on (groups, blocks),
+    "slstm": on (groups,)}``."""
     out = {}
     for key, sub in part.items():
         leaves = tree_map(_array, sub)
-        out[key] = (_stack_trees(leaves) if key == "stack" and leaves
-                    else leaves)
+        if key == "stack" and leaves:
+            leaves = _stack_trees(leaves)
+        elif key == "groups" and leaves:
+            leaves = {"mlstm": _stack_trees([_stack_trees(g["mlstm"])
+                                             for g in leaves]),
+                      "slstm": _stack_trees([g["slstm"] for g in leaves])}
+        out[key] = leaves
     return out
 
 
@@ -180,10 +187,11 @@ def lm_train_state_from_numpy(state: dict,
     structure) as numpy -> the port's (``repro_torch.launch.steps``).
     JAX stacks the N clients' bottoms and teacher bottoms on a leading
     client axis, and each bottom's layers on a second one inside
-    ``stack``; the port keeps a list of N client trees, each with a list of
-    per-layer trees.  The top, teacher top and projection heads unstack
-    as ``lm_params_from_numpy`` does; the queue goes through
-    :func:`queue_from_numpy`."""
+    ``stack`` (xLSTM's groups inside ``groups``, and each group's mLSTM
+    blocks on a third); the port keeps a list of N client trees, each with
+    a list of per-layer trees (of per-group trees).  The top, teacher top
+    and projection heads unstack as ``lm_params_from_numpy`` does; the
+    queue goes through :func:`queue_from_numpy`."""
     def clients(stacked):
         n = len(tree_leaves(stacked)[0])
         return [_lm_half_from_numpy(tree_map(lambda a, i=i: a[i], stacked),

@@ -68,6 +68,12 @@
 // hold it.  A barrier over co-resident blocks lets R spread over 32 SMs a
 // head.
 //
+// For training the entry point also takes four output pointers: each step's
+// gate pre-activations pre_t = (z~, i~, f~, o~) as (B, S, 4, nh, hd), and c_t,
+// n_t and m_t as (B, S, nh, hd), which csrc/slstm_scan_bwd.cu reads going
+// back.  The gates write them beside h; with null pointers (serving, the
+// teacher's pass) nothing more is written.
+//
 // Built with -DSLSTM_PROFILE, the first block's thread 0 adds up the clocks
 // of each phase of a step, read back by slstm_scan_profile()
 // (repro_torch/kernels/slstm_scan.py's step_profile); without it the
@@ -82,6 +88,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "slstm_common.cuh"  // the barrier, butterfly and cp.async helpers
 
 #ifdef SLSTM_PROFILE
 constexpr int kPhases = 10;
@@ -135,55 +143,10 @@ struct Params {
   const float* r;
   const float *h0, *c0, *n0, *m0;
   float *h_out, *h_fin, *c_fin, *n_fin, *m_fin;
+  float *pre_out, *c_out, *n_out, *m_out;   // all four or none (null)
   unsigned* arrivals;
   int B, S, nh, hd, units, groups;
 };
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void red_release(unsigned* p, unsigned v) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-// a ? x : y on values already in registers; written as selp so that the
-// compiler cannot turn it into a load from a computed index, which would
-// put the butterfly's array in local memory
-__device__ __forceinline__ float select(bool a, float x, float y) {
-  float r;
-  asm("{ .reg .pred p; setp.ne.b32 p, %3, 0; selp.f32 %0, %1, %2, p; }"
-      : "=f"(r) : "f"(x), "f"(y), "r"((int)a));
-  return r;
-}
-
-// One level of the butterfly over lanes d apart: of its N pairs (v[i],
-// v[i + N]) a lane keeps the upper ones if ``up``, else the lower ones, and
-// adds the partner's.
-template <int N>
-__device__ __forceinline__ void butterfly(float (&v)[16], bool up, int d,
-                                          unsigned lanes) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const float send = select(up, v[i], v[i + N]);
-    const float keep = select(up, v[i + N], v[i]);
-    v[i] = keep + __shfl_xor_sync(lanes, send, d);
-  }
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-               :: "r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
 
 __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;" :: "n"(kRing - 1) : "memory");
@@ -412,6 +375,18 @@ slstm_scan_kernel(const Params p) {
         st[2 * BU + si] = n;
         st[3 * BU + si] = m_new;
         h_t[b * hrow_b] = h;
+        if (p.pre_out) {
+          const long long bt = (long long)b * S + t, unit = head * hd + u0 + ul;
+          const long long o = bt * nh * hd + unit;
+          float* po = p.pre_out + bt * 4 * nh * hd + unit;
+          po[0] = zt;
+          po[nh * hd] = it;
+          po[2 * nh * hd] = ft;
+          po[3 * nh * hd] = ot;
+          p.c_out[o] = c;
+          p.n_out[o] = n;
+          p.m_out[o] = m_new;
+        }
       }
     }
     PHASE(7);
@@ -464,7 +439,9 @@ extern "C" int slstm_scan_limits(int* n_sm, int* smem_optin) {
 // of its first four dims, the unit dim contiguous; r: (nh, hd, 4 hd) fp32
 // contiguous; h0, c0, n0, m0: (B, nh, hd) fp32 contiguous, all four or none
 // (null); h_out: (B, S, nh, hd) fp32 contiguous; h_fin, c_fin, n_fin, m_fin:
-// (B, nh, hd) fp32 contiguous; arrivals: nh zeroed counters.  units (U) and
+// (B, nh, hd) fp32 contiguous; pre_out: (B, S, 4, nh, hd) and c_out, n_out,
+// m_out: (B, S, nh, hd), fp32 contiguous, all four or none (null);
+// arrivals: nh zeroed counters.  units (U) and
 // slices (J, a power of two up to 16) come from the wrapper's plan:
 // ceil(hd / U) blocks a head of U x J threads.  Writes the dynamic shared memory a block takes to
 // *smem_bytes and the blocks the card holds at once to *resident, and
@@ -476,7 +453,9 @@ extern "C" int slstm_scan_fwd(const float* wx, long long wx_sb,
                               const float* h0, const float* c0,
                               const float* n0, const float* m0, float* h_out,
                               float* h_fin, float* c_fin, float* n_fin,
-                              float* m_fin, unsigned* arrivals, int B, int S,
+                              float* m_fin, float* pre_out, float* c_out,
+                              float* n_out, float* m_out,
+                              unsigned* arrivals, int B, int S,
                               int nh, int hd, int units, int slices,
                               int* smem_bytes, int* resident,
                               cudaStream_t stream) {
@@ -518,8 +497,11 @@ extern "C" int slstm_scan_fwd(const float* wx, long long wx_sb,
   *resident = per_sm * n_sm;
   const int grid = nh * groups;
   if (grid > *resident) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (!pre_out != !c_out || !pre_out != !n_out || !pre_out != !m_out)
+    return (int)cudaErrorInvalidValue;
   Params p{wx, wx_sb, wx_st, wx_sg, wx_sh, r, h0, c0, n0, m0, h_out, h_fin,
-           c_fin, n_fin, m_fin, arrivals, B, S, nh, hd, units, groups};
+           c_fin, n_fin, m_fin, pre_out, c_out, n_out, m_out, arrivals,
+           B, S, nh, hd, units, groups};
   void* args[] = {&p};
   return (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(threads), args,
                                           (size_t)smem, stream);

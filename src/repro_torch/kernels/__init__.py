@@ -80,9 +80,17 @@ def slstm_scan(wx: torch.Tensor, r: torch.Tensor,
     """The sLSTM recurrence: wx (B, S, 4, nh, hd) gate inputs [z, i, f, o]
     and r (nh, hd, 4 hd), fp32, from ``state`` = (h, c, n, m), each (B, nh,
     hd), or from zeros and m = -1e30.  Returns h (B, S, nh, hd) and the
-    final (h, c, n, m).  On the card wx may be any view whose unit dim is
-    contiguous."""
+    final (h, c, n, m); differentiable with respect to wx and r.  On the
+    card wx may be any view whose unit dim is contiguous; where a gradient
+    is recorded the call goes through :class:`SLSTMScan` (the forward
+    kernel saving what the backward kernel reads; the state takes no
+    gradient and the final state gives none), else through the forward
+    kernel alone.  On the CPU autograd differentiates the plain version."""
     if _route(wx, "slstm_scan") == "cuda":
+        if torch.is_grad_enabled() and (wx.requires_grad or r.requires_grad):
+            h, *final = _sl.SLSTMScan.apply(
+                wx, r, *(state if state is not None else (None,) * 4))
+            return h, tuple(final)
         return _sl.slstm_scan_cuda(wx, r, state)
     return ref.slstm_scan_ref(wx, r, state)
 

@@ -3,8 +3,9 @@
 Each ``src/repro_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface under
 ``<repo>/build/repro_torch/``, named by a hash of its source, the headers
-it includes (``csrc/hopper.cuh``) and the flags, so a changed source or
-header is rebuilt and an unchanged one is loaded as it is.  The
+it includes (``csrc/hopper.cuh``, ``csrc/slstm_common.cuh``) and the
+flags, so a changed source or header is rebuilt and an unchanged one is
+loaded as it is.  The
 sources are compiled without ``--use_fast_math``: the quantizer must be
 bit-exact, which needs IEEE division and round-half-to-even, and flash
 attention's exponent of masked scores and the sLSTM's of its -1e30
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("clustering_loss", "flash_attention", "flash_attention_bwd",
-           "mamba2_scan", "quantize", "slstm_scan")
+           "mamba2_scan", "quantize", "slstm_scan", "slstm_scan_bwd")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -2,8 +2,9 @@
 
 The same maths as the JAX package's ``kernels/ref.py`` (``flash_attention_ref``,
 ``clustering_loss_ref``, ``quantize_dequantize_ref``, ``slstm_scan_ref`` and
-``mamba2_scan_ref``), and the flash backward that the JAX package leaves to
-autograd (``flash_attention_bwd_ref``), written in the most direct form:
+``mamba2_scan_ref``), and the flash and sLSTM backwards that the JAX package
+leaves to autograd (``flash_attention_bwd_ref``, ``slstm_scan_bwd_ref``),
+written in the most direct form:
 the full (Sq, Skv) and (B, Q) logit matrices, one amax per tensor or per
 leading slice, one Python step per time step of the sLSTM and Mamba2
 recurrences.  The wrappers
@@ -17,6 +18,8 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+# the floor of the sLSTM normalizer n in h = sigmoid(o) c / max(n, N_MIN)
+N_MIN = 1e-6
 
 # qmax per wire format: int8 symmetric range; float8_e4m3fn finite max
 QMAX = {"int8": 127.0, "fp8": 448.0}
@@ -197,16 +200,18 @@ SLSTMState = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def slstm_scan_ref(wx: torch.Tensor, r: torch.Tensor,
-                   state: Optional[SLSTMState] = None
-                   ) -> tuple[torch.Tensor, SLSTMState]:
+                   state: Optional[SLSTMState] = None, *, save: bool = False):
     """Sequential sLSTM recurrence.  wx: (B, S, 4, nh, hd) gate inputs
     [z, i, f, o]; r: (nh, hd, 4*hd) per-head recurrent weights, gate-major
     columns [z | i | f | o], each hd wide; ``state``: the initial (h, c, n,
     m), each (B, nh, hd), or None for h = c = n = 0 and m = -1e30.
 
     Returns h (B, S, nh, hd) in wx's dtype and the final (h, c, n, m) in
-    fp32.  Exponential input and forget gates with the m stabilizer, as the
-    JAX package's ``models/xlstm.py::slstm_step`` computes them:
+    fp32; with ``save`` also what the backward reads, as the kernel's
+    training variant writes it: (pre, c, n, m), each step's gate
+    pre-activations (B, S, 4, nh, hd) and cell state (B, S, nh, hd).
+    Exponential input and forget gates with the m stabilizer, as the JAX
+    package's ``models/xlstm.py::slstm_step`` computes them:
 
       m' = max(f~ + m, i~),  i = exp(i~ - m'),  f = exp(f~ + m - m'),
       c' = f c + i tanh(z~),  n' = f n + i,  h' = sigmoid(o~) c' / max(n', 1e-6)
@@ -217,20 +222,119 @@ def slstm_scan_ref(wx: torch.Tensor, r: torch.Tensor,
         state = (z, z, z, torch.full_like(z, NEG_INF))
     h, c, n, m = (t.float() for t in state)
     rf = r.float()
-    hs = []
+    hs, saved = [], []
     for t in range(s):
         rec = torch.einsum("bhd,hdk->bhk", h, rf)            # (b, nh, 4 hd)
         rec = rec.reshape(b, nh, 4, hd).transpose(1, 2)       # (b, 4, nh, hd)
-        zt, it, ft, ot = (wx[:, t].float() + rec).unbind(1)
+        pre = wx[:, t].float() + rec
+        zt, it, ft, ot = pre.unbind(1)
         m_new = torch.maximum(ft + m, it)
         i_g = torch.exp(it - m_new)
         f_g = torch.exp(ft + m - m_new)
         c = f_g * c + i_g * torch.tanh(zt)
         n = f_g * n + i_g
-        h = torch.sigmoid(ot) * c / n.clamp(min=1e-6)
+        h = torch.sigmoid(ot) * c / torch.maximum(n, n.new_tensor(N_MIN))
         m = m_new
         hs.append(h)
-    return torch.stack(hs, 1).to(wx.dtype), (h, c, n, m)
+        if save:
+            saved.append((pre, c, n, m))
+    out = torch.stack(hs, 1).to(wx.dtype), (h, c, n, m)
+    if save:
+        return (*out, tuple(torch.stack(x, 1) for x in zip(*saved)))
+    return out
+
+
+def slstm_scan_bwd_ref(r: torch.Tensor, pre: torch.Tensor, c: torch.Tensor,
+                       n: torch.Tensor, m: torch.Tensor,
+                       state: Optional[SLSTMState], dh: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sLSTM recurrence's backward, one Python step per time step from
+    t = S - 1 down to 0: the gradient on the gate inputs wx and on the
+    initial h, for the upstream gradient ``dh`` (B, S, nh, hd) on the
+    forward's h.  What the forward saved: ``pre`` (B, S, 4, nh, hd), each
+    step's gate pre-activations wx_t + h_{t-1} R; ``c``, ``n``, ``m`` (B,
+    S, nh, hd), each step's cell state; ``state`` the initial (h, c, n,
+    m), or None for zeros and m = -1e30.  All fp32.
+
+    JAX's chain rule through ``slstm_step`` taken literally, the
+    stabilizer's path included (in exact arithmetic it cancels); a tie of a
+    maximum splits the gradient in halves, as ``jnp.maximum`` does.  With
+    n~ = max(n_t, 1e-6), s = sigmoid(o~) and the carries dc, dn, dm from
+    step t + 1 (0 at S - 1)::
+
+      dh  = dh_t + R dwx_{t+1}             (the recurrent term)
+      do~ = dh (c_t / n~) s (1 - s),  dc += dh s / n~,  dn += -dh s c_t / n~^2
+      i = exp(i~ - m_t),  f = exp(f~ + m_{t-1} - m_t)
+      dz~ = dc i (1 - tanh^2 z~),  di = dc tanh z~ + dn,  df = dc c_{t-1} + dn n_{t-1}
+      di~ = di i,  df~ = df f,  dm = dm_carry - di i - df f, then routed through
+      m_t = max(f~ + m_{t-1}, i~) to i~, or to f~ and m_{t-1}
+      carries: dc f, dn f, dm_{t-1} = df f (+ the routed part)
+
+    Returns dwx (B, S, 4, nh, hd), gate-major as wx, and dh_0 (B, nh, hd),
+    the gradient on the initial h.  The gradient on R is ``slstm_dr`` of
+    dwx and the h the forward read."""
+    b, s, _, nh, hd = pre.shape
+    if state is None:
+        z = torch.zeros(b, nh, hd, device=pre.device)
+        state = (z, z, z, torch.full_like(z, NEG_INF))
+    _, c_prev, n_prev, m_prev = (t.float() for t in state)
+    rf = r.float()
+    zero = torch.zeros(b, nh, hd, device=pre.device)
+    dh_rec, dc, dn, dm = zero, zero, zero, zero
+    dwx = torch.empty(b, s, 4, nh, hd, device=pre.device)
+    for t in range(s - 1, -1, -1):
+        zt, it, ft, ot = pre[:, t].unbind(1)
+        c_t, n_t, m_t = c[:, t], n[:, t], m[:, t]
+        cp, np_, mp = ((c[:, t - 1], n[:, t - 1], m[:, t - 1]) if t > 0
+                       else (c_prev, n_prev, m_prev))
+        g = dh[:, t].float() + dh_rec
+        n_c = torch.maximum(n_t, n_t.new_tensor(N_MIN))
+        sig = torch.sigmoid(ot)
+        a = g / n_c                                  # h = (s c) / n~
+        d_o = a * c_t * sig * (1.0 - sig)
+        dc = dc + a * sig
+        dn_c = -g * (sig * c_t) / (n_c * n_c)
+        dn = dn + dn_c * _tie(n_t, n_t.new_tensor(N_MIN))
+        i_g = torch.exp(it - m_t)
+        f_g = torch.exp(ft + mp - m_t)
+        tz = torch.tanh(zt)
+        dz = dc * i_g * (1.0 - tz * tz)
+        di = dc * tz + dn
+        df = dc * cp + dn * np_
+        di_t, df_t = di * i_g, df * f_g
+        dm = dm - di_t - df_t
+        dmp = df_t
+        to_f = _tie(ft + mp, it)                     # 1, 1/2 or 0
+        df_t = df_t + dm * to_f
+        dmp = dmp + dm * to_f
+        di_t = di_t + dm * (1.0 - to_f)
+        dwx[:, t] = torch.stack([dz, di_t, df_t, d_o], 1)
+        dc, dn, dm = dc * f_g, dn * f_g, dmp
+        dh_rec = torch.einsum("bhk,hdk->bhd",
+                              dwx[:, t].transpose(1, 2).reshape(b, nh, 4 * hd),
+                              rf)
+    return dwx, dh_rec
+
+
+def _tie(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The share of max(x, y)'s gradient that goes to x: 1, 0 or, at a
+    tie, 1/2, as ``jnp.maximum`` splits it."""
+    return torch.where(x > y, 1.0, torch.where(x < y, 0.0, 0.5))
+
+
+def slstm_dr(h: torch.Tensor, h0: Optional[torch.Tensor],
+             dwx: torch.Tensor) -> torch.Tensor:
+    """The gradient on R (nh, hd, 4 hd): for each head the product of the
+    h each step read (the forward's h (B, S, nh, hd) one step back, from
+    the initial h0 (B, nh, hd), zeros if None) with that step's gate
+    gradients dwx (B, S, 4, nh, hd), summed over B and S; one einsum (a
+    batched product over the heads), as autograd of ``slstm_step``'s
+    einsum computes it."""
+    nh, hd = dwx.shape[3], dwx.shape[4]
+    h0 = torch.zeros_like(h[:, 0]) if h0 is None else h0
+    h_prev = torch.cat([h0[:, None].float(), h[:, :-1].float()], 1)
+    return torch.einsum("bshk,bsghu->hkgu", h_prev,
+                        dwx).reshape(nh, hd, 4 * hd)
 
 
 def mamba2_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -15,7 +15,14 @@ shared memory (and the first rows of each thread's share in registers),
 and the blocks of a head exchange h through ``h_out`` with one barrier a
 step.  The grid is launched cooperatively, so it must fit on the card at
 once; a shape whose R cannot be held raises a ``ValueError`` before any
-launch, and a refused launch raises.  One launch per call."""
+launch, and a refused launch raises.  One launch per call.
+
+Training: :class:`SLSTMScan` is the differentiable scan.  Its forward is
+the same kernel told to also write each step's gate pre-activations and
+(c, n, m); its backward is ``csrc/slstm_scan_bwd.cu`` (its own library),
+planned by :func:`plan_bwd` with R held by rows, which gives the gradient
+on wx, and the gradient on R is one batched product
+(``ref.slstm_dr``)."""
 from __future__ import annotations
 
 import ctypes
@@ -25,13 +32,17 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
-LAUNCHES = {"slstm_scan": 0}
+LAUNCHES = {"slstm_scan": 0, "slstm_scan_bwd": 0}
 
 # as csrc/slstm_scan.cu: batch rows a pass, wx ring slots, threads a block
 # and k-slices a unit (neighbouring lanes, a power of two)
 ROWS, RING, MAX_THREADS, MAX_SLICES = 4, 4, 256, 16
+# as csrc/slstm_scan_bwd.cu: its ring's slots and fields a slot (z~ i~ f~ o~
+# c n m dh), and the floats of a thread's slice of R held in registers (its
+# kRows and kMaxThreads are ROWS and MAX_THREADS)
+BWD_RING, BWD_FIELDS, BWD_REG_K = 4, 8, 96
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -57,6 +68,44 @@ def _smem_floats(b: int, hd: int, u: int, j: int) -> int:
             + ROWS * 4 * u + RING * b * 4 * u + 4 * b * u)
 
 
+def _smem_floats_bwd(b: int, hd: int, u: int, j: int) -> int:
+    """csrc/slstm_scan_bwd.cu's ``make_layout(B, hd, U, J).total``: R's U
+    rows of 4 hd and the head's dwx_t rows (B padded to a pass of ROWS), each
+    in J slices of k_slice floats at an odd count of float4s apart, the
+    saved-state ring, and 7 B U floats of state, carries and dh."""
+    k_slice = 4 * -(-hd // j)
+    row = j * (k_slice + (8 if (k_slice // 4) % 2 else 4))
+    return (u * row + -(-b // ROWS) * ROWS * row
+            + BWD_RING * BWD_FIELDS * b * u + 7 * b * u)
+
+
+def _split(nh: int, hd: int, n_sm: int, slice_floats: int
+           ) -> tuple[int, int, int]:
+    """(units a block, groups a head, k-slices): as many blocks a head as
+    the ``n_sm`` SMs give each head, and J a power of two up to MAX_SLICES
+    with U x J <= MAX_THREADS and slices of at least 4 of the
+    ``slice_floats`` a unit sums over."""
+    units = -(-hd // max(1, min(hd, n_sm // nh)))
+    slices = 1
+    while (2 * slices <= min(MAX_SLICES, MAX_THREADS // units)
+           and 2 * slices <= -(-slice_floats // 4)):
+        slices *= 2
+    return units, -(-hd // units), slices
+
+
+def _refuse(what: str, nh: int, hd: int, p: "Plan", n_sm: int,
+            smem_per_block: int) -> None:
+    if p.blocks > n_sm or p.threads > MAX_THREADS or \
+            p.smem_bytes > smem_per_block:
+        raise ValueError(
+            f"{what}: R of {nh} heads of {hd} units "
+            f"({nh * hd * 4 * hd * 4} bytes) cannot be held on chip: "
+            f"{p.blocks} blocks of {p.units} units, each {p.r_bytes} bytes "
+            f"of R and {p.smem_bytes} bytes of shared memory in all, "
+            f"{p.threads} threads, against {n_sm} SMs of {smem_per_block} "
+            f"bytes a block and {MAX_THREADS} threads")
+
+
 def plan(b: int, nh: int, hd: int, n_sm: int, smem_per_block: int
          ) -> Plan:
     """Spread a head's R over as many blocks as the card's ``n_sm`` SMs
@@ -67,39 +116,55 @@ def plan(b: int, nh: int, hd: int, n_sm: int, smem_per_block: int
     if min(b, nh, hd, n_sm) < 1:
         raise ValueError(f"slstm scan: no plan for B {b}, nh {nh}, hd {hd} "
                          f"on {n_sm} SMs")
-    r_total = nh * hd * 4 * hd * 4
-    units = -(-hd // max(1, min(hd, n_sm // nh)))
-    groups = -(-hd // units)
-    slices = 1                         # a power of two: lanes of a unit
-    while (2 * slices <= min(MAX_SLICES, MAX_THREADS // units)
-           and 2 * slices <= -(-hd // 4)):
-        slices *= 2
-    smem = 4 * _smem_floats(b, hd, units, slices)
+    units, groups, slices = _split(nh, hd, n_sm, hd)
     p = Plan(units, groups, nh * groups, slices, units * slices,
-             hd * 4 * units * 4, smem)
-    if p.blocks > n_sm or p.threads > MAX_THREADS or smem > smem_per_block:
-        raise ValueError(
-            f"slstm scan: R of {nh} heads of {hd} units ({r_total} bytes) "
-            f"cannot be held on chip: {p.blocks} blocks of {units} units, "
-            f"each {p.r_bytes} bytes of R and {smem} bytes of shared memory "
-            f"in all, {p.threads} threads, against {n_sm} SMs of "
-            f"{smem_per_block} bytes a block and {MAX_THREADS} threads")
+             hd * 4 * units * 4, 4 * _smem_floats(b, hd, units, slices))
+    _refuse("slstm scan", nh, hd, p, n_sm, smem_per_block)
+    return p
+
+
+def plan_bwd(b: int, nh: int, hd: int, n_sm: int, smem_per_block: int
+             ) -> Plan:
+    """The backward kernel's plan: the forward's split of a head's units
+    into blocks, each block holding R's rows of its U units (U x 4 hd fp32,
+    the bytes the forward's block holds as columns) and the head's dwx_t
+    rows, J k-slices of the 4 hd-long sums; its own shared-memory formula
+    (:func:`_smem_floats_bwd`).  Raises a ``ValueError`` naming the bytes
+    and the capacity where R cannot be held on chip."""
+    if min(b, nh, hd, n_sm) < 1:
+        raise ValueError(f"slstm scan backward: no plan for B {b}, nh {nh}, "
+                         f"hd {hd} on {n_sm} SMs")
+    units, groups, slices = _split(nh, hd, n_sm, 4 * hd)
+    p = Plan(units, groups, nh * groups, slices, units * slices,
+             hd * 4 * units * 4, 4 * _smem_floats_bwd(b, hd, units, slices))
+    _refuse("slstm scan backward", nh, hd, p, n_sm, smem_per_block)
     return p
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.slstm_scan_fwd.argtypes = [_P, _L, _L, _L, _L, _P, _P, _P, _P, _P,
-                                   _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _IP, _IP, _P]
+                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _IP, _IP, _P]
     lib.slstm_scan_fwd.restype = _I
     lib.slstm_scan_limits.argtypes = [_IP, _IP]
     lib.slstm_scan_limits.restype = _I
     return lib
 
 
+def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.slstm_scan_bwd.argtypes = [_P] * 12 + [_I] * 6 + [_IP, _IP, _P]
+    lib.slstm_scan_bwd.restype = _I
+    return lib
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return _bind(build.load("slstm_scan"))
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    return _bind_bwd(build.load("slstm_scan_bwd"))
 
 
 @functools.cache
@@ -143,14 +208,33 @@ def _check(wx: torch.Tensor, r: torch.Tensor,
             raise ValueError(f"slstm scan: {name} must be contiguous")
 
 
+def _after_launch(what: str, status: int, p: Plan, smem: ctypes.c_int,
+                  resident: ctypes.c_int) -> None:
+    """Raise where the card refused the launch or the kernel laid out
+    other shared memory than the plan counted."""
+    if status == 82:                   # cudaErrorCooperativeLaunchTooLarge
+        raise RuntimeError(f"{what}: {p.blocks} blocks of {p.threads} "
+                           f"threads and {p.smem_bytes} bytes cannot all be "
+                           f"resident: the card holds {resident.value}")
+    build.check(status, f"{what} launch")
+    if smem.value != p.smem_bytes:     # the plan's capacity rule is off
+        raise RuntimeError(f"{what}: the kernel lays out {smem.value} "
+                           f"bytes of shared memory, the plan {p.smem_bytes}")
+
+
 def _launch(lib: ctypes.CDLL, wx: torch.Tensor, r: torch.Tensor,
-            state: Optional[tuple]):
+            state: Optional[tuple], save: bool = False):
     """Plan and launch on checked inputs; raises where the plan refuses
-    the shape or the card refuses the launch."""
+    the shape or the card refuses the launch.  With ``save`` the kernel
+    also writes each step's pre-activations (B, S, 4, nh, hd) and c, n, m
+    (B, S, nh, hd), returned third."""
     b, s, _, nh, hd = wx.shape
     p = plan(b, nh, hd, *card_limits(wx.device.index or 0))
     h_out = torch.empty(b, s, nh, hd, device=wx.device)
     final = tuple(torch.empty(b, nh, hd, device=wx.device) for _ in range(4))
+    saved = ((torch.empty(b, s, 4, nh, hd, device=wx.device),)
+             + tuple(torch.empty_like(h_out) for _ in range(3))
+             if save else None)
     arrivals = torch.zeros(nh, dtype=torch.int32, device=wx.device)
     init = (0, 0, 0, 0) if state is None else tuple(
         t.data_ptr() for t in state)
@@ -159,27 +243,100 @@ def _launch(lib: ctypes.CDLL, wx: torch.Tensor, r: torch.Tensor,
     status = lib.slstm_scan_fwd(
         wx.data_ptr(), *wx.stride()[:4], r.data_ptr(), *init,
         h_out.data_ptr(), *(t.data_ptr() for t in final),
+        *((t.data_ptr() for t in saved) if save else (0, 0, 0, 0)),
         arrivals.data_ptr(), b, s, nh, hd, p.units, p.slices,
         ctypes.byref(smem), ctypes.byref(resident), stream)
-    if status == 82:                   # cudaErrorCooperativeLaunchTooLarge
-        raise RuntimeError(f"slstm scan: {p.blocks} blocks of {p.threads} "
-                           f"threads and {p.smem_bytes} bytes cannot all be "
-                           f"resident: the card holds {resident.value}")
-    build.check(status, "slstm_scan launch")
-    if smem.value != p.smem_bytes:     # the plan's capacity rule is off
-        raise RuntimeError(f"slstm scan: the kernel lays out {smem.value} "
-                           f"bytes of shared memory, the plan {p.smem_bytes}")
-    return h_out, final
+    _after_launch("slstm scan", status, p, smem, resident)
+    return (h_out, final, saved) if save else (h_out, final)
 
 
 def slstm_scan_cuda(wx: torch.Tensor, r: torch.Tensor,
-                    state: Optional[tuple] = None):
+                    state: Optional[tuple] = None, *, save: bool = False):
     """Launch the kernel: h (B, S, nh, hd) and the final (h, c, n, m), all
-    fp32, as ``ref.slstm_scan_ref`` computes them."""
+    fp32, as ``ref.slstm_scan_ref`` computes them; with ``save`` also what
+    the backward reads, (pre, c, n, m): each step's gate pre-activations
+    (B, S, 4, nh, hd) and cell state (B, S, nh, hd) each."""
     _check(wx, r, state)
-    out = _launch(_lib(), wx, r, state)
+    out = _launch(_lib(), wx, r, state, save)
     LAUNCHES["slstm_scan"] += 1
     return out
+
+
+def slstm_scan_bwd_cuda(r: torch.Tensor, pre: torch.Tensor, c: torch.Tensor,
+                        n: torch.Tensor, m: torch.Tensor,
+                        state: Optional[tuple], dh: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel: dwx (B, S, 4, nh, hd) and dh_0 (B, nh,
+    hd), as ``ref.slstm_scan_bwd_ref`` computes them, from what
+    :func:`slstm_scan_cuda` saved and the upstream gradient ``dh`` (B, S,
+    nh, hd) on h; ``state`` is the forward's initial (h, c, n, m) or None.
+    A shape whose R the plan cannot hold raises a ``ValueError`` before any
+    launch."""
+    dh = dh.float().contiguous()
+    b, s, _, nh, hd = pre.shape
+    named = [("r", r, (nh, hd, 4 * hd)), ("pre", pre, (b, s, 4, nh, hd)),
+             ("c", c, (b, s, nh, hd)), ("n", n, (b, s, nh, hd)),
+             ("m", m, (b, s, nh, hd)), ("dh", dh, (b, s, nh, hd))]
+    if state is not None:
+        named += [(f, t, (b, nh, hd)) for f, t in zip("cnm", state[1:])]
+    for name, t, shape in named:
+        if (t.device != pre.device or pre.device.type != "cuda"
+                or t.dtype != torch.float32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"slstm scan backward: {name} must be a "
+                             f"contiguous fp32 {shape} tensor on a CUDA "
+                             f"device, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    p = plan_bwd(b, nh, hd, *card_limits(pre.device.index or 0))
+    lib = _bwd_lib()
+    dwx = torch.empty_like(pre)
+    dh0 = torch.empty(b, nh, hd, device=pre.device)
+    arrivals = torch.zeros(nh, dtype=torch.int32, device=pre.device)
+    init = (0, 0, 0) if state is None else tuple(
+        t.data_ptr() for t in state[1:])
+    smem, resident = ctypes.c_int(0), ctypes.c_int(0)
+    stream = torch.cuda.current_stream(pre.device).cuda_stream
+    status = lib.slstm_scan_bwd(
+        r.data_ptr(), pre.data_ptr(), c.data_ptr(), n.data_ptr(),
+        m.data_ptr(), dh.data_ptr(), *init, dwx.data_ptr(), dh0.data_ptr(),
+        arrivals.data_ptr(), b, s, nh, hd, p.units, p.slices,
+        ctypes.byref(smem), ctypes.byref(resident), stream)
+    _after_launch("slstm scan backward", status, p, smem, resident)
+    LAUNCHES["slstm_scan_bwd"] += 1
+    return dwx, dh0
+
+
+class SLSTMScan(torch.autograd.Function):
+    """The differentiable sLSTM scan on the card: the forward kernel,
+    saving each step's pre-activations and (c, n, m); the backward kernel
+    for the gradient on wx; the gradient on R as one batched product of the
+    h each step read with dwx (``ref.slstm_dr``).  The initial state is not
+    differentiated (training starts from zeros and m = -1e30): a state
+    tensor that requires a gradient raises, and the final state carries
+    none.  Under a layer recomputed in the backward pass
+    (``torch.utils.checkpoint``), the tensors saved here come from the
+    recompute."""
+
+    @staticmethod
+    def forward(ctx, wx, r, h0, c0, n0, m0):
+        if any(ctx.needs_input_grad[2:]):
+            raise ValueError("slstm scan: the initial state is not "
+                             "differentiated; pass one that requires no "
+                             "gradient")
+        state = None if h0 is None else (h0, c0, n0, m0)
+        h_out, final, saved = slstm_scan_cuda(wx, r, state, save=True)
+        ctx.mark_non_differentiable(*final)
+        ctx.save_for_backward(r, h_out, *saved,
+                              *(() if state is None else state))
+        return (h_out, *final)
+
+    @staticmethod
+    def backward(ctx, dh, *_):
+        r, h_out, pre, c, n, m, *state = ctx.saved_tensors
+        state = tuple(state) or None
+        dwx, _ = slstm_scan_bwd_cuda(r, pre, c, n, m, state, dh)
+        dr = ref.slstm_dr(h_out, state and state[0], dwx)
+        return dwx, dr, None, None, None, None
 
 
 # the phases of a step that a build with SLSTM_PROFILE times, in order

@@ -2,22 +2,27 @@
 without mesh or sharding.
 
   * ``make_train_step`` / ``make_train_phase``: one SemiSFL cross-entity
-    iteration on a dense decoder LM (``make_train_step(plan, dist, lr,
-    wire=..., mesh=None)`` and ``make_scanned_train_phase`` in JAX), with
-    ``StepPlan`` / ``make_plan``, the state's shapes (the train branch of
-    ``input_specs``) and a seeded initial state;
+    iteration on a dense decoder LM or on xLSTM (``make_train_step(plan,
+    dist, lr, wire=..., mesh=None)`` and ``make_scanned_train_phase`` in
+    JAX), with ``StepPlan`` / ``make_plan``, the state's shapes (the train
+    branch of ``input_specs``) and a seeded initial state; the Zamba2
+    hybrid raises (the Mamba2 scan kernel has no backward yet);
   * ``make_prefill_step`` / ``make_decode_step``: split-inference serving
     of the dense, xLSTM and Zamba2 models.
 
 Training.  The state is a dict ``{"client_bottoms", "teacher_bottoms",
 "top", "t_top", "proj", "t_proj", "queue"}`` where JAX stacks the N clients'
 bottoms on a leading axis; here ``client_bottoms`` and ``teacher_bottoms``
-are lists of N bottom trees (``convert.lm_train_state_from_numpy`` unstacks
-the JAX state).  A batch is ``{"tokens_weak", "tokens_strong"}``, each (N, b,
-S).  The clients' bottoms run one after another, where JAX vmaps them, and
-each client's gradient is rescaled by N (Eq. (8)), as ``core/engine.py``
-does for the CNNs.  Attention differentiates through the flash kernels
-(``kernels.FlashAttention``) on the card; each layer is recomputed in the
+are lists of N bottom trees, each with a list of layers (``stack``) or of
+xLSTM groups (``groups``) where JAX stacks them on a leading axis
+(``convert.lm_train_state_from_numpy`` unstacks the JAX state).  A batch is
+``{"tokens_weak", "tokens_strong"}``, each (N, b, S).  The clients' bottoms
+run one after another, where JAX vmaps them, and each client's gradient is
+rescaled by N (Eq. (8)), as ``core/engine.py`` does for the CNNs.  On the
+card attention differentiates through the flash kernels
+(``kernels.FlashAttention``) and the sLSTM through its scan kernels
+(``kernels.slstm_scan``'s ``SLSTMScan``); the mLSTM's chunk loop through
+autograd.  Each dense layer, and each xLSTM block, is recomputed in the
 backward pass (``models/transformer.py``).
 
 Serving.  Each step runs the bottom (client) half, hands its features to
@@ -46,7 +51,8 @@ from repro_torch.core.wire import (WireFormatLike, fake_quantize,
                                    parse_wire_format, quantize_grad,
                                    resolve_fmt)
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import DecoderLM, build_model
+from repro_torch.models.transformer import (DecoderLM, HybridMamba,
+                                            XLSTMModel, build_model)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -71,12 +77,16 @@ def make_plan(cfg: ArchConfig, shape: InputShape, *,
                     per_client_batch=shape.global_batch // n)
 
 
-def _train_model(plan: StepPlan) -> DecoderLM:
+def _train_model(plan: StepPlan) -> DecoderLM | XLSTMModel:
     model = build_model(plan.cfg)
-    if type(model) is not DecoderLM:
+    if isinstance(model, HybridMamba):
         raise NotImplementedError(
-            f"{plan.cfg.name}: the port trains dense decoder LMs only (the "
-            "sLSTM and Mamba2 kernels have no backward yet)")
+            f"{plan.cfg.name}: the port does not train the Zamba2 hybrid yet "
+            "(the Mamba2 scan kernel has no backward)")
+    if not isinstance(model, (DecoderLM, XLSTMModel)):
+        raise NotImplementedError(
+            f"{plan.cfg.name}: the port trains dense decoder LMs and xLSTM "
+            "only")
     return model
 
 
@@ -86,7 +96,8 @@ def init_train_state(plan: StepPlan, seed: int = 0,
     ``meta``, for shapes only): one model init whose bottom every client
     and every client's teacher starts from (the broadcast of a round's
     start), the teacher top and projection head copies of the student's,
-    and an empty queue."""
+    and an empty queue.  A bottom is the model's: embeddings and a list
+    of layers (``stack``) or of xLSTM groups (``groups``)."""
     dev = torch.device(device)
     if dev.type != "meta":
         dev = resolve_device(device)
@@ -107,8 +118,9 @@ def init_train_state(plan: StepPlan, seed: int = 0,
 
 def train_state_shapes(plan: StepPlan) -> dict:
     """(shape, dtype) of every leaf of the train state, with the state's
-    structure (the train branch of the JAX ``input_specs``), and of the
-    batch; nothing is allocated.  The queue's ptr is a host int."""
+    structure (the train branch of the JAX ``input_specs``, layers or
+    xLSTM groups in lists), and of the batch; nothing is allocated.  The
+    queue's ptr is a host int."""
     state = init_train_state(plan, device="meta")
     leaf = lambda t: (tuple(t.shape), t.dtype)
     q = state.pop("queue")
@@ -207,15 +219,19 @@ def make_train_step(plan: StepPlan, lr: float = 0.02, *,
                                                               leaves)))
         del live, leaves
         with torch.no_grad():
-            # Eq. (8): each client applies its own gradient, N times its
-            # share of the mean over the N b sequences
-            g_b = [tree_map(lambda g: g * n, gb) for gb in grads["bottoms"]]
             sub = lambda p, g: tree_map(
                 lambda a, b: (a.float() - lr * b.float()).to(a.dtype), p, g)
-            new_bottoms = [sub(p, g) for p, g in zip(state["client_bottoms"],
-                                                     g_b)]
-            new_top = sub(state["top"], grads["top"])
-            new_proj = sub(state["proj"], grads["proj"])
+            new_top = sub(state["top"], grads.pop("top"))
+            new_proj = sub(state["proj"], grads.pop("proj"))
+            # Eq. (8): each client applies its own gradient, N times its
+            # share of the mean over the N b sequences; each client's
+            # gradient is dropped once applied
+            g_b, new_bottoms = grads.pop("bottoms"), []
+            for i, p in enumerate(state["client_bottoms"]):
+                g = tree_map(lambda g: g * n, g_b[i])
+                g_b[i] = None
+                new_bottoms.append(sub(p, g))
+                del g
             del grads, g_b
             new_t_bottoms = [ema_update(t, b, s.ema_decay) for t, b in
                              zip(state["teacher_bottoms"], new_bottoms)]

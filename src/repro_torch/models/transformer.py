@@ -37,6 +37,16 @@ def _lm_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"]
 
 
+def _positions(batch_inputs: dict, b: int, s: int,
+               device: torch.device) -> torch.Tensor:
+    """The batch's ``positions``, else (B, S) positions from its ``pos``
+    offset (0 by default)."""
+    if "positions" in batch_inputs:
+        return batch_inputs["positions"]
+    off = batch_inputs.get("pos", 0)
+    return default_positions(s, off, device).expand(b, s)
+
+
 def _no_aux(x: torch.Tensor) -> torch.Tensor:
     """The auxiliary loss of layers that have none (MoE's load balancing
     is not ported): a zero fp32 scalar on x's device."""
@@ -155,14 +165,6 @@ class DecoderLM:
                                                     device)},
         }
 
-    # -- positions -------------------------------------------------------------
-    def _positions(self, batch_inputs: dict, b: int, s: int,
-                   device: torch.device) -> torch.Tensor:
-        if "positions" in batch_inputs:
-            return batch_inputs["positions"]
-        off = batch_inputs.get("pos", 0)
-        return default_positions(s, off, device).expand(b, s)
-
     # -- apply -------------------------------------------------------------
     def bottom_apply(self, params: dict, batch_inputs: dict, *,
                      mode: str = "train", cache: Optional[dict] = None):
@@ -171,7 +173,7 @@ class DecoderLM:
         tokens = batch_inputs["tokens"]
         b, s = tokens.shape
         x = params["embed"][tokens]
-        positions = self._positions(batch_inputs, b, s, tokens.device)
+        positions = _positions(batch_inputs, b, s, tokens.device)
         cache = cache or {"stack": None}
         x, new_stack_cache = _run_attn_stack(
             params["stack"], self.cfg, x, positions=positions, mode=mode,
@@ -294,7 +296,7 @@ class HybridMamba(DecoderLM):
         tokens = batch_inputs["tokens"]
         b, s = tokens.shape
         x = params["embed"][tokens]
-        positions = self._positions(batch_inputs, b, s, tokens.device)
+        positions = _positions(batch_inputs, b, s, tokens.device)
         x, new_cache = self._run_segment(params, x, positions=positions,
                                          mode=mode, cache=cache, layer0=0)
         return x, new_cache, {"positions": positions}
@@ -310,11 +312,17 @@ class HybridMamba(DecoderLM):
         return {"logits": _lm_logits(params, x)}, new_cache
 
 
+def _train_block(apply, p: dict, cfg: ArchConfig, x: torch.Tensor,
+                 cache) -> torch.Tensor:
+    return apply(p, cfg, x, mode="train", cache=cache)[0]
+
+
 class XLSTMModel:
     """xlstm-1.3b: groups of (period - 1) mLSTM blocks + 1 sLSTM block, the
     split snapped to a group boundary.  ``groups`` is a list of per-group
     dicts ``{"mlstm": [per-block params], "slstm": params}``; the caches
-    follow the same structure.  The blocks take no positions."""
+    follow the same structure.  The blocks take no positions; the extras
+    carry them (and a zero aux loss) as the JAX model's do."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -373,11 +381,30 @@ class XLSTMModel:
 
     def _run_groups(self, groups: list, x: torch.Tensor, *, mode: str,
                     cache: Optional[dict]):
+        """Run x through the groups in order.  A train-mode pass that
+        records gradients keeps only each block's input and recomputes
+        the block in the backward pass, so each group is recomputed as the
+        JAX model's ``jax.checkpoint`` over its group scan recomputes it
+        (the numbers do not change).  JAX keeps a group's input; here a
+        block's, as the dense stack keeps a layer's: a group's recompute
+        holds the mLSTM chunk loop's saved tensors of all its blocks at
+        once, and at xLSTM-1.3B's top (7 mLSTM blocks, 4 x 4096 tokens)
+        that ran the step out of an 80 GB card.  Train mode returns the
+        caches it was given, as JAX does."""
         cfg = self.cfg
         if cache is None:
             cache = self._group_cache(len(groups), x.shape[0], x.device)
         new_groups = []
         for g_p, g_c in zip(groups, cache["groups"]):
+            if mode == "train" and torch.is_grad_enabled():
+                for m_p, m_c in zip(g_p["mlstm"], g_c["mlstm"]):
+                    x = checkpoint(_train_block, xl.apply_mlstm_block, m_p,
+                                   cfg, x, m_c, use_reentrant=False)
+                x = checkpoint(_train_block, xl.apply_slstm_block,
+                               g_p["slstm"], cfg, x, g_c["slstm"],
+                               use_reentrant=False)
+                new_groups.append(g_c)
+                continue
             new_m = []
             for m_p, m_c in zip(g_p["mlstm"], g_c["mlstm"]):
                 x, c = xl.apply_mlstm_block(m_p, cfg, x, mode=mode, cache=m_c)
@@ -389,20 +416,29 @@ class XLSTMModel:
 
     def bottom_apply(self, params: dict, batch_inputs: dict, *,
                      mode: str = "train", cache: Optional[dict] = None):
-        """Client side: embed the tokens and run the bottom groups."""
-        x = params["embed"][batch_inputs["tokens"]]
+        """Client side: embed the tokens and run the bottom groups.
+        Returns (features, new cache, extras for ``top_apply``)."""
+        tokens = batch_inputs["tokens"]
+        b, s = tokens.shape
+        x = params["embed"][tokens]
         x, new_cache = self._run_groups(params["groups"], x, mode=mode,
                                         cache=cache)
-        return x, new_cache, {}
+        return x, new_cache, {"aux_loss": _no_aux(x),
+                              "positions": _positions(batch_inputs, b, s,
+                                                      tokens.device)}
 
     def top_apply(self, params: dict, features: torch.Tensor, *,
                   extras: dict, mode: str = "train",
                   cache: Optional[dict] = None):
-        """Server side: the top groups, the final norm and the LM head."""
+        """Server side: the top groups, the final norm and the LM head.
+        ``aux_loss`` is the bottom's (``extras``): xLSTM blocks have none,
+        so it is a zero fp32 scalar, as in JAX."""
         x, new_cache = self._run_groups(params["groups"], features, mode=mode,
                                         cache=cache)
         x = apply_norm(params["final_norm"], x, self.cfg.norm)
-        return {"logits": _lm_logits(params, x)}, new_cache
+        return {"logits": _lm_logits(params, x),
+                "aux_loss": _no_aux(x) + extras.get("aux_loss", 0.0)}, \
+            new_cache
 
 
 def build_model(cfg: ArchConfig):

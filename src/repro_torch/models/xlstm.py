@@ -1,7 +1,8 @@
 """xLSTM blocks (arXiv:2405.04517) for the port: the JAX package's
-``models/xlstm.py``.  mLSTM (matrix memory) runs its prefill chunkwise, a
-Python loop over chunks where JAX scans, and its decode as the O(1)
-recurrent step; sLSTM (scalar memory, strictly sequential) runs its prefill
+``models/xlstm.py``.  mLSTM (matrix memory) runs its prefill and training
+pass chunkwise (the carry-free terms of all chunks at once, the carry chunk
+by chunk, where JAX scans a step over the chunks), and its decode as the
+O(1) recurrent step; sLSTM (scalar memory, strictly sequential) runs its prefill
 through the ``slstm_scan`` wrapper (the CUDA kernel on the card, its plain
 version on the CPU) where the JAX model scans ``slstm_step``, and its
 decode as ``slstm_step`` in plain PyTorch, as the JAX model computes it
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.configs import ArchConfig, XLSTMConfig
-from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.ref import N_MIN, NEG_INF
 from repro_torch.models.common import (apply_mlp, apply_norm, dense_init,
                                        init_mlp, init_norm)
 
@@ -119,48 +120,67 @@ def mlstm_chunked(q, k, v, logi, logf, cache: Optional[MLSTMCache],
                   chunk: int) -> tuple[torch.Tensor, MLSTMCache]:
     """Chunkwise-parallel mLSTM. q, k, v: (b, S, nh, hd).  The chunk is
     halved until it divides S; within a chunk the contributions are a
-    masked (c, c) product, and (C, n, m) is carried across chunks."""
+    masked (c, c) product, and (C, n, m) is carried across chunks.  JAX
+    scans a step over the chunks; here every term that does not depend on
+    the carry is formed for all chunks at once (a chunk axis j), and only
+    the carry's recurrences run chunk by chunk: the stabilizer m (two ops a
+    chunk), then the matrix memory C and normalizer n with each chunk's
+    read of them (five).  Each element is the same expression as JAX's, so
+    the forward agrees with a chunk-by-chunk loop bit for bit; the loop's
+    launches a chunk (tens of small ops, in three forward passes and a
+    backward a training step) left the card idle."""
     b, S, nh, hd = q.shape
     c = min(chunk, S)
     while S % c:
         c //= 2
+    nc = S // c
     if cache is None:
         cache = _zero_mlstm_state(b, nh, hd, q.device)
     tril = torch.tril(torch.ones(c, c, dtype=torch.bool, device=q.device))
-    carry, hs = cache, []
-    for j0 in range(0, S, c):
-        sl = slice(j0, j0 + c)
-        qf, kf, vf = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
-        li, lf = logi[:, sl], logf[:, sl]
-        Fc = torch.cumsum(lf, dim=1)                   # (b, c, nh) inclusive
-        # D(t, s) = F[t] - F[s] + logi[s], s <= t
-        D = Fc[:, :, None, :] - Fc[:, None, :, :] + li[:, None, :, :]
-        D = D.masked_fill(~tril[None, :, :, None], -math.inf)
-        inter_log = Fc + carry.m[:, None, :]           # (b, c, nh)
-        m_new = torch.maximum(D.amax(dim=2), inter_log).clamp(min=NEG_INF)
-        W = torch.exp(D - m_new[:, :, None, :])        # (b, t, s, nh)
-        inter_w = torch.exp(inter_log - m_new)         # (b, c, nh)
-        scores = torch.einsum("bthd,bshd->btsh", qf, kf)
-        num = torch.einsum("btsh,bshv->bthv", scores * W, vf)
-        num = num + inter_w[..., None] * torch.einsum("bthk,bhkv->bthv", qf,
-                                                      carry.C)
-        nvec = torch.einsum("btsh,bshk->bthk", W, kf) \
-            + inter_w[..., None] * carry.n[:, None]
-        den = torch.maximum(torch.einsum("bthk,bthk->bth", qf, nvec).abs(),
-                            torch.exp(-m_new))
-        hs.append((num / den[..., None]).to(q.dtype))
-        # carry update
-        Ftot = Fc[:, -1]                               # (b, nh)
-        tail = Ftot[:, None, :] - Fc + li              # (b, c, nh)
-        m_out = torch.maximum(Ftot + carry.m, tail.amax(dim=1))
-        wC = torch.exp(tail - m_out[:, None, :])
-        decay = torch.exp(Ftot + carry.m - m_out)
-        C_out = decay[..., None, None] * carry.C \
-            + torch.einsum("bshk,bshv->bhkv", wC[..., None] * kf, vf)
-        n_out = decay[..., None] * carry.n \
-            + torch.einsum("bsh,bshk->bhk", wC, kf)
-        carry = MLSTMCache(C_out, n_out, m_out)
-    return torch.cat(hs, dim=1), carry
+    ch = lambda t: t.reshape(b, nc, c, *t.shape[2:])
+    qf, kf, vf = (ch(t).float() for t in (q, k, v))    # (b, j, c, nh, hd)
+    li, lf = ch(logi), ch(logf)                          # (b, j, c, nh)
+    Fc = torch.cumsum(lf, dim=2)                         # inclusive
+    # D(t, s) = F[t] - F[s] + logi[s], s <= t
+    D = Fc[:, :, :, None, :] - Fc[:, :, None, :, :] + li[:, :, None, :, :]
+    D = D.masked_fill(~tril[None, None, :, :, None], -math.inf)
+    Ftot = Fc[:, :, -1]                                  # (b, j, nh)
+    tail = Ftot[:, :, None, :] - Fc + li                 # (b, j, c, nh)
+    tail_max = tail.amax(dim=2)
+    # the stabilizer each chunk starts from, and the one it hands on
+    m_in, m = [], cache.m
+    for j in range(nc):
+        m_in.append(m)
+        m = torch.maximum(Ftot[:, j] + m, tail_max[:, j])
+    m_out = torch.stack(m_in[1:] + [m], 1)
+    m_in = torch.stack(m_in, 1)                          # (b, j, nh)
+    inter_log = Fc + m_in[:, :, None, :]
+    m_new = torch.maximum(torch.maximum(D.amax(dim=3), inter_log),
+                          inter_log.new_tensor(NEG_INF))
+    W = torch.exp(D - m_new[:, :, :, None, :])           # (b, j, t, s, nh)
+    inter_w = torch.exp(inter_log - m_new)               # (b, j, c, nh)
+    wC = torch.exp(tail - m_out[:, :, None, :])
+    decay = torch.exp(Ftot + m_in - m_out)
+    # the matrix memory and normalizer each chunk reads, and the update
+    C, n = cache.C, cache.n
+    qC, n_in = [], []
+    for j in range(nc):
+        qC.append(torch.einsum("bthk,bhkv->bthv", qf[:, j], C))
+        n_in.append(n)
+        C = decay[:, j, :, None, None] * C + torch.einsum(
+            "bshk,bshv->bhkv", wC[:, j, :, :, None] * kf[:, j], vf[:, j])
+        n = decay[:, j, :, None] * n \
+            + torch.einsum("bsh,bshk->bhk", wC[:, j], kf[:, j])
+    qC, n_in = torch.stack(qC, 1), torch.stack(n_in, 1)
+    scores = torch.einsum("bjthd,bjshd->bjtsh", qf, kf)
+    num = torch.einsum("bjtsh,bjshv->bjthv", scores * W, vf) \
+        + inter_w[..., None] * qC
+    nvec = torch.einsum("bjtsh,bjshk->bjthk", W, kf) \
+        + inter_w[..., None] * n_in[:, :, None]
+    den = torch.maximum(torch.einsum("bjthk,bjthk->bjth", qf, nvec).abs(),
+                        torch.exp(-m_new))
+    h = (num / den[..., None]).to(q.dtype).reshape(b, S, nh, hd)
+    return h, MLSTMCache(C, n, m)
 
 
 def apply_mlstm(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
@@ -227,7 +247,7 @@ def slstm_step(p: dict, cfg: ArchConfig, carry: SLSTMCache,
     f = torch.exp(ft + carry.m - m_new)
     c = f * carry.c + i * torch.tanh(zt)
     n = f * carry.n + i
-    h = torch.sigmoid(ot) * c / n.clamp(min=1e-6)
+    h = torch.sigmoid(ot) * c / torch.maximum(n, n.new_tensor(N_MIN))
     return SLSTMCache(h=h, c=c, n=n, m=m_new), h
 
 
