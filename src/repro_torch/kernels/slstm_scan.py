@@ -20,8 +20,10 @@ launch, and a refused launch raises.  One launch per call.
 Training: :class:`SLSTMScan` is the differentiable scan.  Its forward is
 the same kernel told to also write each step's gate pre-activations and
 (c, n, m); its backward is ``csrc/slstm_scan_bwd.cu`` (its own library),
-planned by :func:`plan_bwd` with R held by rows, which gives the gradient
-on wx, and the gradient on R is one batched product
+planned by :func:`plan_bwd` on one of two routes by shape (R's columns
+as bf16 fragments in registers and the product on the tensor cores, or R's
+rows in shared memory and the product on the CUDA cores), which gives the
+gradient on wx, and the gradient on R is one batched product
 (``ref.slstm_dr``)."""
 from __future__ import annotations
 
@@ -43,6 +45,13 @@ ROWS, RING, MAX_THREADS, MAX_SLICES = 4, 4, 256, 16
 # c n m dh), and the floats of a thread's slice of R held in registers (its
 # kRows and kMaxThreads are ROWS and MAX_THREADS)
 BWD_RING, BWD_FIELDS, BWD_REG_K = 4, 8, 96
+# the backward's routes, by the C entry point's number
+BWD_ROUTES = ("simt", "mma")
+# as csrc/slstm_scan_bwd.cu's mma route: warps a block (the hd rows of R
+# split over them), units a block at most (its 4 U columns: 4 k-steps of
+# 16), batch rows a tile (N of m16n8k16), its ring's slots, and m-tiles of 16
+# rows a warp at most (hd <= 512)
+MMA_WARPS, MMA_UNITS, MMA_ROWS, MMA_RING, MMA_MAX_MTILES = 8, 16, 8, 5, 4
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -123,20 +132,84 @@ def plan(b: int, nh: int, hd: int, n_sm: int, smem_per_block: int
     return p
 
 
-def plan_bwd(b: int, nh: int, hd: int, n_sm: int, smem_per_block: int
-             ) -> Plan:
+def _mma_mtiles(hd: int) -> int:
+    """The mma route's m-tiles of 16 rows a warp: the least power of two
+    whose MMA_WARPS warps cover R's hd rows."""
+    mw = 1
+    while MMA_WARPS * 16 * mw < hd:
+        mw *= 2
+    return mw
+
+
+def _smem_floats_mma(b: int, u: int, groups: int) -> int:
+    """csrc/slstm_scan_bwd.cu's ``make_mma_layout(B, U, G).total``: the
+    block's dwx_t in fragment order (4 k-steps of 16, the rows padded to
+    tiles of MMA_ROWS), the head's G partial sums of its units, the
+    saved-state ring, and the initial state laid out as one of its
+    slots."""
+    nt = -(-b // MMA_ROWS)
+    return (4 * nt * MMA_ROWS * 16 + groups * b * u
+            + (MMA_RING + 1) * BWD_FIELDS * b * u)
+
+
+@dataclass(frozen=True)
+class BwdPlan(Plan):
+    """The backward's plan: :class:`Plan`'s split of the heads' units into
+    blocks, and the route.  On the ``simt`` route ``slices`` is J, the
+    k-slices a unit (neighbouring lanes); on the ``mma`` route the m-tiles
+    of 16 rows of R a warp."""
+    route: str = "simt"
+
+
+def _plan_mma(b: int, nh: int, hd: int, n_sm: int) -> Optional[BwdPlan]:
+    """The mma route's plan, or None where R's columns do not tile its
+    fragments: at most MMA_UNITS units a block, hd within MMA_WARPS x 16 x
+    MMA_MAX_MTILES rows, and a gate thread for each of the block's B U
+    pairs.  Its ``r_bytes`` are the fragments': 16 rows x 4 MMA_UNITS
+    columns an m-tile, bf16 hi and lo."""
+    units, groups, _ = _split(nh, hd, n_sm, 4 * hd)
+    mw = _mma_mtiles(hd)
+    if (units > MMA_UNITS or mw > MMA_MAX_MTILES
+            or b * units > 32 * MMA_WARPS):
+        return None
+    return BwdPlan(units, groups, nh * groups, mw, 32 * MMA_WARPS,
+                   MMA_WARPS * mw * 16 * 4 * MMA_UNITS * 4,
+                   4 * _smem_floats_mma(b, units, groups), "mma")
+
+
+def plan_bwd(b: int, nh: int, hd: int, n_sm: int, smem_per_block: int,
+             route: Optional[str] = None) -> BwdPlan:
     """The backward kernel's plan: the forward's split of a head's units
-    into blocks, each block holding R's rows of its U units (U x 4 hd fp32,
-    the bytes the forward's block holds as columns) and the head's dwx_t
-    rows, J k-slices of the 4 hd-long sums; its own shared-memory formula
-    (:func:`_smem_floats_bwd`).  Raises a ``ValueError`` naming the bytes
-    and the capacity where R cannot be held on chip."""
+    into blocks of U, each block holding the U x 4 hd of R that touch its
+    units (the bytes the forward's block holds).  The route comes from the
+    shape, before any launch: ``mma`` (the units' 4 U columns of R as bf16
+    fragments in registers, the product on the tensor cores, partial sums
+    of dh exchanged) where :func:`_plan_mma` tiles them and its shared
+    memory fits, else ``simt`` (the units' rows of R in shared memory, the
+    head's dwx_t exchanged, J k-slices of the 4 hd-long sums a unit, ROWS
+    batch rows a pass).  ``route`` forces one (chip_smoke times both).
+    Raises a ``ValueError`` naming the bytes and the capacity where R
+    cannot be held on chip, or where a forced route does not take the
+    shape."""
     if min(b, nh, hd, n_sm) < 1:
         raise ValueError(f"slstm scan backward: no plan for B {b}, nh {nh}, "
                          f"hd {hd} on {n_sm} SMs")
-    units, groups, slices = _split(nh, hd, n_sm, 4 * hd)
-    p = Plan(units, groups, nh * groups, slices, units * slices,
-             hd * 4 * units * 4, 4 * _smem_floats_bwd(b, hd, units, slices))
+    if route not in (None, *BWD_ROUTES):
+        raise ValueError(f"slstm scan backward: no route {route!r}")
+    mma = _plan_mma(b, nh, hd, n_sm)
+    if route is None:
+        route = ("mma" if mma is not None
+                 and mma.smem_bytes <= smem_per_block else "simt")
+    if route == "mma":
+        if mma is None:
+            raise ValueError(f"slstm scan backward: the mma route does not "
+                             f"take B {b}, {nh} heads of {hd}")
+        p = mma
+    else:
+        units, groups, slices = _split(nh, hd, n_sm, 4 * hd)
+        p = BwdPlan(units, groups, nh * groups, slices, units * slices,
+                    hd * 4 * units * 4,
+                    4 * _smem_floats_bwd(b, hd, units, slices), "simt")
     _refuse("slstm scan backward", nh, hd, p, n_sm, smem_per_block)
     return p
 
@@ -152,7 +225,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
-    lib.slstm_scan_bwd.argtypes = [_P] * 12 + [_I] * 6 + [_IP, _IP, _P]
+    lib.slstm_scan_bwd.argtypes = [_P] * 13 + [_I] * 7 + [_IP, _IP, _P]
     lib.slstm_scan_bwd.restype = _I
     return lib
 
@@ -264,15 +337,25 @@ def slstm_scan_cuda(wx: torch.Tensor, r: torch.Tensor,
 
 def slstm_scan_bwd_cuda(r: torch.Tensor, pre: torch.Tensor, c: torch.Tensor,
                         n: torch.Tensor, m: torch.Tensor,
-                        state: Optional[tuple], dh: torch.Tensor
+                        state: Optional[tuple], dh: torch.Tensor,
+                        plan: Optional[BwdPlan] = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the backward kernel: dwx (B, S, 4, nh, hd) and dh_0 (B, nh,
     hd), as ``ref.slstm_scan_bwd_ref`` computes them, from what
     :func:`slstm_scan_cuda` saved and the upstream gradient ``dh`` (B, S,
     nh, hd) on h; ``state`` is the forward's initial (h, c, n, m) or None.
-    A shape whose R the plan cannot hold raises a ``ValueError`` before any
-    launch."""
+    ``plan`` forces a route (chip_smoke times both); by default
+    :func:`plan_bwd` picks it from the shape.  A shape whose R the plan
+    cannot hold raises a ``ValueError`` before any launch."""
     dh = dh.float().contiguous()
+    p = _check_bwd(r, pre, c, n, m, state, dh, plan)
+    out = _launch_bwd(_bwd_lib(), r, pre, c, n, m, state, dh, p)
+    LAUNCHES["slstm_scan_bwd"] += 1
+    return out
+
+
+def _check_bwd(r, pre, c, n, m, state, dh, plan) -> BwdPlan:
+    """Raise on what the backward kernel does not take; else its plan."""
     b, s, _, nh, hd = pre.shape
     named = [("r", r, (nh, hd, 4 * hd)), ("pre", pre, (b, s, 4, nh, hd)),
              ("c", c, (b, s, nh, hd)), ("n", n, (b, s, nh, hd)),
@@ -287,10 +370,17 @@ def slstm_scan_bwd_cuda(r: torch.Tensor, pre: torch.Tensor, c: torch.Tensor,
                              f"contiguous fp32 {shape} tensor on a CUDA "
                              f"device, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    p = plan_bwd(b, nh, hd, *card_limits(pre.device.index or 0))
-    lib = _bwd_lib()
+    return plan or plan_bwd(b, nh, hd, *card_limits(pre.device.index or 0))
+
+
+def _launch_bwd(lib: ctypes.CDLL, r, pre, c, n, m, state, dh, p):
+    b, s, _, nh, hd = pre.shape
     dwx = torch.empty_like(pre)
     dh0 = torch.empty(b, nh, hd, device=pre.device)
+    # the mma route's exchange: each block's partial sums of dh, one
+    # (groups, B, hd) buffer a head and step parity
+    part = (torch.empty(2, nh, p.groups, b, hd, device=pre.device)
+            if p.route == "mma" else None)
     arrivals = torch.zeros(nh, dtype=torch.int32, device=pre.device)
     init = (0, 0, 0) if state is None else tuple(
         t.data_ptr() for t in state[1:])
@@ -299,10 +389,10 @@ def slstm_scan_bwd_cuda(r: torch.Tensor, pre: torch.Tensor, c: torch.Tensor,
     status = lib.slstm_scan_bwd(
         r.data_ptr(), pre.data_ptr(), c.data_ptr(), n.data_ptr(),
         m.data_ptr(), dh.data_ptr(), *init, dwx.data_ptr(), dh0.data_ptr(),
-        arrivals.data_ptr(), b, s, nh, hd, p.units, p.slices,
+        0 if part is None else part.data_ptr(), arrivals.data_ptr(), b, s,
+        nh, hd, BWD_ROUTES.index(p.route), p.units, p.slices,
         ctypes.byref(smem), ctypes.byref(resident), stream)
     _after_launch("slstm scan backward", status, p, smem, resident)
-    LAUNCHES["slstm_scan_bwd"] += 1
     return dwx, dh0
 
 
@@ -360,3 +450,37 @@ def step_profile(wx: torch.Tensor, r: torch.Tensor) -> dict[str, float]:
     clocks = (ctypes.c_longlong * len(PHASES))()
     build.check(lib.slstm_scan_profile(clocks), "slstm_scan profile read")
     return {name: c / wx.shape[1] for name, c in zip(PHASES, clocks)}
+
+
+# the phases of a backward step that a build with SLSTM_PROFILE times: the
+# saved-state ring's copies issued and waited for (simt; on the mma route
+# the loop's turn alone); the gate math with its dwx stores (mma: after
+# adding the head's partial sums); the publish and the barrier (mma: with
+# the next step's state-only math in its shadow); the exchange's read
+# through L2 (simt: the head's dwx_t; mma: the partial sums of the block's
+# units); the product; the sums' way out (simt: the butterfly and dh
+# stores; mma: the partial sums' stores, then the ring's copies issued and
+# waited for)
+BWD_PHASES = ("ring", "gate math", "barrier", "exchange read", "product",
+              "sums out")
+
+
+def bwd_step_profile(r: torch.Tensor, pre: torch.Tensor, c: torch.Tensor,
+                     n: torch.Tensor, m: torch.Tensor, dh: torch.Tensor,
+                     plan: Optional[BwdPlan] = None) -> dict[str, float]:
+    """SM clocks of each phase of a backward step from the zero state,
+    averaged over the steps of one launch in its first block's thread 0,
+    from a diagnostic build (``-DSLSTM_PROFILE``, a library of its own) of
+    the route ``plan`` names (:func:`plan_bwd`'s by default).  Not counted
+    in ``LAUNCHES``: the main path never runs this build."""
+    dh = dh.float().contiguous()
+    p = _check_bwd(r, pre, c, n, m, None, dh, plan)
+    lib = _bind_bwd(build.load("slstm_scan_bwd", ("SLSTM_PROFILE",)))
+    lib.slstm_scan_bwd_profile.argtypes = [_P]
+    lib.slstm_scan_bwd_profile.restype = _I
+    _launch_bwd(lib, r, pre, c, n, m, None, dh, p)
+    torch.cuda.synchronize(pre.device)
+    clocks = (ctypes.c_longlong * len(BWD_PHASES))()
+    build.check(lib.slstm_scan_bwd_profile(clocks),
+                "slstm_scan_bwd profile read")
+    return {name: v / pre.shape[1] for name, v in zip(BWD_PHASES, clocks)}

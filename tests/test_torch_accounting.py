@@ -32,6 +32,7 @@ from repro_torch.core import commcost
 from repro_torch.core.engine import SemiSFLSystem
 from repro_torch.core.wire import parse_wire_format
 from repro_torch.launch import train
+from _torch_threads import one_torch_thread  # noqa: F401
 
 METHODS = ["supervised-only", "semifl", "fedswitch", "fedmatch", "semisfl",
            "fedswitch-sl"]

@@ -37,6 +37,7 @@ from test_torch_engine import _inject, _port_state, _queue_equal
 from test_torch_modules import (JaxReplaySampler, cat_strong, cat_weak,
                                 jax_dropout_masks, jax_strong_draws,
                                 jax_weak_draws)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N_ACTIVE, BATCH = 2, 8
 NAMES = list(baselines.BASELINES)

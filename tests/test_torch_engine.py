@@ -37,6 +37,7 @@ from repro_torch.core.engine import SemiCarry, SemiSFLSystem, make_controller
 from repro_torch.data import pipeline, synthetic
 from repro_torch.data.augment import weak_augment
 from test_torch_modules import JaxReplaySampler
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N_ACTIVE, BATCH = 2, 8
 WIRES = ["fp32", "int8", "fp8", "int8+topk0.05"]

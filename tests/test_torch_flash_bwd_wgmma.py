@@ -47,6 +47,7 @@ import torch
 
 from repro.models.attention import _chunked_attend
 from repro_torch.kernels import ref
+from _torch_threads import one_torch_thread  # noqa: F401
 
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro.models.attention import _chunked_attend
 from repro_torch import kernels
 from repro_torch.kernels import ref
+from _torch_threads import one_torch_thread  # noqa: F401
 
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 

@@ -37,6 +37,7 @@ from repro.models.attention import _chunked_attend
 from repro_torch import kernels
 from repro_torch.core.wire import quantize_grad
 from repro_torch.kernels import ref as tref
+from _torch_threads import one_torch_thread  # noqa: F401
 
 FLASH_TOLS = {"float32": 2e-4, "bfloat16": 3e-2}
 

@@ -47,6 +47,7 @@ from repro_torch.convert import (lm_cache_from_numpy, lm_cache_to_numpy,
 from repro_torch.launch import steps
 from repro_torch.launch.serve import serve_config
 from repro_torch.models.transformer import DecoderLM
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BATCH, N_DECODE = 2, 4
 TOLS = {"float32": 1e-4, "bfloat16": 0.1}

@@ -52,6 +52,7 @@ from repro_torch.convert import (lm_params_from_numpy,
                                  lm_train_state_to_numpy)
 from repro_torch.core.split import feature_dim, feature_shape, proj_dim
 from repro_torch.launch import steps
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N_CLIENTS, PER_CLIENT, SEQ = 2, 2, 64
 TOL = dict(atol=1e-5, rtol=1e-4)

@@ -40,6 +40,8 @@ from repro_torch.core.wire import sparse_delta_mean, topk_sparsify
 from repro_torch.data import augment, partition, pipeline, synthetic
 from repro_torch.data.augment import StrongDraws, WeakDraws
 from repro_torch.models.cnn import CNNModel
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def T(a) -> torch.Tensor:
     """A tensor holding its own copy of ``a``."""

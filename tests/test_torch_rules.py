@@ -20,6 +20,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"

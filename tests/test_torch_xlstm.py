@@ -50,6 +50,7 @@ from repro_torch.convert import (lm_cache_from_numpy, lm_cache_to_numpy,
 from repro_torch.launch import steps
 from repro_torch.launch.serve import serve_config
 from repro_torch.models.transformer import XLSTMModel, build_model
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BATCH, N_DECODE = 2, 4
 # (logits and leaves, relative term for the sLSTM m)

@@ -61,6 +61,7 @@ from repro_torch.models.transformer import build_model
 from repro_torch.tree import tree_leaves, tree_unflatten
 from test_torch_lm_train import (PHASE_TOL, TOL, _assert_state_close,
                                  _realize, _torch_batch)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "xlstm-1.3b"
 N_CLIENTS, PER_CLIENT, SEQ = 2, 1, 256
@@ -74,20 +75,6 @@ LR, LOW_LR = 0.02, 0.002
 # end of this file)
 CASES = [(None, 0.0), ("int8", 0.0), (None, None)]
 sl = import_module("repro_torch.kernels.slstm_scan")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module: the port's CPU steps here are
-    thousands of tiny ops (the sLSTM's plain recurrence, step by step),
-    which a pool of threads only slows, and badly so when the suite's six
-    workers share the cores (with the pool, the step cases took 236-282 s
-    each and the phase 526 s in the whole suite's ``--durations``, against
-    12-19 s alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(tau, dtype: str = "float32"):
@@ -583,14 +570,56 @@ H100 = (132, 232448)
 
 def test_slstm_plan_bwd_at_the_training_shapes():
     """xLSTM-1.3B's sLSTM at the top's B 4 and a bottom's B 1: the
-    forward's split (32 blocks of 16 units a head, 128 blocks), each
-    block holding R's 16 rows of 4 x 512 (128 KiB) and the head's dwx_t."""
-    for b, smem in ((4, 178944), (1, 171456)):
+    forward's split (32 blocks of 16 units a head, 128 blocks) on the mma
+    route, each block holding R's 64 columns of its units as bf16 hi and lo
+    fragments (128 KiB), 4 m-tiles of 16 rows a warp, and in shared memory
+    its dwx_t, the head's 32 partial sums of its units and the ring.
+    Forced onto the simt route, the plan is the first kernel's: R's 16 rows
+    of 4 x 512 (128 KiB) and the head's dwx_t in shared memory."""
+    for b, smem, simt in ((4, 22528, 178944), (1, 7168, 171456)):
         p = sl.plan_bwd(b, 4, 512, *H100)
+        assert p.route == "mma"
         assert (p.units, p.groups, p.blocks) == (16, 32, 128)
-        assert (p.slices, p.threads) == (16, 256)
+        assert (p.slices, p.threads) == (4, 256)
         assert p.r_bytes == 128 * 1024
         assert p.smem_bytes == smem <= H100[1]
+        q = sl.plan_bwd(b, 4, 512, *H100, route="simt")
+        assert q.route == "simt"
+        assert (q.units, q.groups, q.blocks) == (16, 32, 128)
+        assert (q.slices, q.threads) == (16, 256)
+        assert q.r_bytes == 128 * 1024
+        assert q.smem_bytes == simt <= H100[1]
+
+
+def test_slstm_plan_bwd_routes_by_shape():
+    """The route comes from the shape before any launch: mma where a
+    block's units (at most 16) and R's hd rows (at most 8 warps x 4
+    m-tiles of 16) tile its fragments and each of the B U pairs has a gate
+    thread; else simt.  A forced route that does not take the shape
+    raises."""
+    for b in range(1, 17):
+        assert sl.plan_bwd(b, 4, 512, *H100).route == "mma"
+    assert sl._plan_mma(33, 4, 256, 132) is None           # 33 x 8 > 256
+    assert sl.plan_bwd(4, 4, 513, *H100).route == "simt"   # 17 units
+    assert sl.plan_bwd(4, 8, 300, *H100).route == "simt"   # 19 units
+    assert sl.plan_bwd(4, 1, 513, *H100).route == "simt"   # 33 m-tiles
+    with pytest.raises(ValueError, match="mma route does not take"):
+        sl.plan_bwd(4, 4, 513, *H100, route="mma")
+    with pytest.raises(ValueError, match="no route"):
+        sl.plan_bwd(4, 4, 512, *H100, route="wgmma")
+
+
+def test_slstm_plan_bwd_ragged_mma_group():
+    """4 heads of 260 on 132 SMs: 33 groups of 8 units a head, the last of
+    4, on the mma route.  Its units are a multiple of 4 but hd is not a
+    multiple of them, so the kernel's gather of the partial sums must not
+    take float4s (one would run past the head's last row); chip_smoke's
+    SLSTM_BWD_CASES hold this shape on the card."""
+    p = sl.plan_bwd(2, 4, 260, *H100)
+    assert p.route == "mma"
+    assert (p.units, p.groups, p.blocks, p.slices) == (8, 33, 132, 4)
+    assert p.units % 4 == 0 and 260 % p.units == 4
+    assert 260 - (p.groups - 1) * p.units == 4
 
 
 def test_slstm_plan_bwd_refuses_what_does_not_fit_on_chip():
@@ -620,8 +649,15 @@ def test_slstm_plan_bwd_keeps_its_rules(nh):
                 continue
             assert not refused, (b, nh, hd)
             assert p.blocks <= H100[0] and p.threads <= 256
-            assert p.slices & (p.slices - 1) == 0 and p.slices <= 16
-            assert p.slices == 1 or 4 * p.slices <= 4 * hd
+            assert p.slices & (p.slices - 1) == 0
+            if p.route == "mma":
+                assert p.units <= 16 and b * p.units <= 256
+                assert p.threads == 256
+                assert p.slices <= 4 and 64 * p.slices < max(hd, 65)
+                assert hd <= 128 * p.slices
+            else:
+                assert p.slices <= 16
+                assert p.slices == 1 or 4 * p.slices <= 4 * hd
             assert (p.groups - 1) * p.units < hd <= p.groups * p.units
             assert p.smem_bytes <= H100[1]
 
@@ -632,7 +668,12 @@ def test_slstm_bwd_constants_match_the_kernel_source():
     for name, value in (("kRows", sl.ROWS), ("kRing", sl.BWD_RING),
                         ("kFields", sl.BWD_FIELDS),
                         ("kMaxThreads", sl.MAX_THREADS),
-                        ("kRegK", sl.BWD_REG_K)):
+                        ("kRegK", sl.BWD_REG_K),
+                        ("kMmaWarps", sl.MMA_WARPS),
+                        ("kMmaUnits", sl.MMA_UNITS),
+                        ("kMmaRows", sl.MMA_ROWS),
+                        ("kMmaRing", sl.MMA_RING),
+                        ("kMaxMTiles", sl.MMA_MAX_MTILES)):
         assert f"constexpr int {name} = {value};" in src, name
 
 

@@ -59,6 +59,7 @@ from repro_torch.launch import steps
 from repro_torch.launch.serve import serve_config
 from repro_torch.models import ssm as tssm
 from repro_torch.models.transformer import HybridMamba, build_model
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BATCH, N_DECODE = 2, 4
 TOLS = {"float32": 1e-4, "bfloat16": 0.15}
