@@ -50,7 +50,16 @@ Phases, in order; any failure exits nonzero:
      the mma one, at the JAX kernel tests' shapes, at S = 1 and ragged S,
      on bf16 strided slices of a conv output, where a chunk's decay passes
      exp's fp32 range, and at Zamba2-7B's prefill shape, with the mma
-     kernel's ptxas report, residency and per-phase clocks), and time
+     kernel's ptxas report, residency and per-phase clocks); (3d) the
+     Mamba2 scan's training pair: the forward's training variant (y and
+     the final state the serving variant's bit for bit, the chunk states
+     against the plain recurrence) and the backward kernel (its ptxas
+     report) against the plain backward (dx, ddt, dA, dB, dC, dD) at small
+     shapes, a decay past exp's range and Zamba2-7B's training shapes (B 1
+     and 4, S 4096, bf16 and fp32; two launches bit for bit), the
+     differentiable scan against autograd of the plain scan, timed at B 4
+     and 1; also in 3b the flash forward and backward at Zamba2-7B's
+     shared-block training shape (hd 112), timed; and time
      kernel, plain version and, where one exists, the one PyTorch call
      that computes the same function (the quantizer's versions on inputs
      read from HBM, as its bound assumes, the fused kernel also warm in L2;
@@ -141,7 +150,19 @@ Phases, in order; any failure exits nonzero:
  16. card against CPU on it: one step of a 4-block fp32 xLSTM-1.3B at full
      width (sLSTM every 2 blocks, split 1 + 1 group), 2 clients x 256
      tokens (two mLSTM chunks), as phase 14;
- 17. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
+ 17. the seventh path: LM training of Zamba2-7B at full width, as phase 13
+     (width 3584, bf16 with the fp32 A_log, D and dt_bias), cut to
+     ZAMBA_TRAIN_LAYERS Mamba2 layers for one card's memory, at JAX's rate,
+     with the Mamba2 scan 3 times a layer a step (teacher, student,
+     recompute; the mma kernel's, writing its chunk states in the
+     recompute) and its backward once, flash attention 3 times per
+     application of the shared block (hd 112) and its backward once, the
+     clustering pair and the quantizer as there; each Mamba2 layer and
+     each application of the shared block recomputed in the backward pass;
+ 18. card against CPU on it: one step of a 4-layer fp32 Zamba2-7B at full
+     width (the shared block every 2 layers, split 2 + 2), 2 clients x 128
+     tokens, as phase 14;
+ 19. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
 Every profiled run's device records are read raw from the profiler
 (``_device_ops``), not through ``key_averages()``.
 
@@ -304,6 +325,31 @@ MAMBA2_CASES = ([(*e[:5], "float32", e[5]) for e in _MAMBA2_EDGES]
 # a bf16 y is rounded once on each side from fp32 values that differ in
 # their last bits, so it may also differ by one bf16 ulp (2^-7 of |y|)
 MAMBA2_TOL = 5e-5
+# the Mamba2 backward against the plain backward: max|err| <= 1e-4 of
+# max|ref| per gradient, the sLSTM backward's; both are fp32 inside and sum
+# in other orders (the chunked form against the sequential one: on the CPU
+# the kernel's arithmetic lies within 1.1e-5 of max|dA| at the "decay"
+# inputs, tests/test_torch_zamba_train.py), and a bf16 dx, dB or dC is
+# rounded once on each side, so it may also differ by one bf16 ulp (2^-7
+# of |x|).  Cases as MAMBA2_CASES: (b, s, nh, hd, n, dtype, inputs), the
+# small ones (hd and N off multiples of 8 in fp32 only, where the bf16
+# forward refuses them; 3 heads, one alone in its block), the decay, then
+# Zamba2-7B's training shapes over train_4k's 4096 tokens, a client's
+# bottom (B 1) and the top (B 4), in bf16 (the path) and fp32 (the
+# card-vs-CPU check's type)
+MAMBA2_BWD_TOL = 1e-4
+MAMBA2_BWD_CASES = [(1, 64, 2, 32, 16, "float32", "test"),
+                    (2, 300, 2, 32, 16, "float32", "test"),
+                    (1, 130, 3, 20, 12, "float32", "test"),
+                    (2, 256, 2, 64, 64, "float32", "decay"),
+                    (1, 64, 2, 32, 16, "bfloat16", "test"),
+                    (2, 300, 2, 32, 16, "bfloat16", "test"),
+                    (1, 1000, 3, 64, 64, "bfloat16", "test"),
+                    (2, 256, 2, 64, 64, "bfloat16", "decay"),
+                    (1, 4096, 112, 64, 64, "bfloat16", "model"),
+                    (4, 4096, 112, 64, 64, "bfloat16", "model"),
+                    (1, 4096, 112, 64, 64, "float32", "model"),
+                    (4, 4096, 112, 64, 64, "float32", "model")]
 
 
 def fail(msg: str) -> None:
@@ -1500,6 +1546,190 @@ def phase_mamba2(card: str, ptxas: str) -> dict:
     return {"err": err, "timing": t}
 
 
+def _check_mamba2_train(m2, args, case, seed) -> float:
+    """One case of the scan's training pair: the forward's training variant
+    (y and the final state equal to the serving variant's bit for bit, the
+    chunk states against the plain recurrence's within MAMBA2_TOL of
+    max|state|), then the backward kernel on those saved states against the
+    plain backward, each gradient within MAMBA2_BWD_TOL of max|ref| (plus
+    2^-7 of |ref| where it is bf16).  Returns the largest max|err|."""
+    import torch
+
+    from repro_torch.kernels import ref
+    b, s, nh, hd, n, dtype, kind = case
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn(b, s, nh, hd, generator=gen, device="cuda").to(
+        args[0].dtype)
+    y0, final0 = m2.mamba2_scan_cuda(*args)
+    y, final, states = m2.mamba2_scan_cuda(*args, save=True)
+    if not (torch.equal(y, y0) and torch.equal(final, final0)):
+        fail(f"mamba2 training forward {case}: y or the final state differs "
+             "from the serving variant's")
+    _, _, want_states = ref.mamba2_scan_ref(*args, chunk=m2.CHUNK)
+    s_scale = float(want_states.abs().max())
+    s_err = float((states - want_states).abs().max())
+    if not s_err <= MAMBA2_TOL * max(s_scale, 1e-30):
+        fail(f"mamba2 training forward {case}: chunk states {s_err} off the "
+             f"plain recurrence's (max|state| {s_scale})")
+    del y0, final0, y, final, want_states
+    before = m2.LAUNCHES["mamba2_scan_bwd"]
+    got = m2.mamba2_scan_bwd_cuda(*args, states, dy)
+    torch.cuda.synchronize()
+    if m2.LAUNCHES["mamba2_scan_bwd"] != before + 1:
+        fail(f"mamba2 backward {case}: not counted once")
+    want = ref.mamba2_scan_bwd_ref(*args, dy)
+    errs, worst = {}, 0.0
+    for name, g, w, like in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
+                                want, (args[0], args[1], args[2], args[3],
+                                       args[4], args[5])):
+        if g.dtype != like.dtype or g.shape != like.shape:
+            fail(f"mamba2 backward {case}: {name} {g.dtype} "
+                 f"{tuple(g.shape)}, want {like.dtype} {tuple(like.shape)}")
+        a, r = g.float(), w.float()
+        if not bool(torch.isfinite(a).all()):
+            fail(f"mamba2 backward {case}: non-finite {name}")
+        scale = max(float(r.abs().max()), 1e-30)
+        e = float((a - r).abs().max())
+        worst = max(worst, e)
+        errs[name] = e / scale
+        rtol = 2 ** -7 if g.dtype == torch.bfloat16 else 0.0
+        if not torch.allclose(a, r, atol=MAMBA2_BWD_TOL * scale, rtol=rtol):
+            fail(f"mamba2 backward {case}: {name} differs from the plain "
+                 f"version by {e} (max|{name}| {scale})")
+    print(f"[kernels] mamba2 backward {kind} x ({b}, {s}, {nh}, {hd}) N {n} "
+          f"{dtype}: chunk states {s_err:.3g} off (max|state| "
+          f"{s_scale:.4g}); "
+          f"max|err| / max|ref| " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                              errs.items())
+          + f" (tol {MAMBA2_BWD_TOL}" + (", plus 2^-7 of |x| for dx, dB, dC"
+                                          if dtype == "bfloat16" else "")
+          + f"); {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def phase_mamba2_bwd(card: str, ptxas: str) -> dict:
+    """The scan's training pair on the card: the forward's training variant
+    and the backward kernel at MAMBA2_BWD_CASES (:func:`_check_mamba2_train`);
+    :class:`Mamba2Scan` against autograd of the plain scan at a small shape
+    in both types; two launches of the backward at the top's shape must
+    agree bit for bit; then the backward timed at the top's shape (B 4) and
+    a bottom's (B 1), bf16, against its plain version and its bound (its
+    products at the bf16 tensor-core peak, the inputs' type, with the three
+    that all heads share counted once a batch row and chunk)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    m2 = importlib.import_module("repro_torch.kernels.mamba2_scan")
+    for line in ptxas.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"[kernels] mamba2 backward ptxas: {line.strip()}")
+    err = 0.0
+    for i, case in enumerate(MAMBA2_BWD_CASES):
+        args = _mamba2_inputs(*case, 70 + i)
+        err = max(err, _check_mamba2_train(m2, args, case, 170 + i))
+        del args
+        torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        args = _mamba2_inputs(2, 300, 4, 64, 64, dtype, "model", 90)
+        gen = torch.Generator(device="cuda").manual_seed(91)
+        dy = torch.randn(2, 300, 4, 64, generator=gen, device="cuda").to(
+            args[0].dtype)
+        got = [a.detach().clone().requires_grad_() for a in args]
+        y, final = m2.Mamba2Scan.apply(*got)
+        if final.requires_grad:
+            fail("Mamba2Scan's final state carries a gradient")
+        y.backward(dy)
+        want = [a.detach().clone().requires_grad_() for a in args]
+        ref.mamba2_scan_ref(*want)[0].backward(dy)
+        errs = []
+        for a, w in zip(got, want):
+            g, r = a.grad.float(), w.grad.float()
+            scale = max(float(r.abs().max()), 1e-30)
+            errs.append(float((g - r).abs().max()) / scale)
+            rtol = 2 ** -7 if a.dtype == torch.bfloat16 else 0.0
+            if not torch.allclose(g, r, atol=MAMBA2_BWD_TOL * scale,
+                                  rtol=rtol):
+                fail(f"Mamba2Scan {dtype}: a gradient differs from autograd "
+                     f"of the plain scan by {errs[-1]} of its max")
+        print(f"[kernels] Mamba2Scan {dtype} x (2, 300, 4, 64) against "
+              f"autograd of the plain scan: max|err| / max|ref| "
+              + ", ".join(f"{e:.3g}" for e in errs))
+
+    timing = None
+    for b in (LM_CLIENTS, 1):
+        args = _mamba2_inputs(b, LM_SEQ, 112, 64, 64, "bfloat16", "model",
+                              92 + b)
+        x = args[0]
+        _, _, states = m2.mamba2_scan_cuda(*args, save=True)
+        dy = torch.randn(x.shape, device="cuda").to(x.dtype)
+        if b == LM_CLIENTS:
+            # the forward's two variants in turns (serving, training,
+            # training, serving): the training one also writes the chunk
+            # states
+            fwd = {True: [], False: []}
+            for save in (False, True, True, False):
+                fwd[save].append(time_ms(lambda: m2.mamba2_scan_cuda(
+                    *args, save=save), iters=20, warmup=3))
+            runs = lambda v: ", ".join(f"{d:.4f} / {e:.4f}" for d, e in v)
+            print(f"[timing] mamba2_scan at x {tuple(x.shape)} bf16, device "
+                  f"/ event ms a call: the serving variant "
+                  f"{runs(fwd[False])}, the training variant "
+                  f"{runs(fwd[True])} (it also writes "
+                  f"{states.numel() * 4 / 1e6:.1f} MB of chunk states); on "
+                  f"{card}")
+            one, two = (m2.mamba2_scan_bwd_cuda(*args, states, dy)
+                        for _ in range(2))
+            torch.cuda.synchronize()
+            same = all(torch.equal(p, q) for p, q in zip(one, two))
+            print(f"[kernels] mamba2 backward two launches at x "
+                  f"{tuple(x.shape)}: every gradient bit-identical {same}")
+            if not same:
+                fail("two launches of the mamba2 backward on the same "
+                     "inputs differ")
+            del one, two
+        s, nh, hd, n = LM_SEQ, 112, 64, 64
+        nc = m2.chunks(s)
+        el = x.element_size()
+        n_bytes = (3 * x.numel() * el + states.numel() * 4
+                   + 2 * b * s * nh * 4 + 4 * b * s * n * el + 4 * nh * 4)
+        # what the function needs: six 64 x 64 x 64 products a head and
+        # chunk, and three a chunk that all heads share (C B^T, dCB B,
+        # dCB^T C; this design repeats those in each block of BWD_HEADS)
+        n_flops = 2 * 64 ** 3 * (6 * b * nh * nc + 3 * b * nc)
+        fp32_s = 2 * 64 ** 3 * (6 * b * nh * nc + 3 * b * nc
+                                * -(-nh // m2.BWD_HEADS)) / PEAK_FP32_FLOPS
+        t = dict(
+            ms=time_ms(lambda: m2.mamba2_scan_bwd_cuda(*args, states, dy),
+                       iters=5, warmup=1),
+            plain_ms=(time_ms(lambda: ref.mamba2_scan_bwd_ref(*args, dy),
+                              iters=1, warmup=0)
+                      if timing is None else (float("nan"),) * 2),
+            bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
+        print(f"[timing] mamba2_scan_bwd at x {tuple(x.shape)} N {n} bf16 "
+              f"({n_flops:.4g} operations in its products, "
+              f"{n_bytes / 1e6:.1f} MB): kernel {t['ms'][0]:.4f} ms (events "
+              f"{t['ms'][1]:.4f}), "
+              + (f"plain {t['plain_ms'][0]:.4f} ms (events "
+                 f"{t['plain_ms'][1]:.4f}), " if timing is None
+                 else "plain not timed at this shape, ")
+              + f"library n/a (no single PyTorch call), bound "
+              f"{t['bound'][0]:.4f} ms ({t['bound'][1]}; the bytes "
+              f"{n_bytes / PEAK_BYTES * 1e3:.4f} ms, the products "
+              f"{n_flops / PEAK_BF16_FLOPS * 1e3:.4f} ms at the bf16 "
+              f"tensor-core peak; this design's products, the shared ones "
+              f"in each block, {fp32_s * 1e3:.4f} ms at the fp32 CUDA-core "
+              f"peak it runs on); kernel at "
+              f"{n_flops / t['ms'][0] / 1e9:.3f} TFLOP/s, "
+              f"{t['bound'][0] / t['ms'][0]:.4f} of the bound; on {card}")
+        if timing is None:             # the top's shape goes in the row
+            timing = {"ms": t["ms"][0], "plain_ms": t["plain_ms"][0],
+                      "library_ms": None, "bound": t["bound"]}
+        del args, x, states, dy
+        torch.cuda.empty_cache()
+    return {"err": err, "timing": timing}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -2584,15 +2814,11 @@ def phase_flash_bwd(card: str, ptxas: str = "") -> dict:
     every head dim in bf16, rows that see no key (zero gradients, no NaN),
     then H2O-Danube-1.8B's training shape (model views) at windows 0 and
     1024 in both types, and at head dims 64 and 128, where two launches
-    must agree bit for bit; then timed at that shape in bf16, causal:
-    kernel, plain version, the library's backward
-    (``scaled_dot_product_attention``'s forward and backward less its
-    forward) and the bound, with the kernel's rate counted over the 5
-    products the bound counts and over those the bf16 kernels issue."""
+    must agree bit for bit; then timed at that shape in bf16, causal
+    (:func:`_time_flash_train`); then Zamba2-7B's shared-block training
+    shape, q, k, v (4, 32, 4096, 112) bf16 causal views (hd 112, no GQA),
+    checked and timed the same way."""
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import ref
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     for kernel in ("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"):
         for row in _ptxas_rows(ptxas, kernel):
@@ -2646,53 +2872,100 @@ def phase_flash_bwd(card: str, ptxas: str = "") -> dict:
                 again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g)
                 if not all(torch.equal(x, y) for x, y in zip(first, again)):
                     fail("flash backward: two launches differ")
-                timed = (q, k, v, o, lse, g)
+                timed = (q, k, v, g)
+                del o, lse, first, again
             del q, k, v, g
             torch.cuda.empty_cache()
 
-    q, k, v, o, lse, g = timed
+    timing = _time_flash_train(card, f"{LM_ARCH}'s training shape", *timed)
+    del timed
+    torch.cuda.empty_cache()
+    # Zamba2-7B's shared attention block on the training path (no GQA),
+    # the head dim's first training shape
+    q, k, v, g = _model_views(gen, torch.bfloat16, b, s, ZAMBA_HEADS,
+                              ZAMBA_HEADS, ZAMBA_HD, extra=(1,))
+    err = max(err, _check_bwd(q, k, v, g, f"bf16 at zamba2-7b's training "
+                              f"shape q {tuple(q.shape)} kv {tuple(k.shape)}",
+                              FLASH_BWD_TOLS["bfloat16"]))
+    _time_flash_train(card, "zamba2-7b's training shape", q, k, v, g)
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return {"err": err, "timing": timing}
+
+
+def _time_flash_train(card: str, where: str, q, k, v, g) -> dict:
+    """Flash attention at one bf16 causal training shape: the forward (with
+    its lse) and the backward, each timed against the library
+    (``scaled_dot_product_attention``: its forward, and its forward and
+    backward less its forward) and its bound, the backward also against its
+    plain version, with its rate counted over the 5 products the bound
+    counts and over those the bf16 kernels issue.  Returns the backward's
+    times and bound, for the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, h, s, hd = q.shape
+    o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
     pairs = _attn_pairs(s, s, True, 0)
-    n_flops = 5 * 2 * b * h * LM_HD * pairs
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     issued = 4 + 2 * fa.BWD_KV_TERMS + fa.BWD_DQ_TERMS
-    n_bytes = (sum(t.numel() * t.element_size() for t in (q, k, v, o, g))
-               + lse.numel() * 4 + sum(t.numel() * t.element_size()
-                                       for t in (q, k, v)))
     lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
-                                                  enable_gqa=True)
-    sdpa_fwd_bwd = lambda: torch.autograd.grad(sdpa(), (lq, lk, lv), g)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=True, enable_gqa=k.shape[1] != h)
     t = dict(
-        ms=time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, g),
-                   iters=5, warmup=1),
-        plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+        fwd=time_ms(lambda: fa.flash_attention_cuda(q, k, v, with_lse=True),
+                    iters=5, warmup=1),
+        bwd=time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, g),
+                    iters=5, warmup=1),
+        plain=time_ms(lambda: ref.flash_attention_bwd_ref(
             q, k, v, o, lse, g), iters=3, warmup=1),
-        fwd_bwd_ms=time_ms(sdpa_fwd_bwd, iters=10, warmup=2),
-        fwd_ms=time_ms(lambda: sdpa().detach(), iters=10, warmup=2),
-        bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
-    library = (t["fwd_bwd_ms"][0] - t["fwd_ms"][0],
-               t["fwd_bwd_ms"][1] - t["fwd_ms"][1])
-    print(f"[timing] flash_attention_bwd at {LM_ARCH}'s training shape, q "
-          f"{tuple(q.shape)} kv {tuple(k.shape)} bf16 causal "
-          f"({n_flops:.4g} operations in 5 products, {n_bytes / 1e6:.1f} "
-          f"MB): kernel {t['ms'][0]:.4f} ms (events {t['ms'][1]:.4f}), "
-          f"plain {t['plain_ms'][0]:.4f} ms (events {t['plain_ms'][1]:.4f}),"
-          f" library (scaled_dot_product_attention forward + backward "
-          f"{t['fwd_bwd_ms'][0]:.4f} less forward {t['fwd_ms'][0]:.4f}) "
-          f"{library[0]:.4f} ms (events {library[1]:.4f}), bound "
-          f"{t['bound'][0]:.4f} ms ({t['bound'][1]}; "
-          f"{n_flops / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 CUDA-core "
-          f"peak); kernel at {n_flops / t['ms'][0] / 1e9:.1f} TFLOP/s "
-          f"counting the 5 products, "
-          f"{issued * n_flops / 5 / t['ms'][0] / 1e9:.1f} counting the "
-          f"{issued} the bf16 kernels issue (S and dP twice; P and dS as "
-          f"{fa.BWD_KV_TERMS} bf16 terms for dK and dV, dS as "
-          f"{fa.BWD_DQ_TERMS} for dQ), "
-          f"{t['bound'][0] / t['ms'][0]:.4f} of the bound, "
-          f"{t['ms'][0] / library[0]:.2f}x the library's time; on {card}")
-    return {"err": err, "timing": {"ms": t["ms"][0],
-                                   "plain_ms": t["plain_ms"][0],
-                                   "library_ms": library[0],
-                                   "bound": t["bound"]}}
+        lib_fwd=time_ms(lambda: sdpa().detach(), iters=10, warmup=2),
+        lib_fwd_bwd=time_ms(lambda: torch.autograd.grad(
+            sdpa(), (lq, lk, lv), g), iters=10, warmup=2))
+    library = (t["lib_fwd_bwd"][0] - t["lib_fwd"][0],
+               t["lib_fwd_bwd"][1] - t["lib_fwd"][1])
+    shape = f"q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal"
+    out = {}
+    for name, n_prod, n_bytes in (
+            ("forward", 2, size(q, k, v, o) + lse.numel() * 4),
+            ("backward", 5, 2 * size(q, k, v) + size(o, g)
+             + lse.numel() * 4)):
+        n_flops = n_prod * 2 * b * h * hd * pairs
+        bound = bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS)
+        if name == "forward":
+            ms, lib = t["fwd"], t["lib_fwd"]
+            detail = (f"library (scaled_dot_product_attention) "
+                      f"{lib[0]:.4f} ms (events {lib[1]:.4f})")
+            rate = f"{n_flops / ms[0] / 1e9:.1f} TFLOP/s"
+            label = "flash forward (with lse)"
+        else:
+            ms, lib = t["bwd"], library
+            detail = (f"plain {t['plain'][0]:.4f} ms (events "
+                      f"{t['plain'][1]:.4f}), library "
+                      f"(scaled_dot_product_attention forward + backward "
+                      f"{t['lib_fwd_bwd'][0]:.4f} less forward "
+                      f"{t['lib_fwd'][0]:.4f}) {lib[0]:.4f} ms (events "
+                      f"{lib[1]:.4f})")
+            rate = (f"{n_flops / ms[0] / 1e9:.1f} TFLOP/s counting the 5 "
+                    f"products, {issued * n_flops / 5 / ms[0] / 1e9:.1f} "
+                    f"counting the {issued} the bf16 kernels issue (S and "
+                    f"dP twice; P and dS as {fa.BWD_KV_TERMS} bf16 terms "
+                    f"for dK and dV, dS as {fa.BWD_DQ_TERMS} for dQ)")
+            label = "flash_attention_bwd"
+            out = {"ms": ms[0], "plain_ms": t["plain"][0],
+                   "library_ms": lib[0], "bound": bound}
+        print(f"[timing] {label} at {where}, {shape} ({n_flops:.4g} "
+              f"operations in {n_prod} products, {n_bytes / 1e6:.1f} MB): "
+              f"kernel {ms[0]:.4f} ms (events {ms[1]:.4f}), {detail}, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}; "
+              f"{n_flops / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 "
+              f"CUDA-core peak); kernel at {rate}, "
+              f"{bound[0] / ms[0]:.4f} of the bound, "
+              f"{ms[0] / lib[0]:.2f}x the library's time; on {card}")
+    del o, lse, lq, lk, lv
+    return out
 
 
 def _lm_plan(cfg, n: int, seq: int):
@@ -2724,7 +2997,12 @@ def _lm_launches(cfg, n: int, wire) -> dict:
     the wgmma kernel's in bf16, and its backward once per layer (the
     tensor-core kernels in bf16).  xLSTM: the sLSTM scan once per sLSTM
     block a pass (one a group), its backward once per block; no flash.
-    Both: the clustering pair once; the int8 wire's two-pass quantizer (a
+    The Zamba2 hybrid: the Mamba2 scan once per Mamba2 layer a pass (all
+    the mma kernel's in bf16), its backward once per layer, and flash
+    attention once per application of the shared block a pass (one after
+    every ``shared_attn_period`` layers of each side), its backward once
+    per application.  All: the clustering pair once; the int8 wire's
+    two-pass quantizer (a
     client slice of S x d_model floats is past what a cluster holds) three
     times: teacher and student features, and the cut's gradient, where the
     wire is ``int8``."""
@@ -2732,13 +3010,24 @@ def _lm_launches(cfg, n: int, wire) -> dict:
     model = build_model(cfg)
     quant = 3 if wire == "int8" else 0
     want = {"clustering_fwd": 1, "clustering_bwd": 1, "quantize_amax": quant,
-            "quantize_qdq": quant, "quantize_fused": 0, "mamba2_scan": 0}
+            "quantize_qdq": quant, "quantize_fused": 0, "mamba2_scan": 0,
+            "mamba2_scan_bwd": 0}
     if cfg.xlstm:
         blocks = n * model.split_groups + model.n_groups - model.split_groups
         return dict(want, slstm_scan=3 * blocks, slstm_scan_bwd=blocks,
                     flash_attention=0, flash_attention_bwd=0)
     layers = n * model.split + cfg.num_layers - model.split
     bf16 = cfg.dtype == "bfloat16"
+    if cfg.ssm:
+        per = cfg.shared_attn_period
+        apps = n * (model.split // per) + (cfg.num_layers - model.split) // per
+        return dict(want, mamba2_scan=3 * layers,
+                    mamba2_scan_mma=3 * layers if bf16 else 0,
+                    mamba2_scan_bwd=layers, flash_attention=3 * apps,
+                    flash_attention_wgmma=3 * apps if bf16 else 0,
+                    flash_attention_bwd=apps,
+                    flash_attention_bwd_wgmma=apps if bf16 else 0,
+                    slstm_scan=0, slstm_scan_bwd=0)
     return dict(want, flash_attention=3 * layers,
                 flash_attention_wgmma=3 * layers if bf16 else 0,
                 flash_attention_bwd=layers,
@@ -2756,10 +3045,31 @@ def _lm_launches(cfg, n: int, wire) -> dict:
 # gradient times N) meets a first gradient of 8.4e4 on a client bottom at
 # 48 blocks (172 at 16) and takes them to non-finite values in the second
 # step at rates 2e-4 and 2e-5, and 24 blocks in the third, where 16 stay
-# finite (scripts/xlstm_depth_probe.py); JAX's step from its own init does
+# finite (scripts/lm_depth_probe.py); JAX's step from its own init does
 # the same at the smoke width (the study in tests/test_torch_xlstm_train.py).
 # At a rate that keeps 48 blocks finite (2e-8) the random model's
-# pseudo-labels gave Eq. (5) no positive in 4 steps
+# pseudo-labels gave Eq. (5) no positive in 4 steps.  Zamba2-7B trains at
+# full width cut to ZAMBA_TRAIN_LAYERS Mamba2 layers (split 12 + 54, the
+# shared block after every 6 on each side), at JAX's rate: the full 81
+# layers' bf16 state, gradients and the teacher update need about 87 GB
+# before any activation; 72 layers ran out of the 79.18 GiB, 66 peaked at
+# 63.522 GiB and stayed finite at 0.02 (scripts/lm_depth_probe.py --arch
+# zamba2-7b), in one-step calls of the phase (LM_ONE_STEP_CALLS).  Its
+# card-vs-CPU step takes two periods of the shared block split 1 + 1
+# period, so that each side applies it once, as phase 12 does: 4 layers,
+# the block every 2, a layout the published model (the block every 6)
+# does not have, which still runs every fp32 kernel of the path (two
+# periods of 6 layers took that phase 177.6 s, most of it the full-width
+# fp32 state on the host), over 128 tokens a client (two of the scan
+# kernels' 64-step chunks)
+ZAMBA_TRAIN_LAYERS = 66
+# The paths whose depth fits only one-step calls of make_train_phase: the
+# caller's reference to a K-step call's first state lives until the call
+# returns, a second state in memory (35.6 GiB at 66 Zamba2 layers, beside
+# the step's 63.5 GiB peak past the 79.18 GiB of an NVIDIA H100 80GB HBM3 at
+# 700 W).  The others take their 3 timed steps in one call, so that the
+# phase's K > 1 loop runs on the card.
+LM_ONE_STEP_CALLS = ("zamba2-7b",)
 LM_TRAIN_PATHS = {
     "h2o-danube-1.8b": (
         "lm-train", None, 0.02,
@@ -2774,6 +3084,17 @@ LM_TRAIN_PATHS = {
             cfg.xlstm, slstm_period=2)), 256,
         ("slstm_scan_kernel", "slstm_scan_bwd_mma", "clustering_",
          "amax_kernel", "qdq_kernel"), ("slstm_scan_bwd_kernel<",)),
+    "zamba2-7b": (
+        "lm-train-zamba2", ZAMBA_TRAIN_LAYERS, 0.02,
+        lambda cfg: replace(cfg, num_layers=4, shared_attn_period=2,
+                            semisfl=replace(cfg.semisfl, split_layer=2)),
+        128,
+        ("mamba2_scan_kernel_mma", "mamba2_scan_bwd_kernel",
+         "mamba2_scan_bwd_merge", "flash_kernel_wgmma", "flash_bwd_delta",
+         "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma", "clustering_",
+         "amax_kernel", "qdq_kernel"),
+        ("flash_bwd_dkdv<", "flash_bwd_dq<", "mamba2_scan_kernel(",
+         "mamba2_scan_bwd_kernel<float>")),
 }
 
 
@@ -2785,9 +3106,11 @@ def phase_lm_train(card: str, arch: str) -> dict:
     global batch cut from 256 to 4 for one card's memory), weights and
     tokens from seed 0 (the weak views the same sequences each step, see
     :func:`_lm_tokens`).  One warm-up step, then 3 timed steps (host clock
-    ending in a synchronize), every kernel's count set to 0 just before the
-    4 steps and read after; peak device memory; then one step under
-    ``torch.profiler`` (its device ops read raw, :func:`_device_ops`).
+    ending in a synchronize) in one call of the phase, or in three calls of
+    one step on the paths of LM_ONE_STEP_CALLS, every kernel's count set to
+    0 just before the 4 steps and read after; peak device memory; then one
+    step under ``torch.profiler`` (its device ops read raw,
+    :func:`_device_ops`).
     Fails unless every metric is finite, Eq. (5) is live after the first
     step, the top, the bottoms and the teacher bottoms moved, the queue's
     pointer advanced, every leaf of the state is finite, each kernel ran
@@ -2835,10 +3158,16 @@ def phase_lm_train(card: str, arch: str) -> dict:
     state, m_warm = phase(state, part(0, 1))
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    calls = ([(i, i + 1) for i in range(1, 4)] if arch in LM_ONE_STEP_CALLS
+             else [(1, 4)])
     t0 = time.perf_counter()
-    state, m = phase(state, part(1, 4))
+    timed = []
+    for a, b in calls:
+        state, m_i = phase(state, part(a, b))
+        timed.append(m_i)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 3
+    m = {k: torch.cat([x[k] for x in timed]) for k in timed[0]}
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     metrics = {k: torch.cat([m_warm[k], m[k]]).tolist() for k in m}
@@ -2846,7 +3175,8 @@ def phase_lm_train(card: str, arch: str) -> dict:
     print(f"[{tag}] {arch} full width, {cfg.num_layers} of "
           f"{base.num_layers} layers, bf16, int8 wire, tau 0, rate {lr}, "
           f"{LM_CLIENTS} clients x 1 x {LM_SEQ} tokens: warm-up step "
-          f"{warm_s:.4f} s; 3 timed steps {wall:.6f} s a step, "
+          f"{warm_s:.4f} s; 3 timed steps in {len(calls)} call"
+          f"{'s' * (len(calls) > 1)} {wall:.6f} s a step, "
           f"{tokens_step / wall:.1f} tokens/s; peak device memory "
           f"{peak / 2**30:.3f} GiB; on {card}")
     print(f"[{tag}] metrics of the 4 steps: " + "; ".join(
@@ -2917,9 +3247,11 @@ def phase_lm_cross_check(arch: str) -> None:
     """One LM train step on the card against the same step on the CPU:
     ``arch`` at full width cut in depth (LM_TRAIN_PATHS: danube to 2
     layers, split 1 + 1; xLSTM to 4 blocks with an sLSTM every 2, split 1
-    + 1 group), fp32 with TF32 off, 2 clients x 1 sequence (512 tokens for
-    danube, 256 for xLSTM: two mLSTM chunks, so the chunk carry is
-    differentiated), tau 0, no wire, from one state (drawn on the card
+    + 1 group; Zamba2 to 4 Mamba2 layers with the shared block every 2,
+    split 2 + 2), fp32 with TF32 off, 2 clients x 1 sequence (512 tokens
+    for danube, 256 for xLSTM: two mLSTM chunks, so the chunk carry is
+    differentiated; 128 for Zamba2, two chunks of the scan kernels), tau
+    0, no wire, from one state (drawn on the card
     from seed 1, then one step on the same batch to fill the queue) copied
     to the CPU.  Every metric and every leaf of the new state within 1e-3
     (cuBLAS and the CPU sum in other orders, the kernels against their
@@ -3028,6 +3360,10 @@ KERNEL_META = {
                        "src/repro/models/xlstm.py:241"),
     "mamba2_scan": ("src/repro_torch/csrc/mamba2_scan.cu",
                     "src/repro/kernels/mamba2_scan.py:88"),
+    # as flash's backward: the JAX model trains through the VJP of its jnp
+    # stand-in for the Mamba2 kernel, ssd_chunked
+    "mamba2_scan_bwd": ("src/repro_torch/csrc/mamba2_scan_bwd.cu",
+                        "src/repro/models/ssm.py:79"),
 }
 # the main path's kernels; the quantizer's two-pass ones run on the
 # paper-vgg13 rounds instead
@@ -3064,6 +3400,9 @@ def main() -> int:
     mamba2 = phase_mamba2(card, ptxas.get("mamba2_scan", ""))
     checked["errs"]["mamba2_scan"] = mamba2["err"]
     checked["timings"]["mamba2_scan"] = mamba2["timing"]
+    mamba2_bwd = phase_mamba2_bwd(card, ptxas.get("mamba2_scan_bwd", ""))
+    checked["errs"]["mamba2_scan_bwd"] = mamba2_bwd["err"]
+    checked["timings"]["mamba2_scan_bwd"] = mamba2_bwd["timing"]
     lap("kernel checks")
 
     from repro_torch.kernels import launch_counts, reset_launch_counts

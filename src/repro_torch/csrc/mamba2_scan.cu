@@ -111,6 +111,16 @@
 //   distinct banks.  The prefix sum is one warp's shuffle scan, two steps a
 //   lane.
 //
+// Training variant: handed a chunk_states pointer (else null), either
+// kernel also writes the state at the start of every chunk, (B, ceil(S /
+// 64), nh, hd, N) fp32 contiguous (zeros for the first chunk), where the
+// backward (csrc/mamba2_scan_bwd.cu) starts each chunk from.  It is the
+// same compiled kernel as the serving one with one more store a chunk,
+// taken from the state it already holds (the bf16 kernel's S^T fragments
+// in registers, the fp32 kernel's S in shared memory), so y and the final
+// state are the serving variant's bit for bit.  At the training path's B 4
+// and S 4096 the saves are 470 MB a launch.
+//
 // Strides: x is addressed as (B, S, nh, hd) and B, C as (B, S, N) through
 // their batch, time (and head) strides, the last dim contiguous, so the
 // model's slices of its (B, S, d_in + 2N) conv output go in with no copy;
@@ -162,7 +172,8 @@ mamba2_scan_kernel(const float* __restrict__ x, long long x_sb,
                    const float* __restrict__ Cm, long long c_sb,
                    long long c_st, const float* __restrict__ D,
                    float* __restrict__ y, float* __restrict__ state_out,
-                   int S, int nh, int hd, int N) {
+                   float* __restrict__ chunk_states, int S, int nh, int hd,
+                   int N) {
   extern __shared__ float smem[];
   float* st = smem + kOffS;
   float* bt = smem + kOffB;
@@ -191,6 +202,18 @@ mamba2_scan_kernel(const float* __restrict__ x, long long x_sb,
 
   for (int c0 = 0; c0 < S; c0 += kL) {
     const int len = min(kL, S - c0);
+
+    // 0. the training variant: the state at the chunk's start, (hd, N) for
+    //    this (b, head), zeros for the first chunk (S is zeroed but not yet
+    //    synchronised there); the last iteration's final barrier ordered
+    //    every other chunk's S
+    if (chunk_states) {
+      float* cs = chunk_states +
+                  (((long long)b * ((S + kL - 1) / kL) + c0 / kL) * nh +
+                   head) * hd * N;
+      for (int i = tid; i < hd * N; i += kThreads)
+        cs[i] = c0 == 0 ? 0.f : st[(i % N) * kP + i / N];
+    }
 
     // 1. the chunk's B^T, C^T and x, zero-padded; dt and its prefix sum
     for (int i = tid; i < kL * kP; i += kThreads) {
@@ -485,6 +508,7 @@ struct MmaArgs {
   const float* D;
   __nv_bfloat16* y;
   float* state_out;
+  float* chunk_states;  // the training variant's saves, or null
   int S, nh, hd, N;
 };
 
@@ -610,6 +634,22 @@ mamba2_scan_kernel_mma(const MmaArgs p) {
       if (scan_warp) load_dt(c + 1, dn0, dn1);
     }
     PROF_MARK(kPhWait);
+
+    // the training variant: the state at the chunk's start, from the S^T
+    // fragments, in the layout of the final state below
+    if (p.chunk_states && live) {
+      float* cs = p.chunk_states +
+                  (((long long)b * nc + c) * p.nh + head) * p.hd * p.N;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = col0 + g_row + 8 * half, n = 8 * q + g_col;
+          if (r < p.hd && n < p.N)
+            *reinterpret_cast<float2*>(cs + (long long)r * p.N + n) =
+                make_float2(st[q][2 * half], st[q][2 * half + 1]);
+        }
+    }
 
     unsigned char* stage = msmem + (c & 1) * kStageBytes;
     unsigned char* xt = stage + hl * kTileBytes;
@@ -851,14 +891,17 @@ cudaError_t set_mma_smem() {
 // dt_strides its three strides; A, D: (nh,) fp32 contiguous; Bm, Cm: (B,
 // S, N), strides (batch, time), the last dim contiguous; x, Bm, Cm and y
 // fp32; y: (B, S, nh, hd) contiguous; state: (B, nh, hd, N) fp32
-// contiguous.  hd and N at most 64.  Returns the launch's cudaError_t.
+// contiguous; chunk_states: null, or (B, ceil(S / 64), nh, hd, N) fp32
+// contiguous for the training variant.  hd and N at most 64.  Returns the
+// launch's cudaError_t.
 extern "C" int mamba2_scan_fwd(const float* x, const long long* x_strides,
                                const float* dt, const long long* dt_strides,
                                const float* A, const float* Bm,
                                const long long* b_strides, const float* Cm,
                                const long long* c_strides, const float* D,
-                               float* y, float* state, int B, int S, int nh,
-                               int hd, int N, void* stream) {
+                               float* y, float* state, float* chunk_states,
+                               int B, int S, int nh, int hd, int N,
+                               void* stream) {
   if (B < 1 || B > 65535 || S < 1 || nh < 1 || hd < 1 || hd > kP || N < 1 ||
       N > kP)
     return (int)cudaErrorInvalidValue;
@@ -872,7 +915,7 @@ extern "C" int mamba2_scan_fwd(const float* x, const long long* x_strides,
                        static_cast<cudaStream_t>(stream)>>>(
       x, x_strides[0], x_strides[1], x_strides[2], dt, dt_strides[0],
       dt_strides[1], dt_strides[2], A, Bm, b_strides[0], b_strides[1], Cm,
-      c_strides[0], c_strides[1], D, y, state, S, nh, hd, N);
+      c_strides[0], c_strides[1], D, y, state, chunk_states, S, nh, hd, N);
   return (int)cudaGetLastError();
 }
 
@@ -886,7 +929,8 @@ extern "C" int mamba2_scan_mma_fwd(const void* x, const long long* x_strides,
                                    const float* A, const void* Bm,
                                    const long long* b_strides, const void* Cm,
                                    const long long* c_strides, const float* D,
-                                   void* y, float* state, int B, int S,
+                                   void* y, float* state,
+                                   float* chunk_states, int B, int S,
                                    int nh, int hd, int N, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || nh < 1 || hd < 8 || hd > kP ||
       hd % 8 || N < 8 || N > kP || N % 8)
@@ -912,6 +956,7 @@ extern "C" int mamba2_scan_mma_fwd(const void* x, const long long* x_strides,
   p.D = D;
   p.y = static_cast<__nv_bfloat16*>(y);
   p.state_out = state;
+  p.chunk_states = chunk_states;
   p.S = S;
   p.nh = nh;
   p.hd = hd;

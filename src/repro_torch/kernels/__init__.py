@@ -104,8 +104,16 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     nh, hd, N) in fp32.  On the card x, B, C and dt may be any views whose
     last dim is contiguous; in bf16 (the tensor-core kernel) the rows of x,
     B and C must also be 16-byte aligned, as the model's conv-output slices
-    are (``mamba2_scan.mma_layout_problem`` says why a view is refused)."""
+    are (``mamba2_scan.mma_layout_problem`` says why a view is refused).
+    Differentiable with respect to all six inputs: on the card, where a
+    gradient is recorded, the call goes through :class:`Mamba2Scan` (the
+    forward kernel saving its chunk states, the backward kernel; the final
+    state carries no gradient), else through the forward kernel alone.  On
+    the CPU autograd differentiates the plain version."""
     if _route(x, "mamba2_scan") == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, A, B, C, D)):
+            return _m2.Mamba2Scan.apply(x, dt, A, B, C, D)
         return _m2.mamba2_scan_cuda(x, dt, A, B, C, D)
     return ref.mamba2_scan_ref(x, dt, A, B, C, D)
 

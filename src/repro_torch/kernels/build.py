@@ -26,7 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("clustering_loss", "flash_attention", "flash_attention_bwd",
-           "mamba2_scan", "quantize", "slstm_scan", "slstm_scan_bwd")
+           "mamba2_scan", "mamba2_scan_bwd", "quantize", "slstm_scan",
+           "slstm_scan_bwd")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

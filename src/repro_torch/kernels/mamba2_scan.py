@@ -14,7 +14,14 @@ would be TF32).  Neither stands in for the other: a bf16 view the mma
 kernel cannot read raises (``mma_layout_problem`` says why).  Both read x,
 B, C and dt through their strides, so the model's slices of its conv
 output go in as they are.  Any S >= 1; hd and N at most 64 (multiples of 8
-in bf16).  One launch per call."""
+in bf16).  One launch per call.
+
+Training: ``mamba2_scan_cuda(..., save=True)`` launches the same kernel
+with a buffer for the state at the start of every chunk of ``CHUNK``
+steps, and ``mamba2_scan_bwd_cuda`` (``csrc/mamba2_scan_bwd.cu``, its own
+library) walks the chunks in reverse from those states for the gradients
+on x, dt, A, B, C and D; :class:`Mamba2Scan` is the autograd Function over
+the two."""
 from __future__ import annotations
 
 import ctypes
@@ -26,8 +33,8 @@ import torch
 from repro_torch.kernels import build
 
 # "mamba2_scan" counts every launch, "mamba2_scan_mma" those of the bf16
-# kernel
-LAUNCHES = {"mamba2_scan": 0, "mamba2_scan_mma": 0}
+# kernel, "mamba2_scan_bwd" every backward call (the kernel and its merge)
+LAUNCHES = {"mamba2_scan": 0, "mamba2_scan_mma": 0, "mamba2_scan_bwd": 0}
 
 MAX_DIM = 64                           # hd and N, padded to 64 in the kernel
 CHUNK = 64                             # steps of a chunk, both kernels
@@ -35,6 +42,9 @@ CHUNK = 64                             # steps of a chunk, both kernels
 # CHUNK and TERMS state the .cu's kL and kTerms, which a CPU test holds
 # them to
 TERMS = 2
+# heads a backward block takes, their dB and dC summed before it writes
+# them as partials; the .cu's kHeads, which a CPU test holds it to
+BWD_HEADS = 2
 # the phases of a chunk that a build with MAMBA2_PROFILE times, in order
 PROFILE_PHASES = ("wait for the chunk's loads", "C B^T and G", "C S",
                   "state update", "prefix sum", "wait for G", "G x",
@@ -46,7 +56,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.mamba2_scan_fwd, lib.mamba2_scan_mma_fwd):
-        fn.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 13 + [_I] * 5 + [_P]
         fn.restype = _I
     lib.mamba2_scan_mma_occupancy.argtypes = [_P]
     lib.mamba2_scan_mma_occupancy.restype = _I
@@ -56,6 +66,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return _bind(build.load("mamba2_scan"))
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("mamba2_scan_bwd")
+    lib.mamba2_scan_bwd.argtypes = [_I] + [_P] * 20 + [_I] * 5 + [_P]
+    lib.mamba2_scan_bwd.restype = _I
+    return lib
 
 
 def mma_layout_problem(x: torch.Tensor, B: torch.Tensor,
@@ -122,40 +140,143 @@ def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise ValueError(f"mamba2 scan, bf16 (mma) kernel: {problem}")
 
 
+def _strides(x, dt, B, C) -> list:
+    """The (batch, time, head) strides of x and dt and the (batch, time)
+    strides of B and C, as the C entry points take them."""
+    out = [(ctypes.c_longlong * 3)(*t.stride()[:3]) for t in (x, dt)]
+    return out + [(ctypes.c_longlong * 2)(*t.stride()[:2]) for t in (B, C)]
+
+
+def _ptr(a) -> ctypes.c_void_p:
+    return ctypes.cast(a, ctypes.c_void_p)
+
+
+def chunks(s: int) -> int:
+    """The kernels' chunks of ``CHUNK`` steps over S steps."""
+    return -(-s // CHUNK)
+
+
 def _launch(lib: ctypes.CDLL, x: torch.Tensor, dt: torch.Tensor,
             A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-            D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            D: torch.Tensor, save: bool = False) -> tuple:
     b, s, nh, hd = x.shape
     n = B.shape[-1]
     y = torch.empty(b, s, nh, hd, dtype=x.dtype, device=x.device)
     state = torch.empty(b, nh, hd, n, device=x.device)
-    strides = [(ctypes.c_longlong * 3)(*t.stride()[:3]) for t in (x, dt)]
-    strides += [(ctypes.c_longlong * 2)(*t.stride()[:2]) for t in (B, C)]
-    ptr = lambda a: ctypes.cast(a, ctypes.c_void_p)
+    starts = (torch.empty(b, chunks(s), nh, hd, n, device=x.device) if save
+              else None)
+    strides = _strides(x, dt, B, C)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = (lib.mamba2_scan_mma_fwd if x.dtype == torch.bfloat16
           else lib.mamba2_scan_fwd)
     build.check(fn(
-        x.data_ptr(), ptr(strides[0]), dt.data_ptr(), ptr(strides[1]),
-        A.data_ptr(), B.data_ptr(), ptr(strides[2]), C.data_ptr(),
-        ptr(strides[3]), D.data_ptr(), y.data_ptr(), state.data_ptr(),
-        b, s, nh, hd, n, stream), "mamba2_scan launch")
-    return y, state
+        x.data_ptr(), _ptr(strides[0]), dt.data_ptr(), _ptr(strides[1]),
+        A.data_ptr(), B.data_ptr(), _ptr(strides[2]), C.data_ptr(),
+        _ptr(strides[3]), D.data_ptr(), y.data_ptr(), state.data_ptr(),
+        0 if starts is None else starts.data_ptr(), b, s, nh, hd, n, stream),
+        "mamba2_scan launch")
+    return (y, state, starts) if save else (y, state)
 
 
 def mamba2_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                     B: torch.Tensor, C: torch.Tensor, D: torch.Tensor
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+                     B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+                     save: bool = False) -> tuple:
     """Launch the kernel of x's dtype: y (B, S, nh, hd) in x's dtype and
     the final state (B, nh, hd, N) in fp32, as ``ref.mamba2_scan_ref``
     computes them (the bf16 kernel's products carry fp32 operands as two
-    bf16 terms each, to within 2^-16 of each operand)."""
+    bf16 terms each, to within 2^-16 of each operand).  With ``save``
+    (the training variant) also the state at the start of every chunk,
+    (B, ceil(S / CHUNK), nh, hd, N) fp32, where the backward starts each
+    chunk from: ``ref.mamba2_scan_ref(..., chunk=CHUNK)``'s third output;
+    y and the final state are the serving variant's bit for bit."""
     _check(x, dt, A, B, C, D)
-    out = _launch(_lib(), x, dt, A, B, C, D)
+    out = _launch(_lib(), x, dt, A, B, C, D, save)
     LAUNCHES["mamba2_scan"] += 1
     if x.dtype == torch.bfloat16:
         LAUNCHES["mamba2_scan_mma"] += 1
     return out
+
+
+def _check_bwd(x, dt, A, B, C, D, states, dy) -> None:
+    """The forward's checks on its inputs, then the saved states (B, ceil(S
+    / CHUNK), nh, hd, N) fp32 contiguous and dy (B, S, nh, hd) in x's
+    dtype on x's device."""
+    _check(x, dt, A, B, C, D)
+    b, s, nh, hd = x.shape
+    want = (b, chunks(s), nh, hd, B.shape[-1])
+    if states.device != x.device or states.dtype != torch.float32 \
+            or tuple(states.shape) != want or not states.is_contiguous():
+        raise ValueError(f"mamba2 scan backward: the saved states must be "
+                         f"a contiguous fp32 {want} on {x.device}, got "
+                         f"{states.dtype} {tuple(states.shape)} on "
+                         f"{states.device}")
+    if dy.device != x.device or dy.dtype != x.dtype \
+            or tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"mamba2 scan backward: dy must be {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}, got {dy.dtype} "
+                         f"{tuple(dy.shape)} on {dy.device}")
+
+
+def mamba2_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                         states: torch.Tensor, dy: torch.Tensor
+                         ) -> tuple[torch.Tensor, ...]:
+    """The scan's backward on the card, from the forward's inputs and its
+    saved chunk states (``mamba2_scan_cuda(..., save=True)``) and the
+    upstream gradient ``dy`` on y (made contiguous here): (dx, ddt, dA, dB,
+    dC, dD), dx, dB and dC in their inputs' dtypes, ddt, dA and dD in
+    fp32, as ``ref.mamba2_scan_bwd_ref`` computes them.  One call, two
+    launches on the current stream (the kernel writes per-block partials
+    of dB, dC, dA and dD, and a merge sums them in a fixed order), counted
+    once in ``LAUNCHES["mamba2_scan_bwd"]``; two calls on the same inputs
+    agree bit for bit."""
+    _check_bwd(x, dt, A, B, C, D, states, dy)
+    dy = dy.contiguous()
+    b, s, nh, hd = x.shape
+    n = B.shape[-1]
+    groups = -(-nh // BWD_HEADS)
+    dev = x.device
+    dx = torch.empty(b, s, nh, hd, dtype=x.dtype, device=dev)
+    ddt = torch.empty(b, s, nh, device=dev)
+    dB = torch.empty(b, s, n, dtype=B.dtype, device=dev)
+    dC = torch.empty(b, s, n, dtype=C.dtype, device=dev)
+    dA = torch.empty(nh, device=dev)
+    dD = torch.empty(nh, device=dev)
+    part_bc = torch.empty(2, groups, b, s, n, device=dev)
+    part_ad = torch.empty(2, b, nh, device=dev)
+    strides = _strides(x, dt, B, C)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(_bwd_lib().mamba2_scan_bwd(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), _ptr(strides[0]),
+        dt.data_ptr(), _ptr(strides[1]), A.data_ptr(), B.data_ptr(),
+        _ptr(strides[2]), C.data_ptr(), _ptr(strides[3]), D.data_ptr(),
+        dy.data_ptr(), states.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), dD.data_ptr(),
+        part_bc.data_ptr(), part_ad.data_ptr(), b, s, nh, hd, n, stream),
+        "mamba2_scan backward launch")
+    LAUNCHES["mamba2_scan_bwd"] += 1
+    return dx, ddt, dA, dB, dC, dD
+
+
+class Mamba2Scan(torch.autograd.Function):
+    """The differentiable scan on the card: the forward kernel's training
+    variant, saving its inputs and the chunk states; the backward kernel
+    for the gradients on x, dt, A, B, C and D.  The scan starts from the
+    zero state and its final state carries no gradient (training drops
+    it).  Under a layer recomputed in the backward pass
+    (``torch.utils.checkpoint``), the tensors saved here come from the
+    recompute."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D):
+        y, final, states = mamba2_scan_cuda(x, dt, A, B, C, D, save=True)
+        ctx.mark_non_differentiable(final)
+        ctx.save_for_backward(x, dt, A, B, C, D, states)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, _):
+        return mamba2_scan_bwd_cuda(*ctx.saved_tensors, dy)
 
 
 def mma_blocks_per_sm() -> int:
@@ -191,6 +312,7 @@ def chunk_profile(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     torch.cuda.synchronize(x.device)
     build.check(lib.mamba2_scan_mma_profile(clocks), "mamba2_scan profile "
                 "read")
-    chunks = -(-x.shape[1] // CHUNK)
-    return {k: [clocks[w * n_ph + i] / chunks for w in range(PROFILE_WARPS)]
+    n_chunks = chunks(x.shape[1])
+    return {k: [clocks[w * n_ph + i] / n_chunks
+                for w in range(PROFILE_WARPS)]
             for i, k in enumerate(PROFILE_PHASES)}

@@ -2,8 +2,9 @@
 
 The same maths as the JAX package's ``kernels/ref.py`` (``flash_attention_ref``,
 ``clustering_loss_ref``, ``quantize_dequantize_ref``, ``slstm_scan_ref`` and
-``mamba2_scan_ref``), and the flash and sLSTM backwards that the JAX package
-leaves to autograd (``flash_attention_bwd_ref``, ``slstm_scan_bwd_ref``),
+``mamba2_scan_ref``), and the flash, sLSTM and Mamba2 backwards that the JAX
+package leaves to autograd (``flash_attention_bwd_ref``,
+``slstm_scan_bwd_ref``, ``mamba2_scan_bwd_ref``),
 written in the most direct form:
 the full (Sq, Skv) and (B, Q) logit matrices, one amax per tensor or per
 leading slice, one Python step per time step of the sLSTM and Mamba2
@@ -337,9 +338,19 @@ def slstm_dr(h: torch.Tensor, h0: Optional[torch.Tensor],
                         dwx).reshape(nh, hd, 4 * hd)
 
 
+def _mamba2_step(h: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
+                 B_t: torch.Tensor, Af: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step of the SSM recurrence in fp32: h (b, nh, hd, N), x_t (b,
+    nh, hd), dt_t (b, nh), B_t (b, N) -> (h_t, alpha_t = exp(dt_t A))."""
+    alpha = torch.exp(dt_t * Af)
+    return h * alpha[..., None, None] + torch.einsum(
+        "bhd,bn->bhdn", x_t * dt_t[..., None], B_t), alpha
+
+
 def mamba2_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+                    chunk: int = 0):
     """Sequential SSM recurrence from a zero state, in fp32.
 
     x: (b, S, nh, hd); dt: (b, S, nh); A, D: (nh,); B, C: (b, S, N), one
@@ -348,19 +359,81 @@ def mamba2_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
       h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t^T;  y_t = h_t . C_t + D x_t
 
     Returns y (b, S, nh, hd) in x's dtype and the final h (b, nh, hd, N) in
-    fp32, the layout of the model's decode cache."""
+    fp32, the layout of the model's decode cache; with ``chunk`` > 0 also
+    the state at the start of every chunk of that many steps, (b, ceil(S /
+    chunk), nh, hd, N) in fp32, as the kernel's training variant writes
+    it (zeros for the first)."""
     b, s, nh, hd = x.shape
     n = B.shape[-1]
     Af, Df = A.float(), D.float()
     h = torch.zeros(b, nh, hd, n, device=x.device)
-    ys = []
+    ys, starts = [], []
     for t in range(s):
-        dtt = dt[:, t].float()                              # (b, nh)
+        if chunk and t % chunk == 0:
+            starts.append(h)
         xt = x[:, t].float()                                # (b, nh, hd)
-        alpha = torch.exp(dtt * Af)
-        xdt = xt * dtt[..., None]
-        h = h * alpha[..., None, None] + torch.einsum(
-            "bhd,bn->bhdn", xdt, B[:, t].float())
+        h, _ = _mamba2_step(h, xt, dt[:, t].float(), B[:, t].float(), Af)
         y = torch.einsum("bhdn,bn->bhd", h, C[:, t].float())
         ys.append(y + Df[None, :, None] * xt)
-    return torch.stack(ys, 1).to(x.dtype), h
+    out = torch.stack(ys, 1).to(x.dtype), h
+    if chunk:
+        return (*out, torch.stack(starts, 1))
+    return out
+
+
+def mamba2_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                        dy: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The backward of :func:`mamba2_scan_ref`, one Python step per time
+    step from t = S - 1 down to 0, in fp32: the gradients on (x, dt, A, B,
+    C, D) for the upstream gradient ``dy`` (b, S, nh, hd) on y; the final
+    state takes none (training drops it).  With alpha_t = exp(dt_t A) and
+    dh (b, nh, hd, N) the gradient on h_t, 0 past the end::
+
+      dh += dy_t C_t^T
+      dx_t = D dy_t + dt_t (dh B_t)
+      ddt_t = x_t . (dh B_t) + A alpha_t <dh, h_{t-1}>
+      dB_t = sum_heads dt_t dh^T x_t;   dC_t = sum_heads h_t^T dy_t
+      dA += sum dt_t alpha_t <dh, h_{t-1}>;   dD += sum <dy_t, x_t>
+      dh <- alpha_t dh
+
+    The states come from the forward recurrence: :func:`mamba2_scan_ref`
+    keeps the state at the start of every 64 steps, and each such
+    segment's states are recomputed from it before the walk back through
+    it, so that no more than 64 states are held at once (all of them at
+    Zamba2-7B's top, B 4 and S 4096, would be 30 GB).
+    Returns dx, dB, dC in their inputs' dtypes and ddt, dA, dD in fp32."""
+    b, s, nh, hd = x.shape
+    n = B.shape[-1]
+    xf, dtf, Bf, Cf, dyf = (t.float() for t in (x, dt, B, C, dy))
+    Af, Df = A.float(), D.float()
+    segment = 64
+    _, _, starts = mamba2_scan_ref(x, dt, A, B, C, D, chunk=segment)
+    dh = torch.zeros(b, nh, hd, n, device=x.device)
+    dx = torch.empty(b, s, nh, hd, device=x.device)
+    ddt = torch.empty(b, s, nh, device=x.device)
+    dB = torch.empty(b, s, n, device=x.device)
+    dC = torch.empty(b, s, n, device=x.device)
+    dA = torch.zeros(nh, device=x.device)
+    dD = torch.zeros(nh, device=x.device)
+    for c in range(starts.shape[1] - 1, -1, -1):
+        t0, t1 = c * segment, min(s, (c + 1) * segment)
+        hs, alphas = [starts[:, c]], []
+        for t in range(t0, t1):
+            h, alpha = _mamba2_step(hs[-1], xf[:, t], dtf[:, t], Bf[:, t], Af)
+            hs.append(h)
+            alphas.append(alpha)
+        for t in range(t1 - 1, t0 - 1, -1):
+            h_t, h_prev, alpha = hs[t - t0 + 1], hs[t - t0], alphas[t - t0]
+            dtt, xt, dyt = dtf[:, t], xf[:, t], dyf[:, t]
+            dh = dh + torch.einsum("bhd,bn->bhdn", dyt, Cf[:, t])
+            dhb = torch.einsum("bhdn,bn->bhd", dh, Bf[:, t])
+            inner = (dh * h_prev).sum((-1, -2))                  # (b, nh)
+            dx[:, t] = Df[None, :, None] * dyt + dtt[..., None] * dhb
+            ddt[:, t] = (xt * dhb).sum(-1) + Af * alpha * inner
+            dB[:, t] = torch.einsum("bhdn,bhd->bn", dh, xt * dtt[..., None])
+            dC[:, t] = torch.einsum("bhdn,bhd->bn", h_t, dyt)
+            dA = dA + (dtt * alpha * inner).sum(0)
+            dD = dD + (dyt * xt).sum((0, 2))
+            dh = dh * alpha[..., None, None]
+    return (dx.to(x.dtype), ddt, dA, dB.to(B.dtype), dC.to(C.dtype), dD)

@@ -2,28 +2,31 @@
 without mesh or sharding.
 
   * ``make_train_step`` / ``make_train_phase``: one SemiSFL cross-entity
-    iteration on a dense decoder LM or on xLSTM (``make_train_step(plan,
-    dist, lr, wire=..., mesh=None)`` and ``make_scanned_train_phase`` in
-    JAX), with ``StepPlan`` / ``make_plan``, the state's shapes (the train
-    branch of ``input_specs``) and a seeded initial state; the Zamba2
-    hybrid raises (the Mamba2 scan kernel has no backward yet);
+    iteration on a dense decoder LM, on xLSTM or on the Zamba2 hybrid
+    (``make_train_step(plan, dist, lr, wire=..., mesh=None)`` and
+    ``make_scanned_train_phase`` in JAX), with ``StepPlan`` / ``make_plan``,
+    the state's shapes (the train branch of ``input_specs``) and a seeded
+    initial state; other models raise;
   * ``make_prefill_step`` / ``make_decode_step``: split-inference serving
     of the dense, xLSTM and Zamba2 models.
 
 Training.  The state is a dict ``{"client_bottoms", "teacher_bottoms",
 "top", "t_top", "proj", "t_proj", "queue"}`` where JAX stacks the N clients'
 bottoms on a leading axis; here ``client_bottoms`` and ``teacher_bottoms``
-are lists of N bottom trees, each with a list of layers (``stack``) or of
-xLSTM groups (``groups``) where JAX stacks them on a leading axis
+are lists of N bottom trees, each with a list of layers (``stack``; the
+hybrid's Mamba2 layers, beside its ``shared_attn`` block) or of xLSTM groups
+(``groups``) where JAX stacks them on a leading axis
 (``convert.lm_train_state_from_numpy`` unstacks the JAX state).  A batch is
 ``{"tokens_weak", "tokens_strong"}``, each (N, b, S).  The clients' bottoms
 run one after another, where JAX vmaps them, and each client's gradient is
 rescaled by N (Eq. (8)), as ``core/engine.py`` does for the CNNs.  On the
 card attention differentiates through the flash kernels
-(``kernels.FlashAttention``) and the sLSTM through its scan kernels
-(``kernels.slstm_scan``'s ``SLSTMScan``); the mLSTM's chunk loop through
-autograd.  Each dense layer, and each xLSTM block, is recomputed in the
-backward pass (``models/transformer.py``).
+(``kernels.FlashAttention``), the sLSTM through its scan kernels
+(``kernels.slstm_scan``'s ``SLSTMScan``) and the Mamba2 scan through its
+(``kernels.mamba2_scan``'s ``Mamba2Scan``); the mLSTM's chunk loop through
+autograd.  Each dense layer, each xLSTM block, and each Mamba2 layer and
+application of the hybrid's shared block is recomputed in the backward
+pass (``models/transformer.py``).
 
 Serving.  Each step runs the bottom (client) half, hands its features to
 the top (server) half, and returns the cache of both halves.  KV caches
@@ -77,16 +80,12 @@ def make_plan(cfg: ArchConfig, shape: InputShape, *,
                     per_client_batch=shape.global_batch // n)
 
 
-def _train_model(plan: StepPlan) -> DecoderLM | XLSTMModel:
+def _train_model(plan: StepPlan) -> DecoderLM | HybridMamba | XLSTMModel:
     model = build_model(plan.cfg)
-    if isinstance(model, HybridMamba):
+    if not isinstance(model, (DecoderLM, HybridMamba, XLSTMModel)):
         raise NotImplementedError(
-            f"{plan.cfg.name}: the port does not train the Zamba2 hybrid yet "
-            "(the Mamba2 scan kernel has no backward)")
-    if not isinstance(model, (DecoderLM, XLSTMModel)):
-        raise NotImplementedError(
-            f"{plan.cfg.name}: the port trains dense decoder LMs and xLSTM "
-            "only")
+            f"{plan.cfg.name}: the port trains dense decoder LMs, the Zamba2 "
+            "hybrid and xLSTM only")
     return model
 
 
@@ -97,7 +96,8 @@ def init_train_state(plan: StepPlan, seed: int = 0,
     and every client's teacher starts from (the broadcast of a round's
     start), the teacher top and projection head copies of the student's,
     and an empty queue.  A bottom is the model's: embeddings and a list
-    of layers (``stack``) or of xLSTM groups (``groups``)."""
+    of layers (``stack``, and the hybrid's ``shared_attn`` block) or of
+    xLSTM groups (``groups``)."""
     dev = torch.device(device)
     if dev.type != "meta":
         dev = resolve_device(device)
@@ -253,7 +253,11 @@ def make_train_phase(plan: StepPlan, lr: float = 0.02, *,
     :func:`make_train_step` over batches whose leaves have a leading K
     axis, the metrics stacked to (K,) tensors on the device, as the JAX
     ``make_scanned_train_phase`` returns them (a Python loop here, not a
-    compiled scan)."""
+    compiled scan).  The caller's reference to ``state`` lives until the
+    call returns, so from its second step on a K > 1 call holds one state
+    more than a one-step call: where that state does not fit beside a
+    step's peak (Zamba2-7B at 66 layers: a 35.6 GiB state, a 63.5 GiB peak
+    on an NVIDIA H100 80GB HBM3 at 700 W), call it one step at a time."""
     step = make_train_step(plan, lr, wire=wire)
 
     def phase(state: dict, batches: dict):

@@ -263,6 +263,14 @@ class HybridMamba(DecoderLM):
     def _run_segment(self, params: dict, x: torch.Tensor, *,
                      positions: torch.Tensor, mode: str,
                      cache: Optional[dict], layer0: int):
+        """Run x through a segment's Mamba2 layers, applying the shared
+        block after every ``period``-th layer of the whole model.  A
+        train-mode pass that records gradients keeps only the input of each
+        Mamba2 layer and of each application of the shared block, and
+        recomputes it in the backward pass, as the JAX model's
+        ``jax.checkpoint`` over its layer body does (the numbers do not
+        change); train mode returns the SSM caches it was given, as JAX
+        does."""
         cfg = self.cfg
         per = self._period()
         n = len(params["stack"])
@@ -271,17 +279,25 @@ class HybridMamba(DecoderLM):
             init_ssm_cache(x.shape[0], cfg, _dtype(cfg), x.device)
             for _ in range(n)]
         shared_kv = cache.get("shared_kv")
+        remat = mode == "train" and torch.is_grad_enabled()
         new_ssm = []
         for idx, p_i in enumerate(params["stack"]):
-            h = apply_norm(p_i["norm"], x, cfg.norm)
-            out, c = apply_ssm(p_i["ssm"], cfg, h, mode=mode,
-                               cache=ssm_caches[idx])
-            x = x + out
-            new_ssm.append(c)
+            if remat:
+                x = checkpoint(_train_block, _apply_mamba_layer, p_i, cfg, x,
+                               None, use_reentrant=False)
+                new_ssm.append(ssm_caches[idx])
+            else:
+                x, c = _apply_mamba_layer(p_i, cfg, x, mode=mode,
+                                          cache=ssm_caches[idx])
+                new_ssm.append(c)
             if (layer0 + idx + 1) % per == 0:
                 app = (layer0 + idx + 1) // per - 1 - layer0 // per
                 # the JAX model's do_shared: the same computation as an
                 # attention layer with a dense MLP
+                if remat:
+                    x = checkpoint(_train_layer, params["shared_attn"], cfg,
+                                   x, positions, use_reentrant=False)
+                    continue
                 x, kv = _apply_attn_layer(
                     params["shared_attn"], cfg, x, positions=positions,
                     mode=mode,
@@ -299,17 +315,30 @@ class HybridMamba(DecoderLM):
         positions = _positions(batch_inputs, b, s, tokens.device)
         x, new_cache = self._run_segment(params, x, positions=positions,
                                          mode=mode, cache=cache, layer0=0)
-        return x, new_cache, {"positions": positions}
+        return x, new_cache, {"positions": positions,
+                              "aux_loss": _no_aux(x)}
 
     def top_apply(self, params: dict, features: torch.Tensor, *,
                   extras: dict, mode: str = "train",
                   cache: Optional[dict] = None):
-        """Server side: the top layers, the final norm and the LM head."""
+        """Server side: the top layers, the final norm and the LM head.
+        ``aux_loss`` is the bottom's (``extras``): Mamba2 layers and the
+        shared block have none, so it is a zero fp32 scalar, as in JAX."""
         x, new_cache = self._run_segment(
             params, features, positions=extras["positions"], mode=mode,
             cache=cache, layer0=self.split)
         x = apply_norm(params["final_norm"], x, self.cfg.norm)
-        return {"logits": _lm_logits(params, x)}, new_cache
+        return {"logits": _lm_logits(params, x),
+                "aux_loss": _no_aux(x) + extras.get("aux_loss", 0.0)}, \
+            new_cache
+
+
+def _apply_mamba_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+                       mode: str, cache):
+    """A Mamba2 layer with its pre-norm and residual: (x, new SSM cache)."""
+    out, c = apply_ssm(p["ssm"], cfg, apply_norm(p["norm"], x, cfg.norm),
+                       mode=mode, cache=cache)
+    return x + out, c
 
 
 def _train_block(apply, p: dict, cfg: ArchConfig, x: torch.Tensor,

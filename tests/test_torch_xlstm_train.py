@@ -27,7 +27,7 @@ versions, as its kernels do not run here) under recomputed blocks;
 ``jax.vjp`` of ``models/xlstm.py::apply_slstm`` (train mode) with respect
 to x, w, b and r; the backward kernel's plan and constants; the xLSTM
 train state through the converters bit for bit; and ``_train_model``
-taking xLSTM and refusing Zamba2.  Run as a script, it prints the study
+taking xLSTM and the Zamba2 hybrid and refusing a CNN.  Run as a script, it prints the study
 behind the rates and biases chosen above (not a test)."""
 from dataclasses import replace
 import functools
@@ -774,13 +774,18 @@ def test_the_state_shapes_are_the_jax_input_specs():
 
 
 def test_train_model_takes_xlstm_and_refuses_zamba2():
+    """``_train_model`` takes xLSTM and the Zamba2 hybrid (which it refused
+    until the Mamba2 scan had a backward kernel; the name is the one this
+    test had then) and still refuses a model the LM step does not train,
+    a CNN."""
     shape = replace(INPUT_SHAPES["train_4k"], seq_len=32, global_batch=2)
-    plan = steps.make_plan(smoke_config(ARCH), shape, n_clients=2)
-    assert type(steps._train_model(plan)).__name__ == "XLSTMModel"
-    steps.make_train_step(plan)
-    zplan = steps.make_plan(smoke_config("zamba2-7b"), shape, n_clients=2)
-    with pytest.raises(NotImplementedError, match="Mamba2.*no backward"):
-        steps.make_train_step(zplan)
+    for arch, kind in ((ARCH, "XLSTMModel"), ("zamba2-7b", "HybridMamba")):
+        plan = steps.make_plan(smoke_config(arch), shape, n_clients=2)
+        assert type(steps._train_model(plan)).__name__ == kind
+        steps.make_train_step(plan)
+    cplan = steps.make_plan(smoke_config("paper-cnn"), shape, n_clients=2)
+    with pytest.raises(NotImplementedError, match="trains dense decoder"):
+        steps.make_train_step(cplan)
 
 
 # ---------------------------------------------------------------------------
@@ -868,7 +873,7 @@ def _study_depth(layers: int, init: str, dtype: str = "bfloat16",
     snapped to a group: 8 + 8 of 16, 16 + 32 of 48, as chip_smoke.py's
     full-width runs), ``dtype`` and ``wire`` (bf16 and int8 as on the
     card), tau 0, 4 clients x 1 x ``seq`` tokens, the weak views repeated,
-    at rate ``lr`` (``scripts/xlstm_depth_probe.py``'s), from each model's
+    at rate ``lr`` (``scripts/lm_depth_probe.py``'s), from each model's
     own initialisation (:func:`_own_init_state`).  The first step's
     gradient is read as the change / lr of the client bottoms (the step is
     plain SGD, with Eq. (8)'s factor N on the bottoms' gradient) and of
