@@ -53,12 +53,15 @@ Phases, in order; any failure exits nonzero:
      kernel's ptxas report, residency and per-phase clocks); (3d) the
      Mamba2 scan's training pair: the forward's training variant (y and
      the final state the serving variant's bit for bit, the chunk states
-     against the plain recurrence) and the backward kernel (its ptxas
-     report) against the plain backward (dx, ddt, dA, dB, dC, dD) at small
-     shapes, a decay past exp's range and Zamba2-7B's training shapes (B 1
-     and 4, S 4096, bf16 and fp32; two launches bit for bit), the
-     differentiable scan against autograd of the plain scan, timed at B 4
-     and 1; also in 3b the flash forward and backward at Zamba2-7B's
+     against the plain recurrence) and the backward (its ptxas report, the
+     mma route's residency) against the plain backward (dx, ddt, dA, dB,
+     dC, dD) through each route the plan gives (bf16 on the mma route and
+     the first design, fp32 on the first design) at small shapes, a decay
+     past exp's range and Zamba2-7B's training shapes (B 1 and 4, S 4096,
+     bf16 and fp32; two launches of each route bit for bit), the
+     differentiable scan against autograd of the plain scan, both designs'
+     per-phase clocks and both routes timed in turns at B 4 and 1; also in
+     3b the flash forward and backward at Zamba2-7B's
      shared-block training shape (hd 112), timed; and time
      kernel, plain version and, where one exists, the one PyTorch call
      that computes the same function (the quantizer's versions on inputs
@@ -155,7 +158,8 @@ Phases, in order; any failure exits nonzero:
      ZAMBA_TRAIN_LAYERS Mamba2 layers for one card's memory, at JAX's rate,
      with the Mamba2 scan 3 times a layer a step (teacher, student,
      recompute; the mma kernel's, writing its chunk states in the
-     recompute) and its backward once, flash attention 3 times per
+     recompute) and its backward once (all on the mma route, the first
+     design's kernels refused in the profiled step), flash attention 3 times per
      application of the shared block (hd 112) and its backward once, the
      clustering pair and the quantizer as there; each Mamba2 layer and
      each application of the shared block recomputed in the backward pass;
@@ -1546,13 +1550,26 @@ def phase_mamba2(card: str, ptxas: str) -> dict:
     return {"err": err, "timing": t}
 
 
+def _bwd_routes(m2, x, B, dtype: str) -> dict:
+    """{route: plan} of every route the backward's plan gives a case: a
+    bf16 case takes the mma route (the plan's) and the simt route forced;
+    an fp32 case the simt route."""
+    b, s, nh, hd = x.shape
+    routes = ("mma", "simt") if dtype == "bfloat16" else ("simt",)
+    return {r: m2.plan_bwd(x.dtype, b, s, nh, hd, B.shape[-1], route=r)
+            for r in routes}
+
+
 def _check_mamba2_train(m2, args, case, seed) -> float:
     """One case of the scan's training pair: the forward's training variant
     (y and the final state equal to the serving variant's bit for bit, the
     chunk states against the plain recurrence's within MAMBA2_TOL of
-    max|state|), then the backward kernel on those saved states against the
-    plain backward, each gradient within MAMBA2_BWD_TOL of max|ref| (plus
-    2^-7 of |ref| where it is bf16).  Returns the largest max|err|."""
+    max|state|), then the backward on those saved states through each route
+    the plan gives the case (:func:`_bwd_routes`; the plan's own first)
+    against the plain backward, each gradient within MAMBA2_BWD_TOL of
+    max|ref| (plus 2^-7 of |ref| where it is bf16), each call counted once
+    and on the mma route also in its own count.  Returns the largest
+    max|err|."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1573,50 +1590,75 @@ def _check_mamba2_train(m2, args, case, seed) -> float:
         fail(f"mamba2 training forward {case}: chunk states {s_err} off the "
              f"plain recurrence's (max|state| {s_scale})")
     del y0, final0, y, final, want_states
-    before = m2.LAUNCHES["mamba2_scan_bwd"]
-    got = m2.mamba2_scan_bwd_cuda(*args, states, dy)
-    torch.cuda.synchronize()
-    if m2.LAUNCHES["mamba2_scan_bwd"] != before + 1:
-        fail(f"mamba2 backward {case}: not counted once")
     want = ref.mamba2_scan_bwd_ref(*args, dy)
-    errs, worst = {}, 0.0
-    for name, g, w, like in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
-                                want, (args[0], args[1], args[2], args[3],
-                                       args[4], args[5])):
-        if g.dtype != like.dtype or g.shape != like.shape:
-            fail(f"mamba2 backward {case}: {name} {g.dtype} "
-                 f"{tuple(g.shape)}, want {like.dtype} {tuple(like.shape)}")
-        a, r = g.float(), w.float()
-        if not bool(torch.isfinite(a).all()):
-            fail(f"mamba2 backward {case}: non-finite {name}")
-        scale = max(float(r.abs().max()), 1e-30)
-        e = float((a - r).abs().max())
-        worst = max(worst, e)
-        errs[name] = e / scale
-        rtol = 2 ** -7 if g.dtype == torch.bfloat16 else 0.0
-        if not torch.allclose(a, r, atol=MAMBA2_BWD_TOL * scale, rtol=rtol):
-            fail(f"mamba2 backward {case}: {name} differs from the plain "
-                 f"version by {e} (max|{name}| {scale})")
-    print(f"[kernels] mamba2 backward {kind} x ({b}, {s}, {nh}, {hd}) N {n} "
-          f"{dtype}: chunk states {s_err:.3g} off (max|state| "
-          f"{s_scale:.4g}); "
-          f"max|err| / max|ref| " + ", ".join(f"{k} {v:.3g}" for k, v in
-                                              errs.items())
-          + f" (tol {MAMBA2_BWD_TOL}" + (", plus 2^-7 of |x| for dx, dB, dC"
-                                          if dtype == "bfloat16" else "")
-          + f"); {time.perf_counter() - t0:.1f} s")
+    plans = _bwd_routes(m2, args[0], args[3], dtype)
+    if next(iter(plans)) != m2.plan_bwd(args[0].dtype, b, s, nh, hd,
+                                        n).route:
+        fail(f"mamba2 backward {case}: the plan's route is not "
+             f"{next(iter(plans))}")
+    worst = 0.0
+    for route, p in plans.items():
+        before = dict(m2.LAUNCHES)
+        got = m2.mamba2_scan_bwd_cuda(*args, states, dy, plan=p)
+        torch.cuda.synchronize()
+        mma = m2.LAUNCHES["mamba2_scan_bwd_mma"] - before["mamba2_scan_bwd_mma"]
+        if m2.LAUNCHES["mamba2_scan_bwd"] != before["mamba2_scan_bwd"] + 1 \
+                or mma != (route == "mma"):
+            fail(f"mamba2 backward {case} on the {route} route: counted "
+                 f"{m2.LAUNCHES['mamba2_scan_bwd'] - before['mamba2_scan_bwd']}"
+                 f" times, {mma} on the mma route")
+        errs = {}
+        for name, g, w, like in zip(("dx", "ddt", "dA", "dB", "dC", "dD"),
+                                    got, want, args[:6]):
+            if g.dtype != like.dtype or g.shape != like.shape:
+                fail(f"mamba2 backward {case} ({route}): {name} {g.dtype} "
+                     f"{tuple(g.shape)}, want {like.dtype} "
+                     f"{tuple(like.shape)}")
+            a, r = g.float(), w.float()
+            if not bool(torch.isfinite(a).all()):
+                fail(f"mamba2 backward {case} ({route}): non-finite {name}")
+            scale = max(float(r.abs().max()), 1e-30)
+            e = float((a - r).abs().max())
+            worst = max(worst, e)
+            errs[name] = e / scale
+            rtol = 2 ** -7 if g.dtype == torch.bfloat16 else 0.0
+            if not torch.allclose(a, r, atol=MAMBA2_BWD_TOL * scale,
+                                  rtol=rtol):
+                fail(f"mamba2 backward {case} ({route} route): {name} "
+                     f"differs from the plain version by {e} (max|{name}| "
+                     f"{scale})")
+        print(f"[kernels] mamba2 backward {kind} x ({b}, {s}, {nh}, {hd}) N "
+              f"{n} {dtype}, {route} route"
+              + (" (the plan's)" if route == next(iter(plans)) else "")
+              + f": chunk states {s_err:.3g} off (max|state| "
+              f"{s_scale:.4g}); max|err| / max|ref| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f" (tol {MAMBA2_BWD_TOL}"
+              + (", plus 2^-7 of |x| for dx, dB, dC" if dtype == "bfloat16"
+                 else "") + ")")
+        del got
+    print(f"[kernels] mamba2 backward {kind} case checked in "
+          f"{time.perf_counter() - t0:.1f} s")
     return worst
 
 
 def phase_mamba2_bwd(card: str, ptxas: str) -> dict:
-    """The scan's training pair on the card: the forward's training variant
-    and the backward kernel at MAMBA2_BWD_CASES (:func:`_check_mamba2_train`);
-    :class:`Mamba2Scan` against autograd of the plain scan at a small shape
-    in both types; two launches of the backward at the top's shape must
-    agree bit for bit; then the backward timed at the top's shape (B 4) and
-    a bottom's (B 1), bf16, against its plain version and its bound (its
-    products at the bf16 tensor-core peak, the inputs' type, with the three
-    that all heads share counted once a batch row and chunk)."""
+    """The scan's training pair on the card: the backward's ptxas report
+    and the mma route's residency; the forward's training variant and the
+    backward at MAMBA2_BWD_CASES through every route the plan gives each
+    (:func:`_check_mamba2_train`: bf16 on the mma route and the simt route
+    forced, fp32 on the simt route); :class:`Mamba2Scan` against autograd
+    of the plain scan at a small shape in both types (bf16 on the mma
+    route); two launches of each route at the top's shape must agree bit
+    for bit; then at the top's shape (B 4) and a bottom's (B 1), bf16, the
+    SM clocks of each phase of a chunk of both designs (the diagnostic
+    build) and both routes timed in turns (mma, simt, simt, mma), against
+    the plain backward and the bound (the function's bytes and products,
+    the products at the bf16 tensor-core peak of the inputs' type, the
+    three that all heads share counted once a batch row and chunk).
+    Returns the largest error and the rows of the kernels line: the
+    backward's (every call) and the mma route's, both timed on the plan's
+    route at the top's shape."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1624,6 +1666,24 @@ def phase_mamba2_bwd(card: str, ptxas: str) -> dict:
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[kernels] mamba2 backward ptxas: {line.strip()}")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm, clusters = m2.bwd_mma_residency()
+    for b in (LM_CLIENTS, 1):
+        p = m2.plan_bwd(torch.bfloat16, b, LM_SEQ, 112, 64, 64)
+        blocks = p.grid[0] * p.grid[1]
+        print(f"[kernels] mamba2 backward mma route at B {b}: {blocks} blocks "
+              f"of {p.threads} threads in clusters of {p.cluster}, "
+              f"{p.smem_bytes} bytes of shared memory a block; {per_sm} "
+              f"blocks resident an SM, {clusters} clusters of "
+              f"{p.cluster} on the card at once ({per_sm * n_sm} block slots "
+              f"on {n_sm} SMs: {blocks / (per_sm * n_sm):.2f} of them); "
+              f"{p.groups} partial sets a batch row and chunk, "
+              f"{p.scratch_floats * 4 / 1e6:.1f} MB of scratch; the simt "
+              f"route's {m2.plan_bwd(torch.bfloat16, b, LM_SEQ, 112, 64, 64, route='simt').grid} "
+              f"blocks, 1 an SM")
+    if per_sm < 2 or clusters < 1:
+        fail(f"the mamba2 backward's mma kernel: {per_sm} blocks an SM, "
+             f"{clusters} clusters resident")
     err = 0.0
     for i, case in enumerate(MAMBA2_BWD_CASES):
         args = _mamba2_inputs(*case, 70 + i)
@@ -1636,10 +1696,14 @@ def phase_mamba2_bwd(card: str, ptxas: str) -> dict:
         dy = torch.randn(2, 300, 4, 64, generator=gen, device="cuda").to(
             args[0].dtype)
         got = [a.detach().clone().requires_grad_() for a in args]
+        before = m2.LAUNCHES["mamba2_scan_bwd_mma"]
         y, final = m2.Mamba2Scan.apply(*got)
         if final.requires_grad:
             fail("Mamba2Scan's final state carries a gradient")
         y.backward(dy)
+        if m2.LAUNCHES["mamba2_scan_bwd_mma"] - before != (dtype ==
+                                                           "bfloat16"):
+            fail(f"Mamba2Scan {dtype} did not take the plan's route")
         want = [a.detach().clone().requires_grad_() for a in args]
         ref.mamba2_scan_ref(*want)[0].backward(dy)
         errs = []
@@ -1657,12 +1721,16 @@ def phase_mamba2_bwd(card: str, ptxas: str) -> dict:
               + ", ".join(f"{e:.3g}" for e in errs))
 
     timing = None
+    sm_mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
     for b in (LM_CLIENTS, 1):
         args = _mamba2_inputs(b, LM_SEQ, 112, 64, 64, "bfloat16", "model",
                               92 + b)
         x = args[0]
         _, _, states = m2.mamba2_scan_cuda(*args, save=True)
         dy = torch.randn(x.shape, device="cuda").to(x.dtype)
+        plans = _bwd_routes(m2, x, args[3], "bfloat16")
         if b == LM_CLIENTS:
             # the forward's two variants in turns (serving, training,
             # training, serving): the training one also writes the chunk
@@ -1678,16 +1746,29 @@ def phase_mamba2_bwd(card: str, ptxas: str) -> dict:
                   f"{runs(fwd[True])} (it also writes "
                   f"{states.numel() * 4 / 1e6:.1f} MB of chunk states); on "
                   f"{card}")
-            one, two = (m2.mamba2_scan_bwd_cuda(*args, states, dy)
-                        for _ in range(2))
-            torch.cuda.synchronize()
-            same = all(torch.equal(p, q) for p, q in zip(one, two))
-            print(f"[kernels] mamba2 backward two launches at x "
-                  f"{tuple(x.shape)}: every gradient bit-identical {same}")
-            if not same:
-                fail("two launches of the mamba2 backward on the same "
-                     "inputs differ")
-            del one, two
+            for route, p in plans.items():
+                one, two = (m2.mamba2_scan_bwd_cuda(*args, states, dy,
+                                                    plan=p)
+                            for _ in range(2))
+                torch.cuda.synchronize()
+                same = all(torch.equal(u, v) for u, v in zip(one, two))
+                print(f"[kernels] mamba2 backward two launches at x "
+                      f"{tuple(x.shape)}, {route} route: every gradient "
+                      f"bit-identical {same}")
+                if not same:
+                    fail(f"two launches of the mamba2 backward's {route} "
+                         f"route on the same inputs differ")
+                del one, two
+        for route, p in plans.items():
+            prof = m2.bwd_profile(*args, states, dy, plan=p)
+            total = sum(prof.values())
+            print(f"[profile] mamba2 backward chunk at B {b}, {route} route"
+                  + (" (the first design)" if route == "simt" else "")
+                  + f" (SM clocks a chunk, block (0, 0)'s thread 0, "
+                  f"MAMBA2_BWD_PROFILE build; SM clock {sm_mhz}): "
+                  f"{total:.0f} = " + ", ".join(
+                      f"{k} {v:.0f} ({v / total:.3f})"
+                      for k, v in prof.items()) + f"; on {card}")
         s, nh, hd, n = LM_SEQ, 112, 64, 64
         nc = m2.chunks(s)
         el = x.element_size()
@@ -1695,21 +1776,37 @@ def phase_mamba2_bwd(card: str, ptxas: str) -> dict:
                    + 2 * b * s * nh * 4 + 4 * b * s * n * el + 4 * nh * 4)
         # what the function needs: six 64 x 64 x 64 products a head and
         # chunk, and three a chunk that all heads share (C B^T, dCB B,
-        # dCB^T C; this design repeats those in each block of BWD_HEADS)
+        # dCB^T C), whatever route implements it
         n_flops = 2 * 64 ** 3 * (6 * b * nh * nc + 3 * b * nc)
-        fp32_s = 2 * 64 ** 3 * (6 * b * nh * nc + 3 * b * nc
-                                * -(-nh // m2.BWD_HEADS)) / PEAK_FP32_FLOPS
-        t = dict(
-            ms=time_ms(lambda: m2.mamba2_scan_bwd_cuda(*args, states, dy),
-                       iters=5, warmup=1),
-            plain_ms=(time_ms(lambda: ref.mamba2_scan_bwd_ref(*args, dy),
-                              iters=1, warmup=0)
-                      if timing is None else (float("nan"),) * 2),
-            bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
+        # the simt route's own products on the CUDA cores in fp32, the
+        # shared ones repeated in each of its blocks of BWD_HEADS heads
+        simt_fp32_s = 2 * 64 ** 3 * (6 * b * nh * nc + 3 * b * nc
+                                     * -(-nh // m2.BWD_HEADS)) \
+            / PEAK_FP32_FLOPS
+        # both routes in turns (mma, simt, simt, mma), each kernel's device
+        # time from the profiler
+        ms = {r: [] for r in plans}
+        per_kernel = {r: {} for r in plans}
+        for r in ("mma", "simt", "simt", "mma"):
+            ms[r].append(time_ms(lambda: m2.mamba2_scan_bwd_cuda(
+                *args, states, dy, plan=plans[r]), iters=5, warmup=1,
+                by_kernel=per_kernel[r]))
+        t = dict(ms=min(ms["mma"]),
+                 plain_ms=(time_ms(lambda: ref.mamba2_scan_bwd_ref(*args, dy),
+                                   iters=1, warmup=0)
+                           if timing is None else (float("nan"),) * 2),
+                 bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
+        kern = lambda r: ", ".join(f"{k.split('(')[0][-40:]} {v:.4f}"
+                                   for k, v in per_kernel[r].items())
         print(f"[timing] mamba2_scan_bwd at x {tuple(x.shape)} N {n} bf16 "
               f"({n_flops:.4g} operations in its products, "
-              f"{n_bytes / 1e6:.1f} MB): kernel {t['ms'][0]:.4f} ms (events "
-              f"{t['ms'][1]:.4f}), "
+              f"{n_bytes / 1e6:.1f} MB): the mma route (the plan's) "
+              + ", ".join(f"{d:.4f}" for d, _ in ms["mma"])
+              + " ms (events " + ", ".join(f"{e:.4f}" for _, e in ms["mma"])
+              + f"; by kernel {kern('mma')}), the simt route (the first "
+              f"design) " + ", ".join(f"{d:.4f}" for d, _ in ms["simt"])
+              + " ms (events " + ", ".join(f"{e:.4f}" for _, e in ms["simt"])
+              + f"; by kernel {kern('simt')}), "
               + (f"plain {t['plain_ms'][0]:.4f} ms (events "
                  f"{t['plain_ms'][1]:.4f}), " if timing is None
                  else "plain not timed at this shape, ")
@@ -1717,12 +1814,15 @@ def phase_mamba2_bwd(card: str, ptxas: str) -> dict:
               f"{t['bound'][0]:.4f} ms ({t['bound'][1]}; the bytes "
               f"{n_bytes / PEAK_BYTES * 1e3:.4f} ms, the products "
               f"{n_flops / PEAK_BF16_FLOPS * 1e3:.4f} ms at the bf16 "
-              f"tensor-core peak; this design's products, the shared ones "
-              f"in each block, {fp32_s * 1e3:.4f} ms at the fp32 CUDA-core "
-              f"peak it runs on); kernel at "
+              f"tensor-core peak the mma route runs on; the simt route's "
+              f"own products, the shared ones in each of its blocks, "
+              f"{simt_fp32_s * 1e3:.4f} ms at the fp32 CUDA-core peak it "
+              f"runs on); the mma route at "
               f"{n_flops / t['ms'][0] / 1e9:.3f} TFLOP/s, "
-              f"{t['bound'][0] / t['ms'][0]:.4f} of the bound; on {card}")
-        if timing is None:             # the top's shape goes in the row
+              f"{t['bound'][0] / t['ms'][0]:.4f} of the bound, "
+              f"{min(ms['simt'])[0] / t['ms'][0]:.2f}x faster than the "
+              f"simt route; on {card}")
+        if timing is None:             # the top's shape goes in the rows
             timing = {"ms": t["ms"][0], "plain_ms": t["plain_ms"][0],
                       "library_ms": None, "bound": t["bound"]}
         del args, x, states, dy
@@ -3011,7 +3111,7 @@ def _lm_launches(cfg, n: int, wire) -> dict:
     quant = 3 if wire == "int8" else 0
     want = {"clustering_fwd": 1, "clustering_bwd": 1, "quantize_amax": quant,
             "quantize_qdq": quant, "quantize_fused": 0, "mamba2_scan": 0,
-            "mamba2_scan_bwd": 0}
+            "mamba2_scan_bwd": 0, "mamba2_scan_bwd_mma": 0}
     if cfg.xlstm:
         blocks = n * model.split_groups + model.n_groups - model.split_groups
         return dict(want, slstm_scan=3 * blocks, slstm_scan_bwd=blocks,
@@ -3023,7 +3123,9 @@ def _lm_launches(cfg, n: int, wire) -> dict:
         apps = n * (model.split // per) + (cfg.num_layers - model.split) // per
         return dict(want, mamba2_scan=3 * layers,
                     mamba2_scan_mma=3 * layers if bf16 else 0,
-                    mamba2_scan_bwd=layers, flash_attention=3 * apps,
+                    mamba2_scan_bwd=layers,
+                    mamba2_scan_bwd_mma=layers if bf16 else 0,
+                    flash_attention=3 * apps,
                     flash_attention_wgmma=3 * apps if bf16 else 0,
                     flash_attention_bwd=apps,
                     flash_attention_bwd_wgmma=apps if bf16 else 0,
@@ -3089,12 +3191,12 @@ LM_TRAIN_PATHS = {
         lambda cfg: replace(cfg, num_layers=4, shared_attn_period=2,
                             semisfl=replace(cfg.semisfl, split_layer=2)),
         128,
-        ("mamba2_scan_kernel_mma", "mamba2_scan_bwd_kernel",
-         "mamba2_scan_bwd_merge", "flash_kernel_wgmma", "flash_bwd_delta",
-         "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma", "clustering_",
-         "amax_kernel", "qdq_kernel"),
+        ("mamba2_scan_kernel_mma", "mamba2_bwd_cb",
+         "mamba2_scan_bwd_mma_kernel", "mamba2_bwd_epilogue",
+         "flash_kernel_wgmma", "flash_bwd_delta", "flash_bwd_dkdv_wgmma",
+         "flash_bwd_dq_wgmma", "clustering_", "amax_kernel", "qdq_kernel"),
         ("flash_bwd_dkdv<", "flash_bwd_dq<", "mamba2_scan_kernel(",
-         "mamba2_scan_bwd_kernel<float>")),
+         "mamba2_scan_bwd_kernel<", "mamba2_scan_bwd_merge")),
 }
 
 
@@ -3364,6 +3466,10 @@ KERNEL_META = {
     # stand-in for the Mamba2 kernel, ssd_chunked
     "mamba2_scan_bwd": ("src/repro_torch/csrc/mamba2_scan_bwd.cu",
                         "src/repro/models/ssm.py:79"),
+    # its mma route (mamba2_bwd_cb, mamba2_scan_bwd_mma_kernel,
+    # mamba2_bwd_epilogue): the bf16 calls, all of the training path's
+    "mamba2_scan_bwd_mma": ("src/repro_torch/csrc/mamba2_scan_bwd.cu",
+                            "src/repro/models/ssm.py:79"),
 }
 # the main path's kernels; the quantizer's two-pass ones run on the
 # paper-vgg13 rounds instead
@@ -3403,6 +3509,8 @@ def main() -> int:
     mamba2_bwd = phase_mamba2_bwd(card, ptxas.get("mamba2_scan_bwd", ""))
     checked["errs"]["mamba2_scan_bwd"] = mamba2_bwd["err"]
     checked["timings"]["mamba2_scan_bwd"] = mamba2_bwd["timing"]
+    checked["errs"]["mamba2_scan_bwd_mma"] = mamba2_bwd["err"]
+    checked["timings"]["mamba2_scan_bwd_mma"] = mamba2_bwd["timing"]
     lap("kernel checks")
 
     from repro_torch.kernels import launch_counts, reset_launch_counts

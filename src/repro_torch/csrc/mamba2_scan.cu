@@ -134,6 +134,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mamba2_common.cuh"  // swizzled tiles, ldmatrix, mma, split
+
 namespace {
 
 constexpr int kL = 64;         // steps per chunk
@@ -404,80 +406,6 @@ __device__ unsigned long long g_profile[kHeads * kWarpsPerHead][kPhCount];
   } while (0)
 #endif
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// byte offset of element (r, c) in a swizzled 64 x 64 bf16 tile: row r is
-// 128 B, its 16-byte chunk c / 8 stored at chunk (c / 8) ^ (r % 8)
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * 128 + ((((c >> 3) ^ (r & 7))) << 4) + (c & 7) * 2;
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a b, m16n8k16, bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 to_float2(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-}
-
-// (v0, v1) -> kTerms packed bf16 pairs whose sum is (v0, v1) to within
-// 2^-8 kTerms of each; v0 in the low half, as mma fragments hold a pair
-__device__ __forceinline__ void split(float v0, float v1,
-                                      uint32_t (&t)[kTerms]) {
-#pragma unroll
-  for (int k = 0; k < kTerms; ++k) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-    t[k] = as_u32(h);
-    const float2 hf = __bfloat1622float2(h);
-    v0 -= hf.x;
-    v1 -= hf.y;
-  }
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
 // named barrier 1 + h over head h's 128 threads (0 is __syncthreads')
 __device__ __forceinline__ void head_barrier(int head_local) {
   static_assert(kHeads == 2, "one named barrier per head");
@@ -485,14 +413,6 @@ __device__ __forceinline__ void head_barrier(int head_local) {
     asm volatile("bar.sync 1, %0;\n" ::"n"(kWarpsPerHead * 32) : "memory");
   else
     asm volatile("bar.sync 2, %0;\n" ::"n"(kWarpsPerHead * 32) : "memory");
-}
-
-// a global load the compiler may not sink to its first use: dt of chunk
-// c + 1 is loaded at the top of chunk c and used after its state update
-__device__ __forceinline__ float ld_early(const float* p) {
-  float v;
-  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
-  return v;
 }
 
 struct MmaArgs {

@@ -3,7 +3,8 @@
 Each ``src/repro_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface under
 ``<repo>/build/repro_torch/``, named by a hash of its source, the headers
-it includes (``csrc/hopper.cuh``, ``csrc/slstm_common.cuh``) and the
+it includes (``csrc/hopper.cuh``, ``csrc/slstm_common.cuh``,
+``csrc/mamba2_common.cuh``) and the
 flags, so a changed source or header is rebuilt and an unchanged one is
 loaded as it is.  The
 sources are compiled without ``--use_fast_math``: the quantizer must be

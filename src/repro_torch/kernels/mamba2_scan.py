@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -33,8 +34,11 @@ import torch
 from repro_torch.kernels import build
 
 # "mamba2_scan" counts every launch, "mamba2_scan_mma" those of the bf16
-# kernel, "mamba2_scan_bwd" every backward call (the kernel and its merge)
-LAUNCHES = {"mamba2_scan": 0, "mamba2_scan_mma": 0, "mamba2_scan_bwd": 0}
+# kernel, "mamba2_scan_bwd" every backward call (its launches: two on the
+# simt route, three on the mma route), "mamba2_scan_bwd_mma" those on the
+# mma route
+LAUNCHES = {"mamba2_scan": 0, "mamba2_scan_mma": 0, "mamba2_scan_bwd": 0,
+            "mamba2_scan_bwd_mma": 0}
 
 MAX_DIM = 64                           # hd and N, padded to 64 in the kernel
 CHUNK = 64                             # steps of a chunk, both kernels
@@ -42,9 +46,40 @@ CHUNK = 64                             # steps of a chunk, both kernels
 # CHUNK and TERMS state the .cu's kL and kTerms, which a CPU test holds
 # them to
 TERMS = 2
-# heads a backward block takes, their dB and dC summed before it writes
-# them as partials; the .cu's kHeads, which a CPU test holds it to
+# heads a backward block takes on the simt route (the first design), their
+# dB and dC summed before it writes them as partials; the .cu's kHeads,
+# which a CPU test holds it to
 BWD_HEADS = 2
+SIMT_SMEM = 185_152  # the first design's kSmemBytes
+# the backward's routes: "mma" (bf16 on the tensor cores) and "simt" (the
+# first design, fp32 on the CUDA cores, for fp32 inputs)
+BWD_ROUTES = ("simt", "mma")
+# as csrc/mamba2_scan_bwd.cu's mma route: threads a block (one head and
+# batch row), blocks a cluster at most (kMmaCluster: the cluster's heads'
+# dB, dC and dCB terms summed through DSMEM), fp32 terms of the lower
+# triangle of a 64 x 64 tile packed by 16 x 16 tiles (kTriFloats: C B^T
+# and dCB), floats of a cluster's partial set a batch row and chunk
+# (kSlotFloats: dCB, dC, dB) and the shared memory a block (kMmaSmemBytes)
+BWD_MMA_THREADS = 256
+BWD_MMA_CLUSTER = 8
+BWD_TRI_FLOATS = 10 * 16 * 16
+BWD_SLOT_FLOATS = BWD_TRI_FLOATS + 2 * CHUNK * MAX_DIM
+BWD_MMA_SMEM = 115_488
+# bf16 terms each fp32 operand of the mma route's products is split into
+# (kBwdTerms; 2 meet chip_smoke's tolerance in the CPU emulation, 1 does
+# not: tests/test_torch_mamba2_bwd_split.py)
+BWD_TERMS = 2
+# the phases of a chunk that each route's MAMBA2_BWD_PROFILE build times,
+# in its enum's order
+BWD_PHASES = {
+    "simt": ("B, C loads", "C B^T", "head loads, prefix sum",
+             "M, G', Q, dCB", "dxdt, dx", "dC, dB terms", "da sums",
+             "dS update", "dCB B, dCB^T C", "partial writes"),
+    "mma": ("wait, loads issued", "B dS, G'^T dy, dx",
+            "dy S0^T, y_inter, <dS, S0>", "barrier, Q's sums",
+            "x dS^T, R, dS update", "barrier", "dS stored",
+            "da, cluster sums"),
+}
 # the phases of a chunk that a build with MAMBA2_PROFILE times, in order
 PROFILE_PHASES = ("wait for the chunk's loads", "C B^T and G", "C S",
                   "state update", "prefix sum", "wait for G", "G x",
@@ -68,12 +103,17 @@ def _lib() -> ctypes.CDLL:
     return _bind(build.load("mamba2_scan"))
 
 
-@functools.cache
-def _bwd_lib() -> ctypes.CDLL:
-    lib = build.load("mamba2_scan_bwd")
+def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mamba2_scan_bwd.argtypes = [_I] + [_P] * 20 + [_I] * 5 + [_P]
     lib.mamba2_scan_bwd.restype = _I
+    lib.mamba2_scan_bwd_mma.argtypes = [_P] * 20 + [_I] * 6 + [_P]
+    lib.mamba2_scan_bwd_mma.restype = _I
     return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    return _bind_bwd(build.load("mamba2_scan_bwd"))
 
 
 def mma_layout_problem(x: torch.Tensor, B: torch.Tensor,
@@ -197,10 +237,12 @@ def mamba2_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return out
 
 
-def _check_bwd(x, dt, A, B, C, D, states, dy) -> None:
+def _check_bwd(x, dt, A, B, C, D, states, dy,
+               plan: Optional["BwdPlan"] = None) -> "BwdPlan":
     """The forward's checks on its inputs, then the saved states (B, ceil(S
     / CHUNK), nh, hd, N) fp32 contiguous and dy (B, S, nh, hd) in x's
-    dtype on x's device."""
+    dtype on x's device; returns the plan (``plan`` must be the one that
+    :func:`plan_bwd` gives these shapes on its route)."""
     _check(x, dt, A, B, C, D)
     b, s, nh, hd = x.shape
     want = (b, chunks(s), nh, hd, B.shape[-1])
@@ -215,26 +257,93 @@ def _check_bwd(x, dt, A, B, C, D, states, dy) -> None:
         raise ValueError(f"mamba2 scan backward: dy must be {x.dtype} "
                          f"{tuple(x.shape)} on {x.device}, got {dy.dtype} "
                          f"{tuple(dy.shape)} on {dy.device}")
+    p = plan_bwd(x.dtype, b, s, nh, hd, B.shape[-1],
+                 route=plan.route if plan else None)
+    if plan is not None and plan != p:
+        raise ValueError(f"mamba2 scan backward: {plan} is not the plan for "
+                         f"these shapes, {p}")
+    return p
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How the backward spreads one call over the card."""
+    route: str          # "mma" or "simt"
+    grid: tuple         # the main kernel's (x, y) blocks
+    threads: int        # a block
+    smem_bytes: int     # a block's dynamic shared memory
+    cluster: int        # blocks a cluster (1 on the simt route)
+    groups: int         # partial sets a batch row and chunk
+    scratch_floats: int  # fp32 scratch the wrapper hands the kernels
+
+
+def plan_bwd(dtype: torch.dtype, b: int, s: int, nh: int, hd: int, n: int,
+             route: Optional[str] = None) -> BwdPlan:
+    """The backward's plan, from the inputs' dtype and shape alone, before
+    any launch.  bf16 goes to ``mma``: one block of BWD_MMA_THREADS per head
+    and batch row, in clusters of the largest of 8, 4, 2 and 1 heads that
+    divides nh, whose dB, dC and dCB terms are summed through DSMEM into
+    one partial set a cluster, batch row and chunk; a prologue forms C B^T
+    and an epilogue dCB B and dCB^T C once a batch row and chunk.  fp32
+    goes to ``simt`` (the first design: BWD_HEADS heads a block on the CUDA
+    cores; an mma on fp32 data would be TF32).  ``route`` forces one (bf16
+    may take ``simt``, which chip_smoke times beside ``mma``).  Raises a
+    ``ValueError`` for a dtype, shape or forced route that no route
+    takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"mamba2 scan backward: no route for {dtype}")
+    if min(b, s, nh) < 1 or not (1 <= hd <= MAX_DIM and 1 <= n <= MAX_DIM):
+        raise ValueError(f"mamba2 scan backward: no route for B {b}, S {s}, "
+                         f"nh {nh}, hd {hd}, N {n} (hd and N in [1, "
+                         f"{MAX_DIM}])")
+    if route not in (None, *BWD_ROUTES):
+        raise ValueError(f"mamba2 scan backward: no route {route!r}")
+    route = route or ("mma" if dtype == torch.bfloat16 else "simt")
+    if route == "simt":
+        groups = -(-nh // BWD_HEADS)
+        return BwdPlan("simt", (groups, b), 256, SIMT_SMEM, 1, groups,
+                       2 * groups * b * s * n + 2 * b * nh)
+    if dtype != torch.bfloat16 or hd % 8 or n % 8:
+        raise ValueError(f"mamba2 scan backward: the mma route takes bf16 "
+                         f"with hd and N multiples of 8, got {dtype}, hd "
+                         f"{hd}, N {n}")
+    cluster = next(c for c in (BWD_MMA_CLUSTER, 4, 2, 1) if nh % c == 0)
+    groups = nh // cluster
+    return BwdPlan("mma", (nh, b), BWD_MMA_THREADS, BWD_MMA_SMEM, cluster,
+                   groups, b * chunks(s) * (BWD_TRI_FLOATS
+                                            + groups * BWD_SLOT_FLOATS)
+                   + 2 * b * nh)
 
 
 def mamba2_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
-                         states: torch.Tensor, dy: torch.Tensor
+                         states: torch.Tensor, dy: torch.Tensor, *,
+                         plan: Optional[BwdPlan] = None
                          ) -> tuple[torch.Tensor, ...]:
     """The scan's backward on the card, from the forward's inputs and its
     saved chunk states (``mamba2_scan_cuda(..., save=True)``) and the
     upstream gradient ``dy`` on y (made contiguous here): (dx, ddt, dA, dB,
     dC, dD), dx, dB and dC in their inputs' dtypes, ddt, dA and dD in
-    fp32, as ``ref.mamba2_scan_bwd_ref`` computes them.  One call, two
-    launches on the current stream (the kernel writes per-block partials
-    of dB, dC, dA and dD, and a merge sums them in a fixed order), counted
-    once in ``LAUNCHES["mamba2_scan_bwd"]``; two calls on the same inputs
-    agree bit for bit."""
-    _check_bwd(x, dt, A, B, C, D, states, dy)
-    dy = dy.contiguous()
+    fp32, as ``ref.mamba2_scan_bwd_ref`` computes them, on the route
+    :func:`plan_bwd` gives (or ``plan``'s, a route forced).  The mma route
+    launches a prologue (C B^T), the main kernel and an epilogue (the
+    clusters' partials summed, dCB B and dCB^T C, dA and dD); the simt
+    route the first design's kernel and its merge.  Counted once in
+    ``LAUNCHES["mamba2_scan_bwd"]``, and in ``"mamba2_scan_bwd_mma"`` on
+    the mma route; two calls on the same inputs agree bit for bit."""
+    p = _check_bwd(x, dt, A, B, C, D, states, dy, plan)
+    out = _launch_bwd(_bwd_lib(), x, dt, A, B, C, D, states,
+                      dy.contiguous(), p)
+    LAUNCHES["mamba2_scan_bwd"] += 1
+    if p.route == "mma":
+        LAUNCHES["mamba2_scan_bwd_mma"] += 1
+    return out
+
+
+def _launch_bwd(lib: ctypes.CDLL, x, dt, A, B, C, D, states, dy,
+                p: BwdPlan) -> tuple:
     b, s, nh, hd = x.shape
     n = B.shape[-1]
-    groups = -(-nh // BWD_HEADS)
     dev = x.device
     dx = torch.empty(b, s, nh, hd, dtype=x.dtype, device=dev)
     ddt = torch.empty(b, s, nh, device=dev)
@@ -242,20 +351,47 @@ def mamba2_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dC = torch.empty(b, s, n, dtype=C.dtype, device=dev)
     dA = torch.empty(nh, device=dev)
     dD = torch.empty(nh, device=dev)
-    part_bc = torch.empty(2, groups, b, s, n, device=dev)
-    part_ad = torch.empty(2, b, nh, device=dev)
+    scratch = torch.empty(p.scratch_floats, device=dev)
+    part_ad = scratch[scratch.numel() - 2 * b * nh:]
     strides = _strides(x, dt, B, C)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(_bwd_lib().mamba2_scan_bwd(
-        int(x.dtype == torch.bfloat16), x.data_ptr(), _ptr(strides[0]),
-        dt.data_ptr(), _ptr(strides[1]), A.data_ptr(), B.data_ptr(),
-        _ptr(strides[2]), C.data_ptr(), _ptr(strides[3]), D.data_ptr(),
-        dy.data_ptr(), states.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-        dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), dD.data_ptr(),
-        part_bc.data_ptr(), part_ad.data_ptr(), b, s, nh, hd, n, stream),
-        "mamba2_scan backward launch")
-    LAUNCHES["mamba2_scan_bwd"] += 1
+    ptrs = (x.data_ptr(), _ptr(strides[0]), dt.data_ptr(), _ptr(strides[1]),
+            A.data_ptr(), B.data_ptr(), _ptr(strides[2]), C.data_ptr(),
+            _ptr(strides[3]), D.data_ptr(), dy.data_ptr(), states.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            dA.data_ptr(), dD.data_ptr())
+    if p.route == "mma":
+        status = lib.mamba2_scan_bwd_mma(*ptrs, scratch.data_ptr(),
+                                         part_ad.data_ptr(), b, s, nh, hd, n,
+                                         p.cluster, stream)
+    else:
+        status = lib.mamba2_scan_bwd(
+            int(x.dtype == torch.bfloat16), *ptrs, scratch.data_ptr(),
+            part_ad.data_ptr(), b, s, nh, hd, n, stream)
+    build.check(status, f"mamba2_scan backward launch ({p.route} route)")
     return dx, ddt, dA, dB, dC, dD
+
+
+def bwd_profile(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                states: torch.Tensor, dy: torch.Tensor,
+                plan: Optional[BwdPlan] = None) -> dict[str, float]:
+    """One launch of the backward on ``plan``'s route (:func:`plan_bwd`'s
+    by default) built with ``-DMAMBA2_BWD_PROFILE`` (a library of its own):
+    the SM clocks of each phase of a chunk (``BWD_PHASES[route]``) in block
+    (0, 0)'s thread 0, averaged over its chunks.  Not counted in
+    ``LAUNCHES``: the main path never runs this build."""
+    p = _check_bwd(x, dt, A, B, C, D, states, dy, plan)
+    lib = _bind_bwd(build.load("mamba2_scan_bwd", ("MAMBA2_BWD_PROFILE",)))
+    fn = getattr(lib, f"mamba2_scan_bwd_{p.route}_profile")
+    fn.argtypes, fn.restype = [_P], _I
+    phases = BWD_PHASES[p.route]
+    clocks = (ctypes.c_longlong * len(phases))()
+    build.check(fn(clocks), "mamba2_scan_bwd profile clear")
+    _launch_bwd(lib, x, dt, A, B, C, D, states, dy.contiguous(), p)
+    torch.cuda.synchronize(x.device)
+    build.check(fn(clocks), "mamba2_scan_bwd profile read")
+    return {k: clocks[i] / chunks(x.shape[1]) for i, k in enumerate(phases)}
 
 
 class Mamba2Scan(torch.autograd.Function):
@@ -277,6 +413,19 @@ class Mamba2Scan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _):
         return mamba2_scan_bwd_cuda(*ctx.saved_tensors, dy)
+
+
+def bwd_mma_residency() -> tuple[int, int]:
+    """The mma route's main kernel on the current card: its blocks resident
+    on one SM, and its clusters of BWD_MMA_CLUSTER blocks resident at once,
+    as the occupancy calculator gives them."""
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    fn = _bwd_lib().mamba2_scan_bwd_mma_occupancy
+    fn.argtypes, fn.restype = [_I, _P, _P], _I
+    build.check(fn(BWD_MMA_CLUSTER, ctypes.byref(blocks),
+                   ctypes.byref(clusters)),
+                "mamba2_scan backward occupancy query")
+    return blocks.value, clusters.value
 
 
 def mma_blocks_per_sm() -> int:

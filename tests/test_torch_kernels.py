@@ -716,7 +716,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "clustering_fwd", "clustering_bwd", "quantize_fused",
         "quantize_amax", "quantize_qdq", "flash_attention", "flash_attention_wgmma",
         "flash_attention_bwd", "flash_attention_bwd_wgmma", "slstm_scan",
-        "slstm_scan_bwd", "mamba2_scan", "mamba2_scan_mma", "mamba2_scan_bwd"}
+        "slstm_scan_bwd", "mamba2_scan", "mamba2_scan_mma", "mamba2_scan_bwd",
+        "mamba2_scan_bwd_mma"}
 
 
 def test_wrappers_refuse_other_devices():

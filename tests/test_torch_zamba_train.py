@@ -382,8 +382,12 @@ def test_mamba2_bwd_cuda_wrapper_refuses_cpu_tensors():
 
 
 def test_mamba2_bwd_constants_match_the_kernel_sources():
-    """The chunk, the padded dims and the heads a backward block takes, as
-    the wrapper states them, are the .cu files' kL, kP and kHeads."""
+    """The chunk, the padded dims and the heads a simt backward block
+    takes, as the wrapper states them, are the .cu files' kL, kP and
+    kHeads; the simt route's shared memory, and the mma route's threads,
+    cluster, bf16 terms, packed triangle, partial set and shared memory,
+    are the backward's kSmemBytes, kMmaThreads, kMmaCluster, kBwdTerms,
+    kTriFloats, kSlotFloats and kMmaSmemBytes; two mma blocks fit an SM."""
     csrc = Path(m2.__file__).parents[1] / "csrc"
     fwd = (csrc / "mamba2_scan.cu").read_text()
     bwd = (csrc / "mamba2_scan_bwd.cu").read_text()
@@ -391,6 +395,55 @@ def test_mamba2_bwd_constants_match_the_kernel_sources():
         assert f"constexpr int kL = {m2.CHUNK};" in src
         assert f"constexpr int kP = {m2.MAX_DIM};" in src
     assert f"constexpr int kHeads = {m2.BWD_HEADS};" in bwd
+    assert f"static_assert(kSmemBytes == {m2.SIMT_SMEM}," in bwd
+    assert f"constexpr int kMmaThreads = {m2.BWD_MMA_THREADS};" in bwd
+    assert f"constexpr int kMmaCluster = {m2.BWD_MMA_CLUSTER};" in bwd
+    assert f"constexpr int kBwdTerms = {m2.BWD_TERMS};" in bwd
+    assert "constexpr int kTriTiles = 10;" in bwd
+    assert "constexpr int kTriFloats = kTriTiles * 256;" in bwd
+    assert m2.BWD_TRI_FLOATS == 10 * 256
+    assert "constexpr int kSlotFloats = kTriFloats + 2 * kTile64;" in bwd
+    assert m2.BWD_SLOT_FLOATS == m2.BWD_TRI_FLOATS + 2 * 64 * 64
+    assert f"static_assert(kMmaSmemBytes == {m2.BWD_MMA_SMEM}," in bwd
+    assert 2 * (m2.BWD_MMA_SMEM + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_mamba2_bwd_plan_routes_and_refusals(b):
+    """The plan, from dtype and shape alone: bf16 on the mma route (at
+    Zamba2's 112 heads one block a head and batch row, 112 at B 1, in
+    clusters of 8, 14 partial sets a batch row and chunk), fp32 on the simt
+    route (the first design, 2 heads a block), a route forced, the cluster
+    the largest power of two up to 8 dividing nh; what no route takes
+    raises."""
+    s, nh, hd, n = 4096, 112, 64, 64
+    nc = m2.chunks(s)
+    p = m2.plan_bwd(torch.bfloat16, b, s, nh, hd, n)
+    assert (p.route, p.grid, p.threads, p.cluster, p.groups) == \
+        ("mma", (112, b), 256, 8, 14)
+    assert p.smem_bytes == m2.BWD_MMA_SMEM
+    assert p.scratch_floats == b * nc * (m2.BWD_TRI_FLOATS + 14 *
+                                         m2.BWD_SLOT_FLOATS) + 2 * b * nh
+    # the partial sets cost fewer bytes than the simt route's partials
+    simt = m2.plan_bwd(torch.bfloat16, b, s, nh, hd, n, route="simt")
+    assert (simt.route, simt.grid, simt.cluster) == ("simt", (56, b), 1)
+    assert p.scratch_floats < simt.scratch_floats / 2.5
+    assert m2.plan_bwd(torch.float32, b, s, nh, hd, n) == simt
+    for heads, cluster in ((3, 1), (6, 2), (12, 4), (16, 8), (2, 2)):
+        q = m2.plan_bwd(torch.bfloat16, b, 300, heads, 32, 16)
+        assert (q.cluster, q.groups, q.grid) == (cluster, heads // cluster,
+                                                 (heads, b))
+    for args, kw in (((torch.float16, b, s, nh, hd, n), {}),
+                     ((torch.bfloat16, b, s, nh, 80, n), {}),
+                     ((torch.bfloat16, b, s, nh, 20, n), {}),
+                     ((torch.bfloat16, b, s, nh, hd, 12), {}),
+                     ((torch.float32, b, s, nh, hd, n), {"route": "mma"}),
+                     ((torch.bfloat16, b, s, nh, hd, n), {"route": "wgmma"}),
+                     ((torch.bfloat16, b, 0, nh, hd, n), {})):
+        with pytest.raises(ValueError, match="mamba2 scan backward"):
+            m2.plan_bwd(*args, **kw)
+    # hd 20 in fp32 takes the simt route
+    assert m2.plan_bwd(torch.float32, b, s, nh, 20, 12).route == "simt"
 
 
 # ---------------------------------------------------------------------------
