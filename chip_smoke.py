@@ -28,8 +28,13 @@ Phases, in order; any failure exits nonzero:
      tests' shapes, windows and
      non-causal case, at ragged lengths, with 5 query heads per KV head,
      then in bf16 off the 128-row tiles, with a window across tile edges,
-     groups of 5 and 8, a peaked softmax and every head dim, and at
-     Qwen3-14B's and Zamba2-7B's prefill shapes; (3b) flash attention's
+     groups of 5 and 8, a peaked softmax and every head dim, MLA's pair of
+     q/k head dim 192 over v head dim 128 in both types (ragged Sq,
+     non-causal Skv != Sq, rows that see no key, a window, GQA, a peaked
+     softmax, the MLA prefill's views), and at Qwen3-14B's, Zamba2-7B's
+     and DeepSeek-V2's prefill shapes (the last (4, 128, 2048, 192) over
+     v (4, 128, 2048, 128), beside the backend PyTorch's
+     ``scaled_dot_product_attention`` picks for it); (3b) flash attention's
      backward, with the forward's log-sum-exp, fp32 through the CUDA-core
      kernels and bf16 through the wgmma ones (their ptxas report), at small
      shapes (GQA groups 1 to 5, ragged tiles, windows, non-causal, every
@@ -131,6 +136,19 @@ Phases, in order; any failure exits nonzero:
  12. card against CPU on the Zamba2 path: the same fp32 weights of a
      4-layer Zamba2-7B at full width (shared block every 2 layers, split
      2 + 2), one prefill of 256 tokens and 4 decode steps on each;
+ 12a. the fifth serving path: DeepSeek-V2 at full width, cut to 9 of its
+     60 layers for one card (``SERVE_DEPTH``: the dense prefix layer and 8
+     layers of MLA + an MoE of 160 routed experts, top 6, and 2 shared,
+     split 2 + 7, bf16, weights drawn on the card from seed 0), as phase
+     7, with one flash launch a layer in the prefill (the MLA prefill's
+     (192, 128) pair, all of them the wgmma kernel's) and none in decode,
+     and the tokens each expert took (min and max) in the prefill and in
+     decode; then under the profiler;
+ 12b. card against CPU on it: the same fp32 weights of a 2-layer
+     DeepSeek-V2 at full width (the prefix layer and one MLA + MoE layer,
+     split 1 + 1), as phase 8, with the smallest gap between the 6th and
+     7th routing probability over the positions compared and whether the
+     two sides routed every token alike;
  13. the fifth path: LM training of the full H2O-Danube-1.8B
      (``repro_torch.launch.steps.make_train_phase``: 24 layers split 6 + 18,
      width 2560, bf16, the ``int8`` wire, tau 0, weights and tokens drawn on
@@ -256,6 +274,18 @@ FLASH_BF16_CASES = [
     (1, 4, 1, 700, 700, 112, True, 0, 8.0)]
 # Zamba2-7B's shared attention block: 32 heads of 112, no GQA
 ZAMBA_HEADS, ZAMBA_HD = 32, 112
+# MLA's head-dim pair (q and k 128 nope + 64 rope, v 128), fp32 and bf16:
+# (b, h, kvh, sq, skv, causal, window, q scale).  Ragged Sq off the
+# 128-row tiles (300, 129), non-causal with Skv != Sq (77 over 300, 300
+# over 77), GQA, a window across tile edges, a peaked softmax; phase 3
+# adds rows that see no key and DeepSeek-V2's prefill shape, 128 heads
+MLA_HD, MLA_HD_V = 192, 128
+FLASH_MLA_CASES = [
+    (1, 4, 4, 300, 300, True, 0, 1.0), (2, 2, 2, 129, 129, True, 0, 1.0),
+    (1, 4, 4, 77, 300, False, 0, 1.0), (1, 2, 2, 300, 77, False, 0, 1.0),
+    (1, 4, 2, 256, 256, True, 0, 1.0), (1, 2, 2, 1000, 1000, True, 200, 1.0),
+    (1, 4, 4, 512, 512, True, 0, 8.0)]
+DEEPSEEK_HEADS = 128
 # the reference suite's TOLS (tests/test_kernels.py)
 FLASH_TOLS = {"float32": 2e-4, "bfloat16": 3e-2}
 
@@ -930,37 +960,62 @@ def _attn_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(mask.sum())
 
 
+def _sdpa_backend(kernels: dict) -> str:
+    """The backend ``scaled_dot_product_attention`` took, named from the
+    device kernels the profiler recorded for its calls."""
+    names = " ".join(kernels).lower()
+    for key, backend in (("cudnn", "cuDNN"), ("flash", "flash"),
+                         ("fmha", "memory-efficient"),
+                         ("efficient", "memory-efficient")):
+        if key in names:
+            return backend
+    return "math"
+
+
 def _time_flash(card: str, model: str, h: int, kvh: int, hd: int,
-                check) -> dict:
+                check, hd_v: int = 0) -> dict:
     """Check, then time, the bf16 kernel at ``model``'s prefill shape in the
     model's layout: (B, S, heads, hd) projections handed over as (B, heads,
-    S, hd) views, causal.  Kernel, plain version, one
-    ``scaled_dot_product_attention`` call and the bound; printed, never a
-    reason to fail."""
+    S, hd) views (v's head dim ``hd_v``, if given), causal.  Kernel, plain
+    version, one ``scaled_dot_product_attention`` call (with the backend
+    PyTorch picks for it named) and the bound; printed, never a reason to
+    fail."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    hd_v = hd_v or hd
     gen = torch.Generator(device="cuda").manual_seed(hd)
     b, s, bf = SERVE_BATCH, SERVE_PROMPT, torch.bfloat16
-    view = lambda n: torch.randn(b, s, n, hd, generator=gen, device="cuda"
-                                 ).to(bf).transpose(1, 2)
-    q, k, v = view(h), view(kvh), view(kvh)
+    view = lambda n, d=hd: torch.randn(b, s, n, d, generator=gen,
+                                       device="cuda").to(bf).transpose(1, 2)
+    q, k, v = view(h), view(kvh), view(kvh, hd_v)
     err = check(q, k, v, f"{model} prefill shape bf16 q {tuple(q.shape)} kv "
-                f"{tuple(k.shape)} (strided views)", FLASH_TOLS["bfloat16"])[1]
-    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    n_flops = 4 * b * h * hd * _attn_pairs(s, s, True, 0)
+                f"{tuple(k.shape)}"
+                + (f" v {tuple(v.shape)}" if hd_v != hd else "")
+                + " (strided views)", FLASH_TOLS["bfloat16"])[1]
+    # q, k and v read once, the (B, H, S, hd_v) output written once
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v)) \
+        + b * h * s * hd_v * 2
+    n_flops = 2 * b * h * (hd + hd_v) * _attn_pairs(s, s, True, 0)
+    lib_kernels: dict = {}
     t = dict(
         ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v), iters=20,
                    warmup=3),
         plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5,
                          warmup=1),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters=20, warmup=3),
+            q, k, v, is_causal=True, enable_gqa=True), iters=20, warmup=3,
+            by_kernel=lib_kernels),
         bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
+    print(f"[timing] flash_attention at {model}'s prefill: the library call "
+          f"takes the {_sdpa_backend(lib_kernels)} backend; its kernels "
+          + ", ".join(f"{n[:70]} {ms:.4f} ms" for n, ms in
+                      lib_kernels.items()))
     print(f"[timing] flash_attention at {model}'s prefill, q "
-          f"{tuple(q.shape)} kv {tuple(k.shape)} bf16 causal "
+          f"{tuple(q.shape)} kv {tuple(k.shape)}"
+          + (f" v {tuple(v.shape)}" if hd_v != hd else "") + " bf16 causal "
           f"({n_flops:.4g} operations, {n_bytes / 1e6:.1f} MB): kernel "
           f"{t['ms'][0]:.4f} ms (events {t['ms'][1]:.4f}), plain "
           f"{t['plain_ms'][0]:.4f} ms (events {t['plain_ms'][1]:.4f}), "
@@ -979,10 +1034,11 @@ def _time_flash(card: str, model: str, h: int, kvh: int, hd: int,
 def phase_flash(card: str) -> dict:
     """Flash attention against its plain version on the card: every
     ``FLASH_CASES`` entry in fp32 (the CUDA-core kernel) and bf16 (the
-    wgmma kernel), the bf16-only cases and every head dim in bf16, rows
-    that see no key in both types; then checked and timed at Qwen3-14B's
-    and Zamba2-7B's prefill shapes.  Each bf16 check must launch the wgmma
-    kernel once."""
+    wgmma kernel), the bf16-only cases and every head dim in bf16, MLA's
+    (192, 128) pair in both types, rows that see no key in both types (at
+    an equal head dim and at the pair); then checked and timed at
+    Qwen3-14B's, Zamba2-7B's and DeepSeek-V2's prefill shapes.  Each bf16
+    check must launch the wgmma kernel once."""
     import torch
 
     from repro_torch.kernels import ref
@@ -999,9 +1055,12 @@ def phase_flash(card: str) -> dict:
         torch.cuda.synchronize()
         e = float((got.float() - want.float()).abs().max())
         print(f"[kernels] flash {what}: max|err| {e:.3g} (tol {tol})")
-        if got.dtype != q.dtype or got.stride() != q.stride():
-            fail(f"flash {what}: output {got.dtype} {got.stride()}, want "
-                 f"{q.dtype} {q.stride()}")
+        layout = fa.output_like(q, v.shape[-1]).stride()
+        if got.dtype != q.dtype or got.stride() != layout \
+                or got.shape != want.shape:
+            fail(f"flash {what}: output {got.dtype} {tuple(got.shape)} "
+                 f"{got.stride()}, want {q.dtype} {tuple(want.shape)} "
+                 f"{layout}")
         if fa.LAUNCHES["flash_attention_wgmma"] - before != (q.dtype == bf):
             fail(f"flash {what}: the wgmma kernel ran "
                  f"{fa.LAUNCHES['flash_attention_wgmma'] - before} times")
@@ -1010,11 +1069,14 @@ def phase_flash(card: str) -> dict:
                  f"{e}")
         return got, e
 
-    def case(dt, tol, b, h, kvh, sq, skv, hd, causal, window, scale=1.0):
+    def case(dt, tol, b, h, kvh, sq, skv, hd, causal, window, scale=1.0,
+             hd_v=None):
+        hd_v = hd_v or hd
         q = (randn(b, h, sq, hd) * scale).to(dt)
-        k, v = randn(b, kvh, skv, hd).to(dt), randn(b, kvh, skv, hd).to(dt)
-        what = (f"{dt} q ({b}, {h}, {sq}, {hd}) kv ({kvh}, {skv}) "
-                f"causal={causal} window={window}"
+        k, v = randn(b, kvh, skv, hd).to(dt), randn(b, kvh, skv, hd_v).to(dt)
+        what = (f"{dt} q ({b}, {h}, {sq}, {hd}) kv ({kvh}, {skv}"
+                + (f", v {hd_v}" if hd_v != hd else "")
+                + f") causal={causal} window={window}"
                 + (f" q x {scale:g}" if scale != 1.0 else ""))
         return check(q, k, v, what, tol, causal, window)[1]
 
@@ -1026,22 +1088,41 @@ def phase_flash(card: str) -> dict:
         err = max(err, case(bf, tol, *c))
     for hd in fa.HEAD_DIMS:
         err = max(err, case(bf, tol, 1, 4, 2, 300, 300, hd, True, 0))
-    # causal over 16 keys with a window of 8: rows 23 on see no key -> 0
+    # MLA's (192, 128) pair in both types, then as the MLA prefill hands it
+    # over: views of (B, S, H, d) projections
+    for dname, tol in FLASH_TOLS.items():
+        for b, h, kvh, sq, skv, causal, window, scale in FLASH_MLA_CASES:
+            err = max(err, case(getattr(torch, dname), tol, b, h, kvh, sq,
+                                skv, MLA_HD, causal, window, scale,
+                                hd_v=MLA_HD_V))
+    mla_view = lambda n, d: torch.randn(2, 300, n, d, generator=gen,
+                                        device="cuda").to(bf).transpose(1, 2)
+    got, e = check(mla_view(8, MLA_HD), mla_view(8, MLA_HD),
+                   mla_view(8, MLA_HD_V), "bf16 MLA views q, k (2, 8, 300, "
+                   "192) v (2, 8, 300, 128) of (B, S, H, d) projections",
+                   FLASH_TOLS["bfloat16"])
+    err = max(err, e)
+    # causal over 16 keys with a window of 8: rows 23 on see no key -> 0,
+    # at an equal head dim and at MLA's pair
     for dname, tol in FLASH_TOLS.items():
         dt = getattr(torch, dname)
-        q, k = randn(1, 2, 64, 32).to(dt), randn(1, 1, 16, 32).to(dt)
-        got, _ = check(q, k, k, f"{dname} rows that see no key", tol,
-                       window=8)
-        if float(got[:, :, 23:].abs().max()) != 0.0:
-            fail(f"flash attention ({dname}): a row that sees no key is "
-                 "not 0")
+        for hd, hd_v in ((32, 32), (MLA_HD, MLA_HD_V)):
+            q, k = randn(1, 2, 64, hd).to(dt), randn(1, 1, 16, hd).to(dt)
+            v = k if hd_v == hd else randn(1, 1, 16, hd_v).to(dt)
+            got, _ = check(q, k, v, f"{dname} rows that see no key, hd "
+                           f"{hd}/{hd_v}", tol, window=8)
+            if float(got[:, :, 23:].abs().max()) != 0.0:
+                fail(f"flash attention ({dname}, hd {hd}/{hd_v}): a row "
+                     "that sees no key is not 0")
 
     # the serving paths' shapes; the first is the kernel's row in the
     # ``kernels`` line
     qwen = _time_flash(card, "Qwen3-14B", 40, 8, 128, check)
     zamba = _time_flash(card, "Zamba2-7B", ZAMBA_HEADS, ZAMBA_HEADS,
                         ZAMBA_HD, check)
-    return {"err": max(err, qwen["err"], zamba["err"]),
+    deepseek = _time_flash(card, "DeepSeek-V2", DEEPSEEK_HEADS,
+                           DEEPSEEK_HEADS, MLA_HD, check, hd_v=MLA_HD_V)
+    return {"err": max(err, qwen["err"], zamba["err"], deepseek["err"]),
             "timing": qwen["timing"]}
 
 
@@ -2559,7 +2640,7 @@ def phase_checkpoints(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 7-12: serving Qwen3-14B, xLSTM-1.3B and Zamba2-7B
+# phases 7-12b: serving Qwen3-14B, xLSTM-1.3B, Zamba2-7B and DeepSeek-V2
 # ---------------------------------------------------------------------------
 
 # each serving path: arch -> ({its ported kernels' count name: profiler
@@ -2580,7 +2661,17 @@ SERVE_PATHS = {
                    "flash_attention_wgmma": "flash_kernel_wgmma"},
                   lambda cfg: replace(cfg, num_layers=4,
                                       shared_attn_period=2), "serve-zamba2"),
+    # the dense prefix layer (layer 0) and one MLA + MoE layer, split 1 + 1
+    "deepseek-v2-236b": ({"flash_attention": "flash_kernel",
+                          "flash_attention_wgmma": "flash_kernel_wgmma"},
+                         lambda cfg: replace(cfg, num_layers=2),
+                         "serve-deepseek"),
 }
+# the paths served cut in depth, for one card's 80 GB: DeepSeek-V2 at 9 of
+# its 60 layers (the dense prefix layer and 8 MLA + MoE layers of 160
+# experts, split 2 + 7): 33.16 B parameters, 61.8 GiB in bf16, about 70 GB
+# at the peak with the (4, 2048, 102400) prefill logits
+SERVE_DEPTH = {"deepseek-v2-236b": 9}
 
 
 def _launches_per_prefill(cfg) -> dict:
@@ -2606,11 +2697,43 @@ def _launches_per_prefill(cfg) -> dict:
     return want
 
 
-def _serve_full(arch: str, log):
+def _serve_cfg(arch: str):
+    """The config a serving path runs at full width: the published one, cut
+    in depth where ``SERVE_DEPTH`` says."""
     from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in SERVE_DEPTH:
+        cfg = replace(cfg, num_layers=SERVE_DEPTH[arch])
+    return cfg
+
+
+def _serve_full(arch: str, log):
     from repro_torch.launch.serve import serve_config
-    return serve_config(get_config(arch), SERVE_BATCH, SERVE_PROMPT,
+    return serve_config(_serve_cfg(arch), SERVE_BATCH, SERVE_PROMPT,
                         SERVE_TOKENS, seed=0, device="cuda", log=log)
+
+
+def _with_routing(cfg, fn):
+    """``fn()``'s result and the routing records of its MoE layer calls
+    (``moe.ROUTING``; none for a model without MoE)."""
+    from repro_torch.models import moe
+    moe.ROUTING = [] if cfg.moe is not None else None
+    try:
+        return fn(), moe.ROUTING or []
+    finally:
+        moe.ROUTING = None
+
+
+def _routing_line(records: list) -> str:
+    """Tokens per expert (min and max over the experts of each MoE layer
+    call) and the smallest gap between the k-th and (k+1)-th routing
+    probability, over ``moe.ROUTING`` records."""
+    lo = min(min(r["counts"]) for r in records)
+    hi = max(max(r["counts"]) for r in records)
+    gap = min(float(r["gap"]) for r in records)
+    return (f"{len(records)} MoE layer calls, tokens per expert min {lo} "
+            f"max {hi}, smallest gap between the k-th and (k+1)-th "
+            f"routing probability {gap:.4g}")
 
 
 def phase_serve(card: str, arch: str) -> dict:
@@ -2623,12 +2746,12 @@ def phase_serve(card: str, arch: str) -> dict:
     decode."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import moe
     from repro_torch.models.transformer import build_model
     from repro_torch.tree import tree_leaves
     kernels, _, tag = SERVE_PATHS[arch]
-    cfg = get_config(arch)
+    cfg = _serve_cfg(arch)
     model = build_model(cfg)
     weights = tree_leaves(model.init(torch.Generator("cuda").manual_seed(0),
                                      "cuda"))
@@ -2642,14 +2765,19 @@ def phase_serve(card: str, arch: str) -> dict:
     after_log = []
 
     def log(msg):
-        after_log.append(launch_counts())
+        after_log.append((launch_counts(), len(moe.ROUTING or ())))
         print(f"[{tag}] {msg}")
     t0 = time.perf_counter()
     reset_launch_counts()
-    res = _serve_full(arch, log)
+    res, routing = _with_routing(cfg, lambda: _serve_full(arch, log))
     launches = launch_counts()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    if routing:
+        n_prefill = after_log[0][1]
+        print(f"[{tag}] routing in the prefill: "
+              f"{_routing_line(routing[:n_prefill])}; in decode: "
+              f"{_routing_line(routing[n_prefill:])}")
     toks = res.tokens
     print(f"[{tag}] {arch} at full width, {cfg.num_layers} layers (split "
           f"{model.split} + {cfg.num_layers - model.split}), {cfg.dtype}, "
@@ -2671,7 +2799,7 @@ def phase_serve(card: str, arch: str) -> dict:
              f"[{toks.min()}, {toks.max()}]")
     want = _launches_per_prefill(cfg)
     for kernel in kernels:
-        prefill_n = after_log[0][kernel]
+        prefill_n = after_log[0][0][kernel]
         decode_n = launches[kernel] - prefill_n
         print(f"[{tag}] {kernel} launches in the prefill {prefill_n} (want "
               f"{want[kernel]}), in the {SERVE_TOKENS - 1} decode steps "
@@ -2742,7 +2870,8 @@ def phase_serve_cross_check(arch: str) -> None:
     """One prefill of 256 tokens and 4 decode steps of the model cut in
     depth (Qwen3-14B to 2 layers; xLSTM-1.3B to 4 blocks with an sLSTM
     block every 2, so 2 groups split 1 + 1; Zamba2-7B to 4 Mamba2 layers
-    with the shared block every 2, split 2 + 2) at full width, in fp32
+    with the shared block every 2, split 2 + 2; DeepSeek-V2 to its prefix
+    layer and one MLA + MoE layer, split 1 + 1) at full width, in fp32
     with TF32 off, on the card and on the CPU from the same weights (drawn
     on the card, copied to the CPU).  cuBLAS and the CPU sum in other
     orders and the path's kernels against their plain versions too, so the
@@ -2765,11 +2894,21 @@ def phase_serve_cross_check(arch: str) -> None:
               log=lambda _: None)
     t0 = time.perf_counter()
     reset_launch_counts()
-    gpu = serve_config(cfg, params=params, device="cuda", **kw)
+    gpu, gpu_routing = _with_routing(cfg, lambda: serve_config(
+        cfg, params=params, device="cuda", **kw))
     counts = {k: launch_counts()[k] for k in kernels}
-    cpu = serve_config(cfg, params=tree_map(lambda t: t.cpu(), params),
-                       device="cpu", **kw)
+    cpu, cpu_routing = _with_routing(cfg, lambda: serve_config(
+        cfg, params=tree_map(lambda t: t.cpu(), params), device="cpu", **kw))
     del params
+    if cpu_routing:
+        # the CPU's routing is the reference's; a flip between the two
+        # sides shows as another count of tokens for some expert
+        same = [r["counts"] for r in gpu_routing] == \
+            [r["counts"] for r in cpu_routing]
+        print(f"[cross-{tag}] routing on the CPU over the positions "
+              f"compared (the prefill's and the decode steps'): "
+              f"{_routing_line(cpu_routing)}; card's tokens per expert "
+              f"equal to the CPU's in every layer call: {same}")
     err = float((gpu.logits.cpu() - cpu.logits).abs().max())
     same = bool((gpu.tokens == cpu.tokens).all())
     print(f"[cross-{tag}] {arch} width {cfg.d_model}, {cfg.num_layers} "

@@ -1,20 +1,47 @@
-"""Configurations of the paper's CNN family, the dense decoder LMs, xLSTM
-and the Zamba2 hybrid, for the PyTorch port.
+"""Configurations of the paper's CNN family, the dense and MoE decoder LMs,
+xLSTM and the Zamba2 hybrid, for the PyTorch port.
 
 A copy of what the CNN classification rig and the LM serving paths read
 from the JAX package's ``configs/base.py`` (``SemiSFLConfig``,
-``XLSTMConfig``, ``SSMConfig``, the CNN, dense-LM, xLSTM and hybrid fields
-of ``ArchConfig``, ``get_config`` and the CNN, dense-LM, xLSTM and SSM
-branches of ``smoke_config``), of ``configs/paper_models.py``,
-``configs/qwen3_14b.py``, ``configs/h2o_danube_1_8b.py``,
-``configs/stablelm_1_6b.py``, ``configs/qwen2_5_14b.py``,
-``configs/xlstm_1_3b.py`` and ``configs/zamba2_7b.py``, and of the
-``train_4k`` input shape.  The port keeps its own copy so that it
-imports nothing of the JAX package."""
+``MoEConfig``, ``XLSTMConfig``, ``SSMConfig``, the CNN, dense-LM, MoE,
+MLA, xLSTM and hybrid fields of ``ArchConfig``, ``get_config`` and the
+CNN, dense-LM, MoE, MLA, xLSTM and SSM branches of ``smoke_config``), of
+``configs/paper_models.py``, ``configs/qwen3_14b.py``,
+``configs/h2o_danube_1_8b.py``, ``configs/stablelm_1_6b.py``,
+``configs/qwen2_5_14b.py``, ``configs/xlstm_1_3b.py``,
+``configs/zamba2_7b.py``, ``configs/deepseek_v2_236b.py`` and
+``configs/arctic_480b.py``, and of the ``train_4k`` input shape.  The
+port keeps its own copy so that it imports nothing of the JAX package."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration."""
+
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    # Dense residual MLP computed in parallel with the routed experts
+    # (Snowflake Arctic style).  0 disables it.
+    d_ff_dense_residual: int = 0
+    # Experts always applied to every token (DeepSeek-V2 "shared experts").
+    num_shared_experts: int = 0
+    # Which layers are MoE layers: every layer with index >= first_moe_layer
+    # and (index - first_moe_layer) % period == 0.
+    first_moe_layer: int = 0
+    period: int = 1
+    # Token-dropping capacity factor of the JAX package's expert-parallel
+    # path (not ported: the port runs every assignment)
+    capacity_factor: float = 1.25
+    router_aux_loss_coef: float = 0.001
+
+    def is_moe_layer(self, idx: int) -> bool:
+        return (idx >= self.first_moe_layer
+                and (idx - self.first_moe_layer) % self.period == 0)
 
 
 @dataclass(frozen=True)
@@ -61,12 +88,12 @@ class SemiSFLConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """The CNN, dense-LM, xLSTM and hybrid fields of the JAX package's
-    ``ArchConfig``."""
+    """The CNN, dense-LM, MoE, MLA, xLSTM and hybrid fields of the JAX
+    package's ``ArchConfig``."""
 
     name: str
     num_layers: int
-    arch_type: str = "cnn"              # cnn | dense | ssm | hybrid
+    arch_type: str = "cnn"              # cnn | dense | moe | ssm | hybrid
     # --- dense decoder LM ----------------------------------------------------
     d_model: int = 0
     num_heads: int = 0
@@ -83,11 +110,19 @@ class ArchConfig:
     norm: str = "rmsnorm"               # rmsnorm | layernorm
     act: str = "silu"                   # silu | gelu | relu
     mlp_gated: bool = True              # SwiGLU-style gate
+    # --- MLA (DeepSeek-V2) ---------------------------------------------------
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     # --- block-stack structure -------------------------------------------------
     block_kind: str = "attn"            # attn | mamba2 | xlstm
     # hybrid (zamba2): one weight-shared attention block applied after every
     # `shared_attn_period` mamba blocks.
     shared_attn_period: int = 0
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     xlstm: Optional[XLSTMConfig] = None
     dtype: str = "bfloat16"
@@ -105,6 +140,8 @@ class ArchConfig:
 
     @property
     def resolved_head_dim(self) -> int:
+        if self.use_mla:
+            return self.qk_nope_head_dim + self.qk_rope_head_dim
         return self.head_dim or (self.d_model // self.num_heads)
 
     @property
@@ -135,11 +172,26 @@ class ArchConfig:
 
         def attn_params() -> int:
             hd = self.resolved_head_dim
+            if self.use_mla:
+                q = (d * self.q_lora_rank + self.q_lora_rank * self.num_heads
+                     * hd if self.q_lora_rank else d * self.num_heads * hd)
+                kv = (d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                      + self.kv_lora_rank * self.num_heads
+                      * (self.qk_nope_head_dim + self.v_head_dim))
+                return q + kv + self.num_heads * self.v_head_dim * d
             return (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
                     + self.num_heads * hd * d)
 
         def mlp_params(width: int) -> int:
             return d * width * (3 if self.mlp_gated else 2)
+
+        def moe_params() -> int:
+            m = self.moe
+            return (d * m.num_experts
+                    + (m.num_experts + m.num_shared_experts)
+                    * mlp_params(m.d_ff_expert)
+                    + (mlp_params(m.d_ff_dense_residual)
+                       if m.d_ff_dense_residual else 0))
 
         def ssm_params() -> int:
             s = self.ssm or SSMConfig()
@@ -162,7 +214,11 @@ class ArchConfig:
                     di = int(x.mlstm_proj_factor * d)
                     total += d * di * 2 + 3 * di * di // 4 + di * d
             else:
-                total += attn_params() + mlp_params(ff)
+                total += attn_params()
+                if self.moe is not None and self.moe.is_moe_layer(i):
+                    total += moe_params()
+                else:
+                    total += mlp_params(ff)
             total += 2 * d  # norms
         if self.shared_attn_period:
             total += attn_params() + mlp_params(ff) + 2 * d
@@ -239,6 +295,27 @@ _REGISTRY = {c.name: c for c in (
                ssm=SSMConfig(state_dim=64, head_dim=64, expand=2,
                              conv_width=4),
                rope_theta=10_000.0),
+    # DeepSeek-V2 236B (arXiv:2405.04434): MLA (kv_lora 512) + MoE of 160
+    # routed experts, top 6, and 2 shared experts; layer 0 keeps the dense
+    # MLP
+    ArchConfig(name="deepseek-v2-236b", arch_type="moe", num_layers=60,
+               d_model=5120, num_heads=128, num_kv_heads=128, d_ff=12288,
+               vocab_size=102400, use_mla=True, kv_lora_rank=512,
+               q_lora_rank=1536, qk_nope_head_dim=128, qk_rope_head_dim=64,
+               v_head_dim=128,
+               moe=MoEConfig(num_experts=160, top_k=6, d_ff_expert=1536,
+                             num_shared_experts=2, first_moe_layer=1,
+                             period=1, capacity_factor=1.25),
+               rope_theta=10_000.0),
+    # Snowflake Arctic 480B (hf:Snowflake/snowflake-arctic-base): 128
+    # experts top 2 with a dense residual MLP in parallel
+    ArchConfig(name="arctic-480b", arch_type="moe", num_layers=35,
+               d_model=7168, num_heads=56, num_kv_heads=8, head_dim=128,
+               d_ff=4864, vocab_size=32000,
+               moe=MoEConfig(num_experts=128, top_k=2, d_ff_expert=4864,
+                             d_ff_dense_residual=4864, first_moe_layer=0,
+                             period=1, capacity_factor=1.25),
+               rope_theta=10_000.0),
 )}
 
 
@@ -263,10 +340,11 @@ def get_config(name: str) -> ArchConfig:
 
 
 def smoke_config(name: str) -> ArchConfig:
-    """Reduced same-family variant for CPU tests (the CNN, dense-LM, xLSTM
-    and SSM branches of the JAX package's ``smoke_config``: 2 layers, or one
-    mLSTM/sLSTM group of 4 for xLSTM, or 4 Mamba2 layers with the shared
-    block every 2 for Zamba2, d_model <= 256, vocab <= 512)."""
+    """Reduced same-family variant for CPU tests (the CNN, dense-LM, MoE,
+    MLA, xLSTM and SSM branches of the JAX package's ``smoke_config``: 2
+    layers, or one mLSTM/sLSTM group of 4 for xLSTM, or 4 Mamba2 layers
+    with the shared block every 2 for Zamba2, d_model <= 256, vocab <= 512,
+    4 experts, top-k <= 2, MLA ranks 32/48 and head dims 32/16/32)."""
     cfg = get_config(name)
     if cfg.arch_type != "cnn":
         d_model = min(cfg.d_model, 256)
@@ -286,6 +364,12 @@ def smoke_config(name: str) -> ArchConfig:
             semisfl=replace(cfg.semisfl, split_layer=1, queue_len=64,
                             proj_dim=16, proj_hidden=32, k_s_init=2, k_u=2),
         )
+        if cfg.moe is not None:
+            kw["moe"] = replace(
+                cfg.moe, num_experts=4, top_k=min(cfg.moe.top_k, 2),
+                d_ff_expert=64,
+                d_ff_dense_residual=64 if cfg.moe.d_ff_dense_residual else 0,
+                num_shared_experts=min(cfg.moe.num_shared_experts, 1))
         if cfg.ssm is not None:
             kw["ssm"] = replace(cfg.ssm, state_dim=16, head_dim=32)
             if cfg.shared_attn_period:
@@ -296,6 +380,9 @@ def smoke_config(name: str) -> ArchConfig:
             kw["xlstm"] = replace(cfg.xlstm, slstm_period=2,
                                   mlstm_head_dim=64)
             kw["num_layers"] = 4
+        if cfg.use_mla:
+            kw.update(kv_lora_rank=32, q_lora_rank=48, qk_nope_head_dim=32,
+                      qk_rope_head_dim=16, v_head_dim=32)
         return replace(cfg, **kw)
     return replace(
         cfg,

@@ -5,16 +5,17 @@ CNN trees have the same structure on both sides (``{"bottom", "top",
 change layout: JAX's HWIO against PyTorch's OIHW, with a leading client
 axis on stacked client bottoms.  Dense weights are (d_in, d_out) on both
 sides.  Decoder-LM trees differ in one way: JAX stacks a segment's layers
-on a leading axis (``"stack"``), the port keeps a list of per-layer trees;
-so does its KV cache.  xLSTM trees are stacked twice in JAX (``"groups"``
-on a group axis, each group's ``"mlstm"`` blocks on a second one); the port
-keeps a list of groups, each with a list of mLSTM blocks, and so does its
-recurrent cache.  The Zamba2 hybrid's ``stack`` is unstacked likewise and
-its ``shared_attn`` block is one tree on each side; its cache holds a
-segment's SSM caches on a leading layer axis and its shared-block KV caches
-on a leading application axis in JAX, lists in the port.  The LM train
-state stacks the clients' bottoms on a leading client axis in JAX; the
-port keeps a list of client trees.  bf16 arrays (``ml_dtypes.bfloat16`` in
+on a leading axis (``"stack"``, and a DeepSeek bottom's ``"prefix"``), the
+port keeps a list of per-layer trees; so does its KV or MLA cache.  An MoE
+layer's experts are (E, d_in, d_out) tensors on both sides.  xLSTM trees are
+stacked twice in JAX (``"groups"`` on a group axis, each group's ``"mlstm"``
+blocks on a second one); the port keeps a list of groups, each with a list of
+mLSTM blocks, and so does its recurrent cache.  The Zamba2 hybrid's ``stack``
+is unstacked likewise and its ``shared_attn`` block is one tree on each side;
+its cache holds a segment's SSM caches on a leading layer axis and its
+shared-block KV caches on a leading application axis in JAX, lists in the port.
+The LM train state stacks the clients' bottoms on a leading client axis in JAX;
+the port keeps a list of client trees.  bf16 arrays (``ml_dtypes.bfloat16`` in
 numpy) come across bit for bit.
 
 The functions take and give numpy arrays, not JAX arrays, so the port
@@ -29,6 +30,7 @@ from repro_torch.core.baselines import FLState
 from repro_torch.core.engine import SemiSFLState
 from repro_torch.core.queue import FeatureQueue
 from repro_torch.models.attention import KVCache
+from repro_torch.models.mla import MLACache
 from repro_torch.models.ssm import SSMCache
 from repro_torch.models.xlstm import MLSTMCache, SLSTMCache
 from repro_torch.tree import tree_leaves, tree_map
@@ -119,7 +121,9 @@ def _unstack(tree) -> list:
 def lm_params_from_numpy(tree, device: str | torch.device = "cpu") -> dict:
     """The JAX ``DecoderLM.init``, ``HybridMamba.init`` or
     ``XLSTMModel.init`` tree as numpy -> the port's tree on ``device``.  A
-    ``stack`` (leading layer axis) becomes a list of per-layer trees;
+    ``stack`` or ``prefix`` (leading layer axis) becomes a list of
+    per-layer trees (an MoE layer's router, experts and MLA weights as
+    they are);
     ``groups`` (leading group axis, and a second block axis on each
     group's ``mlstm``) a list of per-group ``{"mlstm": [per-block trees],
     "slstm": tree}``; any other subtree (``embed``, ``shared_attn``, ...)
@@ -128,13 +132,17 @@ def lm_params_from_numpy(tree, device: str | torch.device = "cpu") -> dict:
             "top": _lm_half_from_numpy(tree["top"], device)}
 
 
+# the subtrees that stack a segment's layers on a leading axis in JAX
+_LAYER_SEGMENTS = ("prefix", "stack")
+
+
 def _lm_half_from_numpy(part: dict, device) -> dict:
     """One side of the split (a JAX ``bottom`` or ``top`` tree) -> the
     port's."""
     to_t = lambda sub: tree_map(lambda a: _tensor(a, device), sub)
     out = {}
     for key, sub in part.items():
-        if key == "stack":
+        if key in _LAYER_SEGMENTS:
             out[key] = ([] if sub is None else
                         [to_t(layer) for layer in _unstack(sub)])
         elif key == "groups":
@@ -165,13 +173,13 @@ def _stack_trees(trees: list):
 
 def _lm_half_to_numpy(part: dict) -> dict:
     """The port's ``bottom`` or ``top`` tree -> numpy in the JAX layout
-    (the inverse of :func:`_lm_half_from_numpy`): ``stack`` on a leading
-    layer axis; xLSTM's ``groups`` as ``{"mlstm": on (groups, blocks),
-    "slstm": on (groups,)}``."""
+    (the inverse of :func:`_lm_half_from_numpy`): ``stack`` and
+    ``prefix`` on a leading layer axis; xLSTM's ``groups`` as ``{"mlstm":
+    on (groups, blocks), "slstm": on (groups,)}``."""
     out = {}
     for key, sub in part.items():
         leaves = tree_map(_array, sub)
-        if key == "stack" and leaves:
+        if key in _LAYER_SEGMENTS and leaves:
             leaves = _stack_trees(leaves)
         elif key == "groups" and leaves:
             leaves = {"mlstm": _stack_trees([_stack_trees(g["mlstm"])
@@ -225,20 +233,27 @@ def lm_train_state_to_numpy(state: dict) -> dict:
 def lm_cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
     """The JAX ``init_cache`` tree as numpy -> the port's cache on
     ``device``.  ``DecoderLM``: each segment's ``KVCache`` of (k, v, pos)
-    with a leading layer axis (a dense model's ``prefix`` segment is None)
-    -> a list of per-layer :class:`KVCache`.  ``HybridMamba``: each
-    segment's ``{"ssm": (conv, state) on a layer axis, "shared_kv": (k, v,
-    pos) on an application axis}`` -> ``{"ssm": [SSMCache], "shared_kv":
-    [KVCache]}``.  ``XLSTMModel``: each
+    or ``MLACache`` of (latent, k_rope, length) with a leading layer axis
+    -> a list of per-layer :class:`KVCache` or :class:`MLACache` (None for
+    an empty segment), a prefix model's bottom with its ``prefix`` (a
+    model without prefix layers has None there in JAX, and no ``prefix``
+    in the port).  ``HybridMamba``: each segment's ``{"ssm": (conv, state)
+    on a layer axis, "shared_kv": (k, v, pos) on an application axis}`` ->
+    ``{"ssm": [SSMCache], "shared_kv": [KVCache]}``.  ``XLSTMModel``: each
     segment's ``{"mlstm": (C, n, m) on (groups, blocks, ...), "slstm": (h,
     c, n, m) on (groups, ...)}`` -> ``{"groups": [{"mlstm": [MLSTMCache],
     "slstm": SLSTMCache}]}``."""
     t = lambda a: _tensor(a, device)
+    i64 = lambda a: t(np.asarray(a, np.int64))
 
     def segment(c):
+        if c is None:
+            return None
+        if hasattr(c, "latent"):
+            return [MLACache(t(c.latent[i]), t(c.k_rope[i]),
+                             i64(c.length[i])) for i in range(len(c.latent))]
         k, v, pos = c
-        return [KVCache(t(k[i]), t(v[i]), t(np.asarray(pos[i], np.int64)))
-                for i in range(len(k))]
+        return [KVCache(t(k[i]), t(v[i]), i64(pos[i])) for i in range(len(k))]
 
     def xlstm_segment(c):
         mc, sc = c["mlstm"], c["slstm"]
@@ -258,25 +273,30 @@ def lm_cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
         return {seg: hybrid_segment(cache[seg]) for seg in ("bottom", "top")}
     if "stack" not in cache["bottom"]:
         return {seg: xlstm_segment(cache[seg]) for seg in ("bottom", "top")}
+    bottom = {"stack": segment(cache["bottom"]["stack"])}
     if cache["bottom"].get("prefix") is not None:
-        raise NotImplementedError("the port has no prefix layers")
-    return {"bottom": {"stack": segment(cache["bottom"]["stack"])},
-            "top": {"stack": segment(cache["top"]["stack"])}}
+        bottom["prefix"] = segment(cache["bottom"]["prefix"])
+    return {"bottom": bottom, "top": {"stack": segment(cache["top"]["stack"])}}
 
 
 def lm_cache_to_numpy(cache: dict) -> dict:
     """The port's cache -> numpy in the JAX layout: for ``DecoderLM``
-    {segment: (k, v, pos)} with a leading layer axis (k and v as fp32); for
-    ``HybridMamba`` {segment: {"ssm": (conv, state), "shared_kv": (k, v,
-    pos)}} with leading layer and application axes (as fp32 but pos); for
-    ``XLSTMModel`` {segment: {"mlstm": (C, n, m), "slstm": (h, c, n, m)}}
-    with leading (groups, blocks) and (groups,) axes."""
+    {segment: (k, v, pos)} or, with MLA, {segment: (latent, k_rope,
+    length)} with a leading layer axis (k, v, latent and k_rope as fp32;
+    None for an empty segment), a prefix model's bottom as {"prefix": ...,
+    "stack": ...}; for ``HybridMamba`` {segment: {"ssm": (conv, state),
+    "shared_kv": (k, v, pos)}} with leading layer and application axes (as
+    fp32 but pos); for ``XLSTMModel`` {segment: {"mlstm": (C, n, m),
+    "slstm": (h, c, n, m)}} with leading (groups, blocks) and (groups,)
+    axes."""
     a = lambda t: t.float().cpu().numpy()
 
     def segment(c):
-        return tuple(np.stack([getattr(layer, f).float().cpu().numpy()
-                               if f != "pos" else layer.pos.cpu().numpy()
-                               for layer in c]) for f in KVCache._fields)
+        if not c:
+            return None
+        return tuple(np.stack([
+            layer[i].cpu().numpy() if layer[i].dtype == torch.int64
+            else a(layer[i]) for layer in c]) for i in range(len(c[0])))
 
     def xlstm_segment(c):
         groups = c["groups"]
@@ -296,5 +316,8 @@ def lm_cache_to_numpy(cache: dict) -> dict:
         return {seg: hybrid_segment(cache[seg]) for seg in ("bottom", "top")}
     if "groups" in cache["bottom"]:
         return {seg: xlstm_segment(cache[seg]) for seg in ("bottom", "top")}
-    return {"bottom": segment(cache["bottom"]["stack"]),
-            "top": segment(cache["top"]["stack"])}
+    bottom = segment(cache["bottom"]["stack"])
+    if "prefix" in cache["bottom"]:
+        bottom = {"prefix": segment(cache["bottom"]["prefix"]),
+                  "stack": bottom}
+    return {"bottom": bottom, "top": segment(cache["top"]["stack"])}

@@ -8,8 +8,11 @@
 //   o[b, h, i] = sum_j softmax_j(s[i, j]) v[b, h / G, j],
 //   s[i, j]    = (q[b, h, i] . k[b, h / G, j]) / sqrt(hd),
 // with G = H / KVH (any integer, 5 for Qwen3-14B's 40 over 8 heads) and no
-// replicated K/V; key j is masked unless j < Skv, j <= i (causal, top-left:
-// positions counted from 0 on both sides) and j > i - window (window > 0).
+// replicated K/V.  q and k have head dim hd, v and o head dim hd_v: equal
+// (32 to 128), or MLA's (192, 128) (DeepSeek-V2: 128 nope + 64 rope
+// columns for the scores, 128 value columns).  Key j is masked unless
+// j < Skv, j <= i (causal, top-left: positions counted from 0 on both
+// sides) and j > i - window (window > 0).
 // Scores, the online softmax (running max from -1e30, masked keys weigh 0)
 // and the accumulators are fp32; a row that sees no key outputs 0
 // (l == 0 -> 1); the output is in the input's type.  Given a pointer,
@@ -23,34 +26,36 @@
 // copies.  Ragged Sq and Skv are masked here: a prompt of any length goes
 // through.  Two kernels, chosen by the inputs' type:
 //
-// flash_kernel_wgmma<HD> (bf16, the serving paths).  One block per (q tile
-// of 128 rows, head, batch), a head's tiles launched together, heaviest
+// flash_kernel_wgmma<HD, HDV> (bf16, the serving paths).  One block per (q
+// tile of 128 rows, head, batch), a head's tiles launched together, heaviest
 // causal tile first; two consumer warpgroups of 64 rows each and one
 // producer warpgroup (setmaxnreg moves its registers to the consumers).
 // One producer thread loads the Q tile once and the K and V tiles of 128
 // keys into a ring of two stages in shared memory with TMA (4-d tensor
 // maps over (hd, S, H, B) from the tensors' own strides, 128-byte swizzle,
-// boxes of 64 columns; rows and columns out of bounds come in as zeros,
-// which covers ragged Sq and Skv and head dims that are no multiple of
-// 64), each stage behind a "full" mbarrier per tensor and an "empty" one
-// the consumers release.  Each
-// consumer warpgroup computes S = Q K^T with wgmma (m64n128k16, bf16 in,
-// fp32 accumulate, both operands K-major in shared memory), runs the online
-// softmax on the accumulator fragment in registers (a row lies in the 4
-// threads of a quad: the row max takes 2 shuffles, the row sum is reduced
-// once at the end; the mask is applied only on tiles that hold a masked
-// key; exp2f with log2 e folded into the fp32 scale), rounds P to bf16 in
-// registers (the accumulator layout of the first product is the A-fragment
-// layout of the second) and adds P V with wgmma (A from registers, V in
-// shared memory in its MN-major form, in pieces of at most 64 columns, one
-// per swizzle atom).  P in bf16 is the model's own arithmetic: the JAX
-// attention casts its softmax weights to v's type before the product.
+// boxes of 64 columns; rows and columns out of bounds come in as zeros, which
+// covers ragged Sq and Skv and head dims that are no multiple of 64; at MLA's
+// (192, 128) a Q or K tile is three boxes and a V tile two, so Q, two K stages
+// and two V stages take 48 + 2 (48 + 32) = 208 KB of the 227 KB a block may
+// have), each stage behind a "full" mbarrier per tensor and an "empty" one the
+// consumers release.  Each consumer warpgroup computes S = Q K^T with wgmma
+// (m64n128k16 over hd / 16 k-steps, bf16 in, fp32 accumulate, both operands
+// K-major in shared memory), runs the online softmax on the accumulator
+// fragment in registers (a row lies in the 4 threads of a quad: the row max
+// takes 2 shuffles, the row sum is reduced once at the end; the mask is
+// applied only on tiles that hold a masked key; exp2f with log2 e folded into
+// the fp32 scale), rounds P to bf16 in registers (the accumulator layout of
+// the first product is the A-fragment layout of the second) and adds P V with
+// wgmma (A from registers, V in shared memory in its MN-major form, in pieces
+// of at most 64 columns, one per swizzle atom).  P in bf16 is the model's own
+// arithmetic: the JAX attention casts its softmax weights to v's type before
+// the product.
 //
-// flash_kernel<HD> (fp32: the card-against-CPU checks).  A simple
+// flash_kernel<HD, HDV> (fp32: the card-against-CPU checks).  A simple
 // CUDA-core kernel: one block of 128 threads per (q tile of 64 rows, head,
 // batch) stages the K/V tiles of 64 keys in shared memory as fp32, keeps
-// the 64 x hd accumulator in registers (4 rows x hd / 8 columns a thread;
-// a row is 8 neighbouring lanes, so the row max and sum take three
+// the 64 x hd_v accumulator in registers (4 rows x hd_v / 8 columns a
+// thread; a row is 8 neighbouring lanes, so the row max and sum take three
 // shuffles), and sends P through shared memory to the P.V product.  A
 // wgmma on fp32 data would be TF32, which misses the fp32 tolerance.
 //
@@ -64,9 +69,15 @@
 // waits (only the other warpgroup's products overlap it; FA3's ping-pong
 // and intra-warpgroup pipelining are later work), and the masked upper
 // halves of the diagonal tiles (6 % more products than the mask leaves at
-// S 2048).  The fp32 kernel multiplies on the CUDA cores, where the same
-// work in fp32 would take 2.6 ms at 67 TFLOP/s, and shared-memory loads
-// feed every two to three of its multiply-adds.
+// S 2048).  At DeepSeek-V2's MLA prefill, q and k (4, 128, 2048, 192) and v
+// (4, 128, 2048, 128), the 1.07e9 visible pairs take 640 operations each
+// (2 x 192 for S, 2 x 128 for P V): 6.9e11 operations, 0.695 ms at that
+// rate, against 1.34 GB moved, 0.40 ms at 3.35 TB/s, so operations bound it
+// there too; the (192, 128) pair is the hd-128 kernel with 12 k-steps for
+// S instead of 8 and the same 64 x 128 O accumulator a warpgroup.  The
+// fp32 kernel multiplies on the CUDA cores, where the same work in fp32
+// would take 2.6 ms at 67 TFLOP/s, and shared-memory loads feed every two
+// to three of its multiply-adds.
 //
 // Built without --use_fast_math: exp of scores far below the running max
 // must give 0, and masked scores (-inf in the wgmma kernel, -1e30 in the
@@ -92,7 +103,7 @@ struct Strides {
 // bf16: wgmma, TMA and mbarriers (hopper.cuh)
 // ===========================================================================
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -100,12 +111,15 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                    int H, int B, int group, int Sq, int Skv, Strides os,
                    int causal, int window, float scale, float scale_log2) {
-  static_assert(HD % 16 == 0 && HD <= 2 * kChunk, "head dim");
-  constexpr int kChunks = (HD + kChunk - 1) / kChunk;  // boxes per row tile
-  constexpr int kTileBytes = kChunks * kBoxBytes;      // Q, K or V tile
+  static_assert(HD % 16 == 0 && HD <= 3 * kChunk, "q/k head dim");
+  static_assert(HDV % 16 == 0 && HDV <= 2 * kChunk, "v head dim");
+  constexpr int kChunks = (HD + kChunk - 1) / kChunk;  // boxes per Q/K tile
+  constexpr int kVChunks = (HDV + kChunk - 1) / kChunk;  // per V tile
+  constexpr int kTileBytes = kChunks * kBoxBytes;      // Q or K tile
+  constexpr int kVTileBytes = kVChunks * kBoxBytes;    // V tile
   constexpr int kSteps = HD / 16;         // k16 steps of Q K^T over hd
   constexpr int kPSteps = kWgKeys / 16;   // k16 steps of P V over the keys
-  constexpr int kOut = HD / 2;            // O floats a thread holds
+  constexpr int kOut = HDV / 2;           // O floats a thread holds
   constexpr int kS = kWgKeys / 2;         // S floats a thread holds
 
   extern __shared__ uint8_t smem_raw[];
@@ -115,7 +129,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sq = smem;                              // [kChunks][128][64]
   uint8_t* sk = sq + kTileBytes;                   // [kStages] tiles
-  uint8_t* sv = sk + kStages * kTileBytes;         // [kStages] tiles
+  uint8_t* sv = sk + kStages * kTileBytes;         // [kStages] V tiles
 
   // block -> (q tile, head, batch), the q tile fastest and reversed: a
   // head's tiles run together, so its K/V stays in L2 while they read it,
@@ -167,9 +181,9 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
         for (int c = 0; c < kChunks; ++c)
           tma_load_4d(sk + s * kTileBytes + c * kBoxBytes, &tm_k, &bar_k[s],
                       c * kChunk, k0, kv_head, batch);
-        mbar_expect_tx(&bar_v[s], kTileBytes);
-        for (int c = 0; c < kChunks; ++c)
-          tma_load_4d(sv + s * kTileBytes + c * kBoxBytes, &tm_v, &bar_v[s],
+        mbar_expect_tx(&bar_v[s], kVTileBytes);
+        for (int c = 0; c < kVChunks; ++c)
+          tma_load_4d(sv + s * kVTileBytes + c * kBoxBytes, &tm_v, &bar_v[s],
                       c * kChunk, k0, kv_head, batch);
       }
     }
@@ -273,7 +287,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       }
 
       // O += P V, one wgmma per swizzle atom of V's columns
-      const uint32_t v_addr = smem_u32(sv + s * kTileBytes);
+      const uint32_t v_addr = smem_u32(sv + s * kVTileBytes);
       mbar_wait(&bar_v[s], parity);
       fence_regs<kOut>(acc);
       fence_regs<kPSteps * 4>(&p[0][0]);
@@ -281,11 +295,11 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < kPSteps; ++kk) {
         const uint32_t off = kk * 2 * kAtomBytes;  // 16 key rows
-        wgmma_rs<(HD < kChunk ? HD : kChunk)>(acc, p[kk],
-                                              smem_desc(v_addr + off));
-        if constexpr (HD > kChunk)
-          wgmma_rs<HD - kChunk>(acc + kChunk / 2, p[kk],
-                                smem_desc(v_addr + kBoxBytes + off));
+        wgmma_rs<(HDV < kChunk ? HDV : kChunk)>(acc, p[kk],
+                                                smem_desc(v_addr + off));
+        if constexpr (HDV > kChunk)
+          wgmma_rs<HDV - kChunk>(acc + kChunk / 2, p[kk],
+                                 smem_desc(v_addr + kBoxBytes + off));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -322,7 +336,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 }
 
 
-template <int HD>
+template <int HD, int HDV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int H, int KVH, int Sq, int Skv,
                  const long long* st, int causal, int window,
@@ -334,19 +348,23 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   CUresult r = make_map(&tm_q, encode, q, HD, Sq, H, B, st);
   if (r == CUDA_SUCCESS) r = make_map(&tm_k, encode, k, HD, Skv, KVH, B,
                                       st + 3);
-  if (r == CUDA_SUCCESS) r = make_map(&tm_v, encode, v, HD, Skv, KVH, B,
+  if (r == CUDA_SUCCESS) r = make_map(&tm_v, encode, v, HDV, Skv, KVH, B,
                                       st + 6);
   if (r != CUDA_SUCCESS) return -(int)r;
   constexpr int kTile = (HD + kChunk - 1) / kChunk * kBoxBytes;
-  constexpr int bytes = (1 + 2 * kStages) * kTile + 1024;  // + alignment
+  constexpr int kVTile = (HDV + kChunk - 1) / kChunk * kBoxBytes;
+  // Q, the K stages, the V stages, + alignment
+  constexpr int bytes = (1 + kStages) * kTile + kStages * kVTile + 1024;
+  static_assert(bytes <= 232448, "shared memory a block may have");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_kernel_wgmma<HD, HDV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const long long blocks =
       (long long)((Sq + kWgRows - 1) / kWgRows) * H * B;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_kernel_wgmma<HD><<<(unsigned)blocks, kWgThreads, bytes, stream>>>(
+  flash_kernel_wgmma<HD, HDV>
+      <<<(unsigned)blocks, kWgThreads, bytes, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, H, B, H / KVH,
       Sq, Skv, Strides{st[9], st[10], st[11]}, causal, window,
       (float)(1.0 / sqrt((double)HD)),
@@ -382,27 +400,28 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr int smem_floats() {
   // Q^T [HD][kPad], K^T [max(HD, kBlockK)][kPad] (also P^T [kBlockK][kPad]),
-  // V [kBlockK][HD]
-  return HD * kPad + (HD > kBlockK ? HD : kBlockK) * kPad + kBlockK * HD;
+  // V [kBlockK][HDV]
+  return HD * kPad + (HD > kBlockK ? HD : kBlockK) * kPad + kBlockK * HDV;
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
              float* __restrict__ lse, int group, int Sq, int Skv, Strides qs,
              Strides ks, Strides vs, Strides os, int causal, int window,
              float sm_scale) {
-  static_assert(HD % kLanesPerRow == 0, "head dim must be a multiple of 8");
-  constexpr int kOut = HD / kLanesPerRow;  // output columns per thread
+  static_assert(HD % kLanesPerRow == 0 && HDV % kLanesPerRow == 0,
+                "head dims must be multiples of 8");
+  constexpr int kOut = HDV / kLanesPerRow;  // output columns per thread
   extern __shared__ float smem[];
   float* q_t = smem;                        // [HD][kPad]
   float* k_t = q_t + HD * kPad;             // [HD][kPad]
   float* p_t = k_t;                         // [kBlockK][kPad], after S
-  float* v_s = k_t + (HD > kBlockK ? HD : kBlockK) * kPad;  // [kBlockK][HD]
+  float* v_s = k_t + (HD > kBlockK ? HD : kBlockK) * kPad;  // [kBlockK][HDV]
 
   const int q0 = blockIdx.x * kBlockQ;
   const int head = blockIdx.y, batch = blockIdx.z;
@@ -442,9 +461,11 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the last tile's P and V are no longer read
     for (int i = tid; i < kBlockK * HD; i += kThreads) {
       const int r = i / HD, d = i % HD;
-      const bool in = k0 + r < Skv;
-      k_t[d * kPad + r] = in ? kb[(k0 + r) * ks.s + d] : 0.f;
-      v_s[r * HD + d] = in ? vb[(k0 + r) * vs.s + d] : 0.f;
+      k_t[d * kPad + r] = k0 + r < Skv ? kb[(k0 + r) * ks.s + d] : 0.f;
+    }
+    for (int i = tid; i < kBlockK * HDV; i += kThreads) {
+      const int r = i / HDV, d = i % HDV;
+      v_s[r * HDV + d] = k0 + r < Skv ? vb[(k0 + r) * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -510,7 +531,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < kRows; ++i) pv[i] = p_t[j * kPad + row0 + i];
 #pragma unroll
       for (int c = 0; c < kOut; ++c)
-        vv[c] = v_s[j * HD + col + c * kLanesPerRow];
+        vv[c] = v_s[j * HDV + col + c * kLanesPerRow];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -534,17 +555,19 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-template <int HD>
+template <int HD, int HDV>
 int launch_fp32(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int H, int KVH, int Sq, int Skv,
                 const long long* st, int causal, int window,
                 cudaStream_t stream) {
-  constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
+  constexpr int bytes = smem_floats<HD, HDV>() * (int)sizeof(float);
+  static_assert(bytes <= 232448, "shared memory a block may have");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+  flash_kernel<HD, HDV><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H / KVH, Sq,
       Skv,
@@ -558,15 +581,16 @@ using Launch = int (*)(const void*, const void*, const void*, void*, float*,
                        int, int, int, int, int, const long long*, int, int,
                        cudaStream_t);
 
-template <int HD>
+template <int HD, int HDV = HD>
 Launch pick(bool bf16) {
-  if (bf16) return launch_wgmma<HD>;
-  return launch_fp32<HD>;
+  if (bf16) return launch_wgmma<HD, HDV>;
+  return launch_fp32<HD, HDV>;
 }
 
 }  // namespace
 
-// q, o: (B, H, Sq, hd); k, v: (B, KVH, Skv, hd), each addressed through
+// q: (B, H, Sq, hd); k: (B, KVH, Skv, hd); v: (B, KVH, Skv, hd_v); o: (B,
+// H, Sq, hd_v), hd_v == hd or (hd, hd_v) = (192, 128); each addressed through
 // strides[3 * t .. 3 * t + 2] = its (batch, head, sequence) strides in
 // elements, t = q, k, v, o.  dtype: 0 = float32 (flash_kernel), 1 =
 // bfloat16 (flash_kernel_wgmma, which also needs q, k and v 16-byte aligned
@@ -575,14 +599,18 @@ Launch pick(bool bf16) {
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int dtype, int B, int H, int KVH, int Sq,
-                                   int Skv, int hd, const long long* strides,
-                                   int causal, int window, void* stream) {
+                                   int Skv, int hd, int hd_v,
+                                   const long long* strides, int causal,
+                                   int window, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || KVH < 1 || H % KVH ||
       Sq < 1 || Skv < 1 || window < 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   const bool bf16 = dtype == 1;
   Launch fn = nullptr;
-  switch (hd) {
+  if (hd_v != hd) {
+    if (hd != 192 || hd_v != 128) return (int)cudaErrorInvalidValue;
+    fn = pick<192, 128>(bf16);
+  } else switch (hd) {
     case 32: fn = pick<32>(bf16); break;
     case 64: fn = pick<64>(bf16); break;
     case 80: fn = pick<80>(bf16); break;

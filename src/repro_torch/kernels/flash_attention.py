@@ -4,21 +4,26 @@ include ``csrc/hopper.cuh`` (mbarriers, TMA, wgmma).
 
 Counterpart of the JAX package's ``kernels/flash_attention.py``
 (``flash_attention``): q (B, H, Sq, hd), k and v (B, KVH, Skv, hd), causal
-or not, an optional sliding window, fp32 or bf16.  The dtype picks the
+or not, an optional sliding window, fp32 or bf16.  v may also have a head
+dim of its own where the .cu instantiates the pair (``HEAD_DIM_PAIRS``:
+MLA's (192, 128), the DeepSeek-V2 prefill's q and k of 128 nope + 64 rope
+columns over v of 128); the output then has v's head dim.  The dtype picks the
 kernel: bf16 goes to ``flash_kernel_wgmma`` (both products on the tensor
 cores, K/V staged by TMA), fp32 to the CUDA-core ``flash_kernel`` (a wgmma
 on fp32 data would be TF32).  Neither stands in for the other: a bf16
 tensor the wgmma kernel cannot read raises.  Both read every tensor
 through its strides, so a (B, H, S, hd) view of a (B, S, H, hd) tensor
-goes in as it is; the output is allocated with q's strides, so such a
-caller gets it back in its own layout.  Any Sq and Skv: the ragged edges
-are masked in the kernel.  One launch per call.
+goes in as it is; the output is allocated in q's layout
+(:func:`output_like`), so such a caller gets it back in its own layout.
+Any Sq and Skv: the ragged edges are masked in the kernel.  One launch
+per call.
 
 The forward can also write each row's log-sum-exp (fp32, (B, H, Sq)).
 :class:`FlashAttention` saves it with q, k, v and the output, and its
 backward launches D = rowsum(dO o), then dK and dV (one block per key tile
 and KV head, the GQA group summed in the block, no atomics), then dQ, by
-dtype again: bf16 to ``flash_attention_bwd_wgmma`` (wgmma on the tensor
+dtype again (equal head dims only: MLA's backward is not ported and
+raises): bf16 to ``flash_attention_bwd_wgmma`` (wgmma on the tensor
 cores, Q/dO or K/V streamed by TMA, P and dS as 3 bf16 terms for dK and
 dV, dS as 2 for dQ;
 the same layout rule as the forward, a ``do`` that breaks it copied
@@ -42,6 +47,11 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0}
 
 HEAD_DIMS = (32, 64, 80, 96, 112, 128)
+# (q/k head dim, v head dim) pairs with unequal dims that the forward .cu
+# instantiates (its switch; a CPU test holds the two to each other)
+HEAD_DIM_PAIRS = ((192, 128),)
+# every head dim a TMA map of the bf16 kernels reads
+_TMA_DIMS = tuple(sorted(set(HEAD_DIMS).union(*HEAD_DIM_PAIRS)))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _AXES = ("batch", "head", "sequence")
 
@@ -66,7 +76,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _I, _I, _I, _P, _I, _I, _P]
+                                        _I, _I, _I, _I, _P, _I, _I, _P]
     lib.flash_attention_fwd.restype = _I
     return lib
 
@@ -95,9 +105,9 @@ def _tma_problem(name: str, t: torch.Tensor) -> Optional[str]:
     heads, S, hd), or None."""
     if t.dtype != torch.bfloat16:
         return f"{name} is {t.dtype}, not torch.bfloat16"
-    if t.dim() != 4 or t.shape[3] not in HEAD_DIMS:
+    if t.dim() != 4 or t.shape[3] not in _TMA_DIMS:
         return (f"{name}'s head dim of {tuple(t.shape)} is not in "
-                f"{HEAD_DIMS}")
+                f"{_TMA_DIMS}")
     if t.stride(3) != 1:
         return f"{name}'s head dim is not contiguous"
     if t.data_ptr() % 16:
@@ -114,14 +124,39 @@ def _tma_problem(name: str, t: torch.Tensor) -> Optional[str]:
 def wgmma_layout_problem(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> Optional[str]:
     """Why the bf16 kernels' TMA tensor maps cannot read q, k or v, each
-    (B, heads, S, hd), or None: each must be bf16, its head dim one of
-    ``HEAD_DIMS`` and contiguous, its base 16-byte aligned, and every
-    stride of a dim longer than 1 a positive multiple of 16 bytes (the
-    backward reads its ``do`` by the same rule).  It reads shapes,
-    strides, addresses and dtypes only, so it runs on ``meta`` tensors
-    without a card."""
-    return next((p for p in (_tma_problem(n, t) for n, t in
-                             (("q", q), ("k", k), ("v", v))) if p), None)
+    (B, heads, S, hd), or None: each must be bf16, its head dim contiguous,
+    its base 16-byte aligned, and every stride of a dim longer than 1 a
+    positive multiple of 16 bytes (the backward reads its ``do`` by the
+    same rule); q's and v's head dims must be a pair the kernel is built
+    for (:func:`head_dims_problem`).  It reads shapes, strides, addresses
+    and dtypes only, so it runs on ``meta`` tensors without a card."""
+    problem = next((p for p in (_tma_problem(n, t) for n, t in
+                                (("q", q), ("k", k), ("v", v))) if p), None)
+    return problem or head_dims_problem(q.shape[-1], v.shape[-1])
+
+
+def head_dims_problem(hd: int, hd_v: int) -> Optional[str]:
+    """Why neither kernel is built for q and k of head dim ``hd`` over v of
+    ``hd_v``, or None: equal dims in ``HEAD_DIMS``, or a pair in
+    ``HEAD_DIM_PAIRS``."""
+    if hd == hd_v and hd in HEAD_DIMS:
+        return None
+    if (hd, hd_v) in HEAD_DIM_PAIRS:
+        return None
+    return (f"head dims (q/k {hd}, v {hd_v}) are neither equal and in "
+            f"{HEAD_DIMS} nor a pair in {HEAD_DIM_PAIRS}")
+
+
+def output_like(q: torch.Tensor, hd_v: int) -> torch.Tensor:
+    """An uninitialized (B, H, Sq, hd_v) output in q's layout: q's own
+    strides where hd_v is q's head dim (``empty_like``), else q's order of
+    the batch, head and sequence dims with the head dim contiguous."""
+    if hd_v == q.shape[-1]:
+        return torch.empty_like(q)
+    order = sorted(range(3), key=lambda i: -q.stride(i))
+    out = torch.empty([q.shape[i] for i in order] + [hd_v], dtype=q.dtype,
+                      device=q.device)
+    return out.permute(*(order.index(i) for i in range(3)), 3)
 
 
 def _on_card(named: dict) -> None:
@@ -135,7 +170,8 @@ def _on_card(named: dict) -> None:
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: int, **more: torch.Tensor) -> None:
     """Raise on what neither kernel takes; ``more`` names tensors shaped
-    like q (the output and its gradient, for the backward)."""
+    like q (the output and its gradient, for the backward, which takes
+    equal head dims only)."""
     _on_card({"q": q, "k": k, "v": v, **more})
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.dim() != 4 or t.dtype != q.dtype:
@@ -151,15 +187,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.shape != q.shape:
             raise ValueError(f"flash attention: {name} {tuple(t.shape)} is "
                              f"not shaped like q {tuple(q.shape)}")
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"flash attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
     if h % k.shape[1]:
         raise ValueError(f"flash attention: {h} query heads are not a "
                          f"multiple of {k.shape[1]} kv heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash attention: head dim {hd} not in "
-                         f"{HEAD_DIMS}")
+    problem = head_dims_problem(hd, v.shape[3])
+    if problem:
+        raise ValueError(f"flash attention: {problem}")
     if sq < 1 or k.shape[2] < 1 or window < 0:
         raise ValueError("flash attention needs Sq, Skv >= 1 and a "
                          "window >= 0")
@@ -173,14 +209,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          with_lse: bool = False):
-    """Launch the kernel of q's dtype: (B, H, Sq, hd) x (B, KVH, Skv, hd)
-    -> (B, H, Sq, hd) in q's dtype, as ``ref.flash_attention_ref``
-    computes it (the bf16 kernel rounds P to bf16 before P V, as the JAX
-    model does).  With ``with_lse``, returns (out, lse): lse (B, H, Sq)
-    fp32 is each row's log-sum-exp of its scaled scores (as
+    """Launch the kernel of q's dtype: (B, H, Sq, hd) x (B, KVH, Skv, hd) k and
+    (B, KVH, Skv, hd_v) v -> (B, H, Sq, hd_v) in q's dtype and layout, as
+    ``ref.flash_attention_ref`` computes it (the bf16 kernel rounds P to bf16
+    before P V, as the JAX model does).  With ``with_lse``, returns (out, lse):
+    lse (B, H, Sq) fp32 is each row's log-sum-exp of its scaled scores (as
     ``ref.flash_attention_lse_ref``), -inf for a row that sees no key."""
     _check(q, k, v, window)
-    out = torch.empty_like(q)          # q's strides, hence q's layout
+    out = output_like(q, v.shape[-1])
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -191,8 +227,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     status = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         0 if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h,
-        kvh, sq, skv, hd, ctypes.cast(strides, ctypes.c_void_p), int(causal),
-        int(window), stream)
+        kvh, sq, skv, hd, v.shape[-1], ctypes.cast(strides, ctypes.c_void_p),
+        int(causal), int(window), stream)
     if status < 0:
         raise RuntimeError(f"flash attention: cuTensorMapEncodeTiled "
                            f"refused a TMA tensor map (CUresult {-status})")
@@ -216,6 +252,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     a ``do`` without a contiguous head dim, or in bf16 one the rule
     refuses, is copied first); lse is (B, H, Sq) fp32.  bf16 launches the
     tensor-core kernels, fp32 the CUDA-core ones (``BWD_ENTRY``)."""
+    if v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            f"flash attention backward: q/k head dim {q.shape[-1]} over v "
+            f"head dim {v.shape[-1]} (MLA) has no backward kernel; MLA "
+            "training is not ported")
     if do.dim() == 4 and (do.stride(-1) != 1 or (
             do.dtype == q.dtype == torch.bfloat16
             and _tma_problem("do", do))):

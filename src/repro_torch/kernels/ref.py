@@ -29,11 +29,12 @@ QMAX = {"int8": 127.0, "fp8": 448.0}
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
-    """q: (B, H, Sq, hd); k, v: (B, KVH, Skv, hd) -> (B, H, Sq, hd) in q's
-    dtype.  GQA by head grouping (kv head = q head // (H / KVH)); fp32
-    scores and softmax; causal is ``kv_pos <= q_pos``, the window
-    ``kv_pos > q_pos - window``, both counted from 0 on each side.  A row
-    that sees no key gives 0."""
+    """q: (B, H, Sq, hd); k: (B, KVH, Skv, hd); v: (B, KVH, Skv, hd_v) ->
+    (B, H, Sq, hd_v) in q's dtype (hd_v may differ from hd, as MLA's
+    does; the scale is 1 / sqrt(hd)).  GQA by head grouping (kv head = q
+    head // (H / KVH)); fp32 scores and softmax; causal is ``kv_pos <=
+    q_pos``, the window ``kv_pos > q_pos - window``, both counted from 0 on
+    each side.  A row that sees no key gives 0."""
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     g = h // kvh
@@ -45,7 +46,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     w = torch.where(mask.any(-1)[:, None], w, 0.0)
     out = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
-    return out.reshape(b, h, sq, hd).to(q.dtype)
+    return out.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
 
 
 def _attn_mask(sq: int, skv: int, causal: bool, window: int,

@@ -1,11 +1,14 @@
 """Split-inference serving launcher for the PyTorch port: batched prefill
 then greedy decode through the bottom (client) / top (server) split of a
-decoder LM, dense (``qwen3-14b``), xLSTM (``xlstm-1.3b``) or the Mamba2
-hybrid (``zamba2-7b``) (the JAX package's ``launch/serve.py``), on the card
-unless ``device="cpu"`` is asked for:
+decoder LM, dense (``qwen3-14b``), MoE with MLA and a dense prefix layer
+(``deepseek-v2-236b``), MoE with a dense residual (``arctic-480b``), xLSTM
+(``xlstm-1.3b``) or the Mamba2 hybrid (``zamba2-7b``) (the JAX package's
+``launch/serve.py``), on the card unless ``device="cpu"`` is asked for:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
       --tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \

@@ -8,7 +8,7 @@ without mesh or sharding.
     the state's shapes (the train branch of ``input_specs``) and a seeded
     initial state; other models raise;
   * ``make_prefill_step`` / ``make_decode_step``: split-inference serving
-    of the dense, xLSTM and Zamba2 models.
+    of the dense, MoE/MLA (DeepSeek-V2, Arctic), xLSTM and Zamba2 models.
 
 Training.  The state is a dict ``{"client_bottoms", "teacher_bottoms",
 "top", "t_top", "proj", "t_proj", "queue"}`` where JAX stacks the N clients'
@@ -30,7 +30,8 @@ pass (``models/transformer.py``).
 
 Serving.  Each step runs the bottom (client) half, hands its features to
 the top (server) half, and returns the cache of both halves.  KV caches
-(the dense model's, Zamba2's shared block's) are written in place
+(the dense model's, Zamba2's shared block's) and MLA's latent caches are
+written in place
 (``models/attention.py``); the recurrent states of xLSTM and of Zamba2's
 Mamba2 layers are returned anew.  xLSTM takes no positions and ignores the
 decode step's."""
@@ -82,10 +83,11 @@ def make_plan(cfg: ArchConfig, shape: InputShape, *,
 
 def _train_model(plan: StepPlan) -> DecoderLM | HybridMamba | XLSTMModel:
     model = build_model(plan.cfg)
-    if not isinstance(model, (DecoderLM, HybridMamba, XLSTMModel)):
+    if not isinstance(model, (DecoderLM, HybridMamba, XLSTMModel)) \
+            or plan.cfg.moe is not None or plan.cfg.use_mla:
         raise NotImplementedError(
             f"{plan.cfg.name}: the port trains dense decoder LMs, the Zamba2 "
-            "hybrid and xLSTM only")
+            "hybrid and xLSTM only (MoE and MLA training is not ported)")
     return model
 
 

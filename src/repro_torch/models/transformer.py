@@ -1,6 +1,7 @@
 """The split decoder LMs (the JAX package's ``models/transformer.py``:
-``DecoderLM`` with dense MLP layers, ``HybridMamba`` and ``XLSTMModel``)
-and the port's model builder.
+``DecoderLM`` with dense or MoE layers, GQA attention or MLA, and
+DeepSeek-style unscanned prefix layers; ``HybridMamba`` and
+``XLSTMModel``) and the port's model builder.
 
 Parameters are ``{"bottom": ..., "top": ...}`` from construction:
 
@@ -8,10 +9,11 @@ Parameters are ``{"bottom": ..., "top": ...}`` from construction:
   top    = the remaining blocks + final norm + LM head          (server)
 
 Where JAX stacks a segment's layers on a leading axis and scans over them,
-the port keeps a list of per-layer parameter dicts (``"stack"``, or
-``"groups"`` for xLSTM) and loops in Python; ``convert.lm_params_from_numpy``
-unstacks the JAX tree.  MoE, MLA, the unscanned prefix layers, vision
-inputs and the long-context window override are not ported yet."""
+the port keeps a list of per-layer parameter dicts (``"stack"``, a
+DeepSeek bottom's ``"prefix"``, or ``"groups"`` for xLSTM) and loops in
+Python; ``convert.lm_params_from_numpy`` unstacks the JAX tree.  Vision
+inputs (M-RoPE, patch embeddings), the encoder-decoder model and the
+long-context window override are not ported yet."""
 from __future__ import annotations
 
 from typing import Optional
@@ -25,6 +27,8 @@ from repro_torch.models.attention import (KVCache, apply_attention,
                                           init_attention, init_kv_cache)
 from repro_torch.models.common import (apply_mlp, apply_norm, dense_init,
                                        embed_init, init_mlp, init_norm)
+from repro_torch.models.mla import apply_mla, init_mla, init_mla_cache
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.rope import default_positions
 from repro_torch.models.ssm import apply_ssm, init_ssm, init_ssm_cache
 
@@ -48,71 +52,95 @@ def _positions(batch_inputs: dict, b: int, s: int,
 
 
 def _no_aux(x: torch.Tensor) -> torch.Tensor:
-    """The auxiliary loss of layers that have none (MoE's load balancing
-    is not ported): a zero fp32 scalar on x's device."""
+    """The auxiliary loss of layers that have none: a zero fp32 scalar on
+    x's device."""
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ===========================================================================
-# Attention layer (dense MLP)
+# Attention-family layer (GQA attention or MLA; dense MLP or MoE)
 # ===========================================================================
 
-def _init_attn_layer(cfg: ArchConfig, generator: torch.Generator,
+def _init_attn_layer(cfg: ArchConfig, idx: int, generator: torch.Generator,
                      device: torch.device | str) -> dict:
+    """Layer ``idx``'s parameters: MLA where the config uses it, else
+    attention; an MoE where ``cfg.moe`` makes layer ``idx`` one, else the
+    dense MLP."""
     dt = _dtype(cfg)
-    return {
-        "attn_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
-        "attn": init_attention(cfg, generator, device, dt),
-        "mlp_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
-        "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_gated, generator,
-                        device, dt),
-    }
+    p = {"attn_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
+         "attn": (init_mla if cfg.use_mla else init_attention)(
+             cfg, generator, device, dt),
+         "mlp_norm": init_norm(cfg.d_model, cfg.norm, device, dt)}
+    if cfg.moe is not None and cfg.moe.is_moe_layer(idx):
+        p["moe"] = init_moe(cfg, generator, device, dt)
+    else:
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_gated, generator,
+                            device, dt)
+    return p
 
 
 def _apply_attn_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
-                      positions: torch.Tensor, mode: str,
-                      cache: Optional[KVCache]):
+                      positions: torch.Tensor, mode: str, cache):
+    """(x after the layer, its new cache, its aux loss: the MoE's
+    load-balance loss, or None for a dense MLP, which has none)."""
     h = apply_norm(p["attn_norm"], x, cfg.norm)
-    attn_out, new_cache = apply_attention(p["attn"], cfg, h,
-                                          positions=positions, mode=mode,
-                                          cache=cache)
+    attend = apply_mla if cfg.use_mla else apply_attention
+    attn_out, new_cache = attend(p["attn"], cfg, h, positions=positions,
+                                 mode=mode, cache=cache)
     x = x + attn_out
     h = apply_norm(p["mlp_norm"], x, cfg.norm)
-    return x + apply_mlp(p["mlp"], h, cfg.act, cfg.mlp_gated), new_cache
+    if "moe" in p:
+        out, aux = apply_moe(p["moe"], cfg, h)
+    else:
+        out, aux = apply_mlp(p["mlp"], h, cfg.act, cfg.mlp_gated), None
+    return x + out, new_cache, aux
 
 
 def _run_attn_stack(stack: list, cfg: ArchConfig, x: torch.Tensor, *,
                     positions: torch.Tensor, mode: str,
                     caches: Optional[list]):
-    """Run x through a segment's layers in order; returns the new caches
-    (None without caches).  A train-mode pass that records gradients keeps
-    only each layer's input and recomputes the layer in the backward pass,
-    as the JAX model's ``jax.checkpoint`` over its layer scan does: memory
-    changes, the numbers do not."""
+    """Run x through a segment's layers in order; returns x, the new caches
+    (None without caches) and the segment's aux loss, summed from a zero
+    fp32 scalar in layer order as JAX's scan carries it.  A train-mode pass
+    that records gradients keeps only each layer's input and recomputes
+    the layer in the backward pass, as the JAX model's ``jax.checkpoint``
+    over its layer scan does: memory changes, the numbers do not."""
     new_caches = [] if caches is not None else None
+    remat = mode == "train" and torch.is_grad_enabled()
+    aux = _no_aux(x)
     for i, p_i in enumerate(stack):
-        if mode == "train" and torch.is_grad_enabled():
-            x = checkpoint(_train_layer, p_i, cfg, x, positions,
-                           use_reentrant=False)
-            continue
-        x, c = _apply_attn_layer(p_i, cfg, x, positions=positions, mode=mode,
-                                 cache=None if caches is None else caches[i])
-        if new_caches is not None:
-            new_caches.append(c)
-    return x, new_caches
+        if remat:
+            x, aux_i = checkpoint(_train_layer, p_i, cfg, x, positions,
+                                  use_reentrant=False)
+        else:
+            x, c, aux_i = _apply_attn_layer(
+                p_i, cfg, x, positions=positions, mode=mode,
+                cache=None if caches is None else caches[i])
+            if new_caches is not None:
+                new_caches.append(c)
+        if aux_i is not None:
+            aux = aux + aux_i
+    return x, new_caches, aux
 
 
 def _train_layer(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    return _apply_attn_layer(p, cfg, x, positions=positions, mode="train",
-                             cache=None)[0]
+                 positions: torch.Tensor):
+    """A layer in train mode: (x, aux loss or None)."""
+    x, _, aux = _apply_attn_layer(p, cfg, x, positions=positions,
+                                  mode="train", cache=None)
+    return x, aux
 
 
 def _init_stacked_kv_cache(n: int, batch: int, max_len: int,
                            cfg: ArchConfig, device: torch.device | str
                            ) -> Optional[list]:
+    """n layers' caches: :class:`MLACache` where the config uses MLA, else
+    :class:`KVCache`; None for no layer."""
     if n == 0:
         return None
+    if cfg.use_mla:
+        return [init_mla_cache(batch, max_len, cfg, _dtype(cfg), device)
+                for _ in range(n)]
     return [init_kv_cache(batch, max_len, cfg.num_kv_heads,
                           cfg.resolved_head_dim, cfg.sliding_window or 0,
                           _dtype(cfg), device) for _ in range(n)]
@@ -123,31 +151,41 @@ def _init_stacked_kv_cache(n: int, batch: int, max_len: int,
 # ===========================================================================
 
 class DecoderLM:
-    """Decoder-only LM with dense layers, split at ``cfg.split_layer``."""
+    """Decoder-only LM with dense or MoE layers and GQA attention or MLA,
+    split at ``max(cfg.split_layer, prefix_n)``.  A DeepSeek-style model
+    (``cfg.moe.first_moe_layer`` > 0) keeps its first layers, with the
+    dense MLP, as a bottom ``"prefix"`` segment apart from the ``"stack"``
+    (JAX's unscanned prefix layers); a segment's layers are all built as
+    its first layer's index says, as JAX's stacked segments are."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.arch_type != "dense" or cfg.is_encoder_decoder \
+        if cfg.arch_type not in ("dense", "moe") or cfg.is_encoder_decoder \
                 or cfg.modality != "text":
             raise NotImplementedError(
-                f"{cfg.name}: the port's DecoderLM takes dense text decoders "
-                "only")
+                f"{cfg.name}: the port's DecoderLM takes dense and MoE text "
+                "decoders only (no vision or encoder-decoder model)")
         self.cfg = cfg
-        self.split = cfg.split_layer
+        self.prefix_n = (cfg.moe.first_moe_layer
+                         if cfg.moe is not None else 0)
+        self.split = max(cfg.split_layer, self.prefix_n)
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: torch.Generator,
              device: torch.device | str) -> dict:
         """Parameters drawn from ``generator`` (in fp32 on its device), in
-        ``cfg.dtype`` on ``device``."""
+        ``cfg.dtype`` on ``device`` but for the fp32 MoE routers."""
         cfg = self.cfg
         dt = _dtype(cfg)
-        n_b, n_t = self.split, cfg.num_layers - self.split
+        n_b = self.split - self.prefix_n
+        n_t = cfg.num_layers - self.split
+        layers = lambda n, idx: [_init_attn_layer(cfg, idx, generator, device)
+                                 for _ in range(n)]
         bottom = {"embed": embed_init(cfg.vocab_size, cfg.d_model, generator,
-                                      device, dt),
-                  "stack": [_init_attn_layer(cfg, generator, device)
-                            for _ in range(n_b)]}
-        top = {"stack": [_init_attn_layer(cfg, generator, device)
-                         for _ in range(n_t)],
+                                      device, dt)}
+        if self.prefix_n:
+            bottom["prefix"] = layers(self.prefix_n, 0)
+        bottom["stack"] = layers(n_b, self.prefix_n)
+        top = {"stack": layers(n_t, self.split),
                "final_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
                "lm_head": dense_init(cfg.d_model, cfg.vocab_size, generator,
                                      device, dt)}
@@ -156,45 +194,54 @@ class DecoderLM:
     # -- caches ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
                    device: torch.device | str) -> dict:
+        """Each segment's list of per-layer caches (None for an empty
+        segment); a prefix model's bottom also has its ``"prefix"``."""
         cfg = self.cfg
-        n_b, n_t = self.split, cfg.num_layers - self.split
-        return {
-            "bottom": {"stack": _init_stacked_kv_cache(n_b, batch, max_len,
-                                                       cfg, device)},
-            "top": {"stack": _init_stacked_kv_cache(n_t, batch, max_len, cfg,
-                                                    device)},
-        }
+        seg = lambda n: _init_stacked_kv_cache(n, batch, max_len, cfg,
+                                               device)
+        bottom = {"stack": seg(self.split - self.prefix_n)}
+        if self.prefix_n:
+            bottom["prefix"] = seg(self.prefix_n)
+        return {"bottom": bottom,
+                "top": {"stack": seg(cfg.num_layers - self.split)}}
 
     # -- apply -------------------------------------------------------------
     def bottom_apply(self, params: dict, batch_inputs: dict, *,
                      mode: str = "train", cache: Optional[dict] = None):
-        """Client side: embed the tokens and run the bottom layers.
-        Returns (features, new cache, extras for ``top_apply``)."""
+        """Client side: embed the tokens and run the prefix and bottom
+        layers.  Returns (features, new cache, extras for ``top_apply``:
+        the positions and the bottom's aux loss)."""
         tokens = batch_inputs["tokens"]
         b, s = tokens.shape
         x = params["embed"][tokens]
         positions = _positions(batch_inputs, b, s, tokens.device)
-        cache = cache or {"stack": None}
-        x, new_stack_cache = _run_attn_stack(
-            params["stack"], self.cfg, x, positions=positions, mode=mode,
-            caches=cache.get("stack"))
-        return x, {"stack": new_stack_cache}, {"positions": positions,
-                                               "aux_loss": _no_aux(x)}
+        cache = cache or {}
+        new_cache = {}
+        aux = None
+        for seg in ("prefix", "stack"):
+            if seg not in params:
+                continue
+            x, new_cache[seg], aux_s = _run_attn_stack(
+                params[seg], self.cfg, x, positions=positions, mode=mode,
+                caches=cache.get(seg))
+            aux = aux_s if aux is None else aux + aux_s
+        return x, new_cache, {"positions": positions, "aux_loss": aux}
 
     def top_apply(self, params: dict, features: torch.Tensor, *,
                   extras: dict, mode: str = "train",
                   cache: Optional[dict] = None):
         """Server side: the top layers, the final norm and the LM head.
-        ``aux_loss`` adds the bottom's (``extras``) to the top's; dense
-        layers have none, so it is a zero fp32 scalar, as in JAX."""
+        ``aux_loss`` is the top's plus the bottom's (``extras``), fp32: the
+        MoE layers' load-balance losses, zero for dense layers, as in
+        JAX."""
         cfg = self.cfg
         cache = cache or {"stack": None}
-        x, new_stack_cache = _run_attn_stack(
+        x, new_stack_cache, aux = _run_attn_stack(
             params["stack"], cfg, features, positions=extras["positions"],
             mode=mode, caches=cache.get("stack"))
         x = apply_norm(params["final_norm"], x, cfg.norm)
         out = {"logits": _lm_logits(params, x),
-               "aux_loss": _no_aux(x) + extras.get("aux_loss", 0.0)}
+               "aux_loss": aux + extras.get("aux_loss", 0.0)}
         return out, {"stack": new_stack_cache}
 
 
@@ -235,9 +282,9 @@ class HybridMamba(DecoderLM):
         bottom = {"embed": embed_init(cfg.vocab_size, cfg.d_model, generator,
                                       device, dt),
                   "stack": self._init_mamba_stack(n_b, generator, device),
-                  "shared_attn": _init_attn_layer(cfg, generator, device)}
+                  "shared_attn": _init_attn_layer(cfg, 0, generator, device)}
         top = {"stack": self._init_mamba_stack(n_t, generator, device),
-               "shared_attn": _init_attn_layer(cfg, generator, device),
+               "shared_attn": _init_attn_layer(cfg, 0, generator, device),
                "final_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
                "lm_head": dense_init(cfg.d_model, cfg.vocab_size, generator,
                                      device, dt)}
@@ -296,9 +343,9 @@ class HybridMamba(DecoderLM):
                 # attention layer with a dense MLP
                 if remat:
                     x = checkpoint(_train_layer, params["shared_attn"], cfg,
-                                   x, positions, use_reentrant=False)
+                                   x, positions, use_reentrant=False)[0]
                     continue
-                x, kv = _apply_attn_layer(
+                x, kv, _ = _apply_attn_layer(
                     params["shared_attn"], cfg, x, positions=positions,
                     mode=mode,
                     cache=None if shared_kv is None else shared_kv[app])
@@ -471,8 +518,9 @@ class XLSTMModel:
 
 
 def build_model(cfg: ArchConfig):
-    """The model class of ``cfg``: the paper's CNNs, the dense decoder LMs,
-    the Zamba2 hybrid and xLSTM are ported; the other families raise."""
+    """The model class of ``cfg``: the paper's CNNs, the dense and MoE
+    decoder LMs, the Zamba2 hybrid and xLSTM are ported; the other families
+    raise."""
     if cfg.arch_type == "cnn":
         from repro_torch.models.cnn import CNNModel
         return CNNModel(cfg)

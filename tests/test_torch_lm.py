@@ -24,7 +24,7 @@ their largest values (measured: 0.05), which 0.1 bounds.  Greedy argmax
 over logits that agree only to 0.1 may flip on a near tie, so in bf16 the
 decode steps are fed the JAX tokens and held to the cache, and the tokens
 are compared in fp32 only."""
-from dataclasses import fields, replace
+from dataclasses import fields, is_dataclass, replace
 import functools
 
 import jax
@@ -163,17 +163,31 @@ def test_serve_config_matches_the_jax_steps():
     np.testing.assert_array_equal(got.tokens, np.stack(want, 1))
 
 
-@pytest.mark.parametrize("which", ["full", "smoke"])
-def test_config_fields_match_jax(which):
-    """Every field the port's ArchConfig keeps has the JAX value, for the
-    full qwen3-14b config and its smoke variant."""
+@pytest.mark.parametrize("which,arch", [
+    pytest.param("full", "qwen3-14b", id="full"),
+    pytest.param("smoke", "qwen3-14b", id="smoke"),
+    pytest.param("full", "deepseek-v2-236b", id="deepseek-v2-236b-full"),
+    pytest.param("smoke", "deepseek-v2-236b", id="deepseek-v2-236b-smoke"),
+    pytest.param("full", "arctic-480b", id="arctic-480b-full"),
+    pytest.param("smoke", "arctic-480b", id="arctic-480b-smoke")])
+def test_config_fields_match_jax(which, arch):
+    """Every field the port's ArchConfig keeps has the JAX value (a
+    sub-config's, such as ``moe``, field by field), for the full qwen3-14b,
+    deepseek-v2-236b and arctic-480b configs and their smoke variants."""
     if which == "full":
-        jcfg, tcfg = jax_get_config("qwen3-14b"), get_config("qwen3-14b")
+        jcfg, tcfg = jax_get_config(arch), get_config(arch)
     else:
-        jcfg, tcfg = jax_smoke_config("qwen3-14b"), smoke_config("qwen3-14b")
+        jcfg, tcfg = jax_smoke_config(arch), smoke_config(arch)
     for f in fields(tcfg):
-        if f.name != "semisfl":
-            assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+        if f.name == "semisfl":
+            continue
+        got, want = getattr(tcfg, f.name), getattr(jcfg, f.name)
+        if is_dataclass(got):
+            for g in fields(got):
+                assert getattr(got, g.name) == getattr(want, g.name), \
+                    (f.name, g.name)
+        else:
+            assert got == want, f.name
     assert tcfg.split_layer == jcfg.split_layer
     assert tcfg.resolved_head_dim == jcfg.resolved_head_dim
 
@@ -196,5 +210,9 @@ def test_init_tree_matches_the_converted_jax_tree(dtype):
 
 
 def test_decoder_refuses_families_not_ported():
-    with pytest.raises(NotImplementedError, match="dense text decoders"):
-        DecoderLM(replace(smoke_config("qwen3-14b"), arch_type="moe"))
+    """Vision and encoder-decoder models are not ported (MoE is)."""
+    for kw in (dict(arch_type="vlm", modality="vision"),
+               dict(is_encoder_decoder=True)):
+        with pytest.raises(NotImplementedError, match="no vision or "
+                           "encoder-decoder"):
+            DecoderLM(replace(smoke_config("qwen3-14b"), **kw))
