@@ -73,15 +73,18 @@ Phases, in order; any failure exits nonzero:
      read from HBM, as its bound assumes, the fused kernel also warm in L2;
      the two-pass kernels at the round's and both VGG cuts);
   4. the first path: ``repro_torch.launch.train.run_training("paper-cnn",
-     smoke=False, device="cuda")`` at the full config, 150 rounds with the
-     ``int8+topk0.05`` wire, long enough for the teacher to become
-     confident on part of the batch, and 1 with ``fp32``, with every
-     kernel's launch count read just after (the quantizer's fused kernel
-     only); then 3 ``int8`` rounds of the full paper-vgg13, whose cut takes
-     the quantizer's two-pass route, with the counts read again;
+     smoke=False, device="cuda")`` at the full config, through the default
+     (scanned) executor, each phase one CUDA graph of its step replayed K
+     times (``core/scan.py``), 150 rounds with the ``int8+topk0.05`` wire,
+     long enough for the teacher to become confident on part of the
+     batch, and 1 with ``fp32``, with every kernel's launch count read
+     just after (the quantizer's fused kernel only); then 3 ``int8``
+     rounds of the full paper-vgg13, whose cut takes the quantizer's
+     two-pass route, with the counts read again;
   5. one cross-entity step on the card against the same step through the
      port on the CPU, from the same state and draws;
-  6. where a warm round's time goes, going on from the trained state:
+  6. where a warm round's time goes (through the graphs), going on from
+     the trained state:
      host wall clock, device busy share and kernel time by name
      (``torch.profiler``), each of the four clustering kernels and the
      fused quantize kernel seen, the quantizer's device time a round;
@@ -104,12 +107,23 @@ Phases, in order; any failure exits nonzero:
  6c. 3 ``int8`` SemiSFL rounds of the full paper-alexnet (the quantizer's
      fused route) and of the full paper-vgg16 (144 x 144 images, the
      two-pass route), each with its launch counts, peak device memory and
-     one profiled round on cuDNN's default algorithms; then the 3 rounds
-     again on its deterministic ones, and from that state a card-against-CPU
+     one profiled round on cuDNN's default algorithms, and its peak
+     through the eager executor beside it; then the 3 rounds again
+     through the eager executor on its deterministic ones, and from that
+     state a card-against-CPU
      semi step at full widths with 2 clients of 8 samples;
  6d. each of the six methods once through the launcher's CLI (``--baseline
      B --full-config --rounds 2 --ckpt``), its checkpoint restored into a
      fresh system bit for bit, with the same test accuracy;
+ 6e. the round executors, from phase 4's trained state with the same data
+     and draws, on cuDNN's deterministic algorithms, at the main path's K_s
+     5 / K_u 4 and the published 100 / 10: the graph executor, the eager
+     one (``scan_rounds=False``) and the graph one fed by the prefetch
+     worker, 1 + 3 + 1 rounds each ("[executors]" lines: the 3 warm
+     rounds' walls, the profiled round's device busy time, idle share and
+     device ops, launches a round, peak memory, the warm-up and capture's
+     host seconds); the graph executors' states and metrics must equal
+     the eager one's bit for bit, and their launches a round;
   7. the second path: split-inference serving of the full Qwen3-14B
      (``repro_torch.launch.serve.serve_config``: 40 layers, width 5120,
      bf16, weights drawn on the card from seed 0), batch 4, a 2048-token
@@ -192,6 +206,7 @@ Needs one CUDA card, ``nvcc`` and this checkout's ``src/``; imports nothing
 of JAX."""
 from __future__ import annotations
 
+import gc
 import importlib
 import itertools
 import json
@@ -464,6 +479,22 @@ def _device_ops(prof) -> list:
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA
             and not e.is_user_annotation()]
+
+
+def _busy_s(ops) -> float:
+    """Seconds in which the device ran at least one op: the union of the
+    ops' intervals.  A replayed CUDA graph may run independent nodes at
+    once, so a sum of durations can pass the wall."""
+    busy, end = 0, None
+    for _, start, dur in sorted(ops, key=lambda op: op[1]):
+        stop = start + dur
+        if end is None or start >= end:
+            busy += dur
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e9
 
 
 def _by_name(ops) -> list:
@@ -2189,7 +2220,7 @@ def phase_profile(card: str, trained) -> None:
     device = [op for op in _device_ops(prof)
               if not op[0].startswith("semisfl.")]
     kernels = _by_name(device)
-    busy = sum(t for _, t, _ in kernels)
+    busy = _busy_s(device)
     ours = _ours(kernels, OUR_KERNELS)
     print(f"[profile] round wall (no profiler) "
           f"{', '.join(f'{w:.6f}' for w in walls)} s; under the profiler "
@@ -2509,10 +2540,12 @@ def _check_route(arch: str, route: str, counts: dict) -> None:
 
 
 def _profile_round(card: str, arch: str, wire: str, lr: float,
-                   trained) -> None:
-    """One more round going on from ``trained`` under ``torch.profiler``:
-    wall, device busy time and idle share, the ported kernels' device time
-    a launch, and the top kernels."""
+                   trained, system) -> None:
+    """One more round of the run's ``system`` going on from its
+    ``trained`` state under ``torch.profiler`` (a warm round: the system's
+    graphs are captured), on fresh loaders: wall, device busy time and
+    idle share, the ported kernels' device time a launch, and the top
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2522,14 +2555,14 @@ def _profile_round(card: str, arch: str, wire: str, lr: float,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, m = run.system.run_round(trained, run.labeled, run.clients,
-                                    run.controller, rng_np=run.select_rng)
+        _, m = system.run_round(trained, run.labeled, run.clients,
+                                run.controller, rng_np=run.select_rng)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device = [op for op in _device_ops(prof)
               if not op[0].startswith("semisfl.")]
     kernels = _by_name(device)
-    busy = sum(t for _, t, _ in kernels)
+    busy = _busy_s(device)
     ours = ", ".join(f"{k} {t * 1e3:.4f} ms x{n}" for k, (t, n)
                      in _ours(kernels, OUR_KERNELS).items())
     if not np.isfinite([m.f_s, m.f_u]).all():
@@ -2547,7 +2580,9 @@ def phase_models(card: str) -> dict:
     """The paper-alexnet and paper-vgg16 rounds on cuDNN's default
     algorithms, as the trainer runs them, each with its launch counts set
     to 0 just before and read just after, its route checked, its peak
-    device memory and one profiled round.  Then the same rounds again on
+    device memory and one profiled round, then its peak device memory
+    through the eager executor (``scan_rounds=False``).  Then the same
+    rounds again through the eager executor on
     cuDNN's deterministic algorithms, and from that state a card-against-CPU
     semi step at full widths and image size with 2 clients of 8 samples,
     the CPU's own spread under 1 ulp of the state beside it (read, not
@@ -2574,15 +2609,26 @@ def phase_models(card: str) -> dict:
               f"{peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated) "
               f"on {card}")
         _check_route(arch, route, counts)
-        _profile_round(card, arch, wire, lr, state)
+        _profile_round(card, arch, wire, lr, state, system)
         out[arch] = counts
+        del state, system
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, system, _ = _train(card, arch, wire, rounds,
+                                  note="the eager executor", lr=lr,
+                                  scan_rounds=False)
+        print(f"[main] {arch} peak device memory through the eager "
+              f"executor {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
+              f" GiB, {peak / 2 ** 30:.3f} GiB through the graphs, on "
+              f"{card}")
         del state, system
         torch.cuda.empty_cache()
         with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                         deterministic=True, allow_tf32=False):
             state, system, _ = _train(
                 card, arch, wire, rounds, note="cuDNN's deterministic "
-                "algorithms, the cross-check's state", lr=lr)
+                "algorithms, the eager executor, the cross-check's state",
+                lr=lr, scan_rounds=False)
             small = SemiSFLSystem(system.cfg, n_clients_per_round=2,
                                   wire_format=wire, device=system.device)
             phase_cross_check(state, small, batch=8,
@@ -2637,6 +2683,156 @@ def phase_checkpoints(card: str) -> None:
         if not (same and before == after and meta["baseline"] == method
                 and len(meta["history"]) == len(history) == 2):
             fail(f"{method}: the checkpoint does not round-trip")
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: the scanned executor (CUDA graphs) against the eager one
+# ---------------------------------------------------------------------------
+
+# (K_s, K_u): the main path's, and the published configuration's
+# (src/repro/configs/base.py:87-88)
+EXEC_KS = ((MAIN_PATH["k_s"], MAIN_PATH["k_u"]), (100, 10))
+EXEC_WARM = 3                     # timed warm rounds of each executor
+# name: (scan_rounds, prefetch); the eager one is what the others are held
+# to
+EXECUTORS = {"graph": (True, False), "eager": (False, False),
+             "graph+prefetch": (True, True)}
+
+
+def _exec_rounds(trained, k_s: int, k_u: int, scan_rounds: bool,
+                 prefetch: bool) -> dict:
+    """1 + EXEC_WARM + 1 int8+topk0.05 rounds of the main path going on
+    from ``trained`` through one executor: the first (for the graph
+    executor, its warm-up and capture), EXEC_WARM timed on the host clock
+    with the launch counts set to 0 just before and read just after, and
+    one under ``torch.profiler``; the peak device memory over all of
+    them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import build_run
+    kw = {k: v for k, v in MAIN_PATH.items()
+          if k not in ("eval_every", "k_s", "k_u")}
+    run = build_run("paper-cnn", wire_format="int8+topk0.05", k_s=k_s,
+                    k_u=k_u, scan_rounds=scan_rounds, prefetch=prefetch,
+                    **kw)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+
+    def one(state):
+        t0 = time.perf_counter()
+        state, m = run.system.run_round(state, run.labeled, run.clients,
+                                        run.controller,
+                                        rng_np=run.select_rng)
+        torch.cuda.synchronize()
+        metrics.append((m.f_s, m.f_u, m.mask_rate, m.k_s))
+        return state, time.perf_counter() - t0
+
+    state, first = one(trained)
+    reset_launch_counts()
+    walls = []
+    for _ in range(EXEC_WARM):
+        state, wall = one(state)
+        walls.append(wall)
+    counts = {k: v / EXEC_WARM for k, v in launch_counts().items() if v}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, wall_prof = one(state)
+    peak = torch.cuda.max_memory_allocated()
+    device = [op for op in _device_ops(prof)
+              if not op[0].startswith("semisfl.")]
+    kernels = _by_name(device)
+    graphs = [g for phase in (run.system.supervised_phase,
+                              run.system.semi_phase)
+              for g in phase.graphs.values()]
+    stats = run.system.prefetch_stats()
+    run.system.close()
+    return dict(state=state, metrics=metrics, first=first, walls=walls,
+                prefetch=stats,
+                counts=counts, wall_prof=wall_prof,
+                busy=_busy_s(device), n_ops=len(device),
+                ours=_ours(kernels, ROUND_KERNELS), peak=peak,
+                capture_s=sum(g.capture_s for g in graphs),
+                n_graphs=len(graphs))
+
+
+def _state_diff(a, b) -> float:
+    """The largest |a - b| over every leaf of two states (a host leaf
+    counts 1 where it differs)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return float("inf")
+    return max(float((x.double() - y.double()).abs().max())
+               if isinstance(x, torch.Tensor) else float(x != y)
+               for x, y in zip(la, lb))
+
+
+def phase_executors(card: str, trained) -> None:
+    """The main path's rounds through both executors, from phase 4's
+    ``trained`` state with the same data and draws, on cuDNN's
+    deterministic algorithms with no TF32, at each (K_s, K_u) of EXEC_KS:
+    the graph executor's states (parameters, teacher, momentum, queue,
+    step) and metrics must equal the eager one's bit for bit after every
+    round run, and each ported kernel's launches a warm round must be the
+    same.  Prints each executor's warm round walls, its profiled round's
+    device busy time, idle share and device op count, its launches a
+    round, its peak device memory and the graph executor's one-off
+    warm-up and capture.  The graph executor fed by the prefetch worker
+    (its stacks copied on a side stream) is held to the eager one too."""
+    import torch
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        for k_s, k_u in EXEC_KS:
+            res = {name: _exec_rounds(trained, k_s, k_u, *opts)
+                   for name, opts in EXECUTORS.items()}
+            for name, r in res.items():
+                walls = r["walls"]
+                print(f"[executors] K_s {k_s} K_u {k_u} {name}: warm round "
+                      f"wall {', '.join(f'{w:.6f}' for w in walls)} s "
+                      f"(mean {np.mean(walls):.6f}), first round "
+                      f"{r['first']:.6f} s; profiled round {r['wall_prof']:.6f}"
+                      f" s, device busy {r['busy']:.6f} s (idle share "
+                      f"{1 - r['busy'] / r['wall_prof']:.4f}), {r['n_ops']} "
+                      f"device ops; peak device memory "
+                      f"{r['peak'] / 2 ** 30:.3f} GiB; warm-up and capture "
+                      f"{r['capture_s']:.4f} s of host time in "
+                      f"{r['n_graphs']} graphs; on {card}")
+                print(f"[executors] K_s {k_s} K_u {k_u} {name}: launches a "
+                      f"round {r['counts']}; the profiled round's ported "
+                      f"kernels "
+                      + ", ".join(f"{k} {t * 1e3:.4f} ms x{n}"
+                                  for k, (t, n) in r["ours"].items())
+                      + (f"; prefetch {r['prefetch']}" if r["prefetch"]
+                         else ""))
+            e = res["eager"]
+            for name in ("graph", "graph+prefetch"):
+                g = res[name]
+                diff = _state_diff(g["state"], e["state"])
+                print(f"[executors] K_s {k_s} K_u {k_u}: {name} against "
+                      f"eager after {1 + EXEC_WARM + 1} rounds, max |diff| "
+                      f"over the state {diff:.3g}, metrics equal "
+                      f"{g['metrics'] == e['metrics']}; the mean warm round "
+                      f"{np.mean(e['walls']) / np.mean(g['walls']):.2f}x "
+                      f"faster; on {card}")
+                if diff != 0.0 or g["metrics"] != e["metrics"]:
+                    fail(f"K_s {k_s} K_u {k_u}: the {name} executor's "
+                         f"rounds differ from the eager one's (max |diff| "
+                         f"{diff})")
+                if g["counts"] != e["counts"]:
+                    fail(f"K_s {k_s} K_u {k_u}: launches a round differ, "
+                         f"{name} {g['counts']}, eager {e['counts']}")
+                unseen = [k for k in ROUND_KERNELS if g["ours"][k][1] == 0]
+                if unseen:
+                    fail(f"the profiled {name} round shows no launch of "
+                         f"{unseen}")
+            del res, g, e
+            torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3388,7 +3584,7 @@ def phase_lm_train(card: str, arch: str) -> dict:
     # copies on the host, so that they do not count in the peak
     snap = lambda st: [[t.cpu() for t in tensors(tree)] for tree in (
         st["top"], st["client_bottoms"][0], st["teacher_bottoms"][0])] + [
-        st["queue"].ptr]
+        int(st["queue"].ptr)]
     before = snap(state)
     tokens = _lm_tokens(cfg, 5, LM_CLIENTS, LM_SEQ, seed=0)
     phase = make_train_phase(plan, lr=lr, wire="int8")
@@ -3624,8 +3820,19 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     t0 = time.perf_counter()
-    lap = lambda what: print(f"[clock] {what} done at "
-                             f"{time.perf_counter() - t0:.1f} s")
+    last = [t0]
+
+    def lap(what: str) -> None:
+        # the phase's seconds, and what it left on the card once its dead
+        # objects are gone
+        now = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[clock] {what} done at {now - t0:.1f} s ({now - last[0]:.1f}"
+              f" s); {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+              f"allocated, {torch.cuda.memory_reserved() / 2 ** 30:.3f} "
+              f"GiB reserved")
+        last[0] = time.perf_counter()
     card = phase_device()
     ptxas = phase_build()
     lap("build")
@@ -3672,7 +3879,6 @@ def main() -> int:
     del runs, system
     lap("training path")
     baseline_runs = phase_baselines(card, trained)
-    del trained
     phase_baseline_cross_check(baseline_runs)
     del baseline_runs
     lap("baselines")
@@ -3681,6 +3887,9 @@ def main() -> int:
     phase_checkpoints(card)
     torch.cuda.empty_cache()
     lap("checkpoints")
+    phase_executors(card, trained)
+    del trained
+    lap("round executors")
 
     # each serving path reads its own counts, set to 0 just before it; a
     # kernel that runs on two paths (flash attention: Qwen3-14B, Zamba2-7B)

@@ -68,7 +68,8 @@ def queue_from_numpy(z, label, conf, valid, ptr,
     return FeatureQueue(z=t(np.asarray(z, np.float32)),
                         label=t(np.asarray(label, np.int32)),
                         conf=t(np.asarray(conf, bool)),
-                        valid=t(np.asarray(valid, bool)), ptr=int(ptr))
+                        valid=t(np.asarray(valid, bool)),
+                        ptr=t(np.asarray(ptr, np.int32)))
 
 
 def queue_to_numpy(q: FeatureQueue) -> dict:
@@ -88,7 +89,8 @@ def state_from_numpy(params, teacher, momentum, queue: dict, round_: int,
         teacher=params_from_numpy(teacher, device),
         opt=params_from_numpy(momentum, device),
         queue=queue_from_numpy(device=device, **queue),
-        round=int(round_), step=int(step))
+        round=int(round_),
+        step=torch.tensor(int(step), dtype=torch.int32, device=device))
 
 
 def fl_state_from_numpy(params, teacher, momentum, round_: int,

@@ -71,3 +71,12 @@ class FreqController:
                 "period_fu": list(self._period_fu),
                 "fs_acc": list(self._fs_acc), "fu_acc": list(self._fu_acc)}
 
+    def load_state_dict(self, d: dict) -> None:
+        """The inverse of :meth:`state_dict`: the controller goes on with
+        the Eq. (9)/(10) trajectory where the saved one stopped."""
+        self.k_s = int(d["k_s"])
+        self._indicators = list(d["indicators"])
+        self._period_fs = list(d["period_fs"])
+        self._period_fu = list(d["period_fu"])
+        self._fs_acc = list(d.get("fs_acc", []))
+        self._fu_acc = list(d.get("fu_acc", []))

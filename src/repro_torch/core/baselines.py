@@ -16,8 +16,8 @@ package's ``core/baselines.py``.
 The full-model baselines keep the clients on a stacked leading axis of
 every leaf, as the JAX package's vmapped steps do.  Their loss averages
 over all N x B samples, so each client's gradient is scaled by N (the JAX
-steps' ``grads * n``); the port loops over clients in the forward, and
-each client's slice of the stack gets its own gradient.
+steps' ``grads * n``); the clients' forward is ``torch.func.vmap``ped over
+the stack, and each client's slice of it gets its own gradient.
 
 Random draws (augmentation, dropout masks, SemiFL's Mixup weight and
 permutation) come from an :class:`FLDrawSampler`; the steps also take them
@@ -32,13 +32,13 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.core import losses
 from repro_torch.core.ema import ema_update
-from repro_torch.core.engine import (SemiSFLSystem, client_slice, grads_of,
-                                     requires_grad, selection_rng, to_device)
+from repro_torch.core.engine import (SemiSFLSystem, grads_of, requires_grad,
+                                     selection_rng)
 from repro_torch.data.augment import (StrongDraws, WeakDraws, sample_strong,
                                       sample_weak, strong_augment,
                                       weak_augment)
 from repro_torch.data.pipeline import Loader, stack_client_batches
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.models.cnn import CNNModel
 from repro_torch.optim.optimizers import apply_updates, sgd
 from repro_torch.tree import tree_leaves, tree_map
@@ -99,10 +99,6 @@ class FLDrawSampler:
         return LocalDraws(weak, strong, masks, g[0] / g.sum(), perm)
 
 
-def _rows(masks, i: int, b: int):
-    return None if masks is None else [m[i * b:(i + 1) * b] for m in masks]
-
-
 def _full_forward(model: CNNModel, params, x, masks=None):
     """Full-model logits; ``masks`` (train mode only) are the FC dropout
     keep masks, so AlexNet/VGG baselines train under the split system's
@@ -112,11 +108,16 @@ def _full_forward(model: CNNModel, params, x, masks=None):
 
 
 def _client_forward(model: CNNModel, stacked, xs, masks):
-    """Each client's model on its own batch: (N, B, ...) -> (N, B, M)."""
-    b = xs.shape[1]
-    return torch.stack([_full_forward(model, client_slice(stacked, i), xs[i],
-                                      _rows(masks, i, b))
-                        for i in range(xs.shape[0])])
+    """Each client's model on its own batch, vmapped over the client axis:
+    (N, B, ...) -> (N, B, M).  ``masks`` (N * B, width) client-major, or
+    None."""
+    n, b = xs.shape[:2]
+    if masks is None:
+        return torch.func.vmap(
+            lambda p, x: _full_forward(model, p, x))(stacked, xs)
+    rows = [m.reshape(n, b, -1) for m in masks]
+    return torch.func.vmap(
+        lambda p, x, ms: _full_forward(model, p, x, ms))(stacked, xs, rows)
 
 
 def _abs(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,5 @@
 """The SemiSFL training engine (Section III workflow + Alg. 1) in PyTorch:
-the JAX package's ``core/engine.py`` on its vmapped executor's semantics,
-run eagerly.
+the JAX package's ``core/engine.py`` with its vmapped executor.
 
 One aggregation round h:
 
@@ -18,17 +17,31 @@ One aggregation round h:
   (5) FedAvg of the bottoms and the teacher bottoms, optionally from top-k
       sparsified deltas.
 
-The client axis is a loop over clients in the bottom forward: each
-client's slice of the stacked bottom gets exactly its own gradient.  The
-split-link wire (``core/wire.py``) quantizes the stacked cut features with
-one scale per client, through the quantize kernels.
+The clients are a stacked leading axis on every bottom leaf, and the
+bottom forward is ``torch.func.vmap``ped over it, as JAX's ``jax.vmap``
+is: the batched-weight convolutions become grouped ones, and each client's
+slice of the stack gets exactly its own gradient.  The split-link wire
+(``core/wire.py``) quantizes the stacked cut features with one scale per
+client, through the quantize kernels.
+
+Two executors drive a round, as in JAX: the scanned one (the default,
+``scan_rounds=True``) runs each phase through ``core/scan.py``, one CUDA
+graph of the step replayed K_s or K_u times on the card, with the phase's
+inputs staged through pinned host memory in one copy and the losses read
+once a round; the eager one (``scan_rounds=False``) dispatches every step
+from Python.  Both run the same ``supervised_step`` and ``semi_step``.
+With ``prefetch=True`` a worker thread (``data/prefetch.py``) assembles
+the next round's stacks while this round runs.
 
 Random draws (augmentation and dropout masks) come from a
-:class:`DrawSampler` holding one ``torch.Generator`` on the device; the
-steps also take the draws as arguments, so a test can feed both this port
-and the JAX package the same ones."""
+:class:`DrawSampler` holding one ``torch.Generator`` on the device.  Both
+executors call it once a step in step order (the scanned one for the whole
+phase before it starts), so they draw the same streams; the steps take the
+draws as arguments, so a test can feed both this port and the JAX package
+the same ones."""
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
@@ -42,6 +55,7 @@ from repro_torch.core import losses
 from repro_torch.core.adaptation import FreqController
 from repro_torch.core.ema import ema_update
 from repro_torch.core.queue import FeatureQueue, enqueue, init_queue
+from repro_torch.core.scan import GraphPool, scan_phase
 from repro_torch.core.split import (apply_projection_head,
                                     init_projection_head, pool_features,
                                     proj_dim)
@@ -50,11 +64,13 @@ from repro_torch.core.wire import (WireFormatLike, fake_quantize,
                                    resolve_fmt, sparse_delta_mean)
 from repro_torch.data.augment import (sample_strong, sample_weak,
                                       strong_augment, weak_augment)
-from repro_torch.data.pipeline import Loader, stack_client_batches
-from repro_torch.device import resolve_device
+from repro_torch.data.pipeline import (Loader, stack_client_batches,
+                                       stack_client_batches_many)
+from repro_torch.data.prefetch import DevicePut, RoundPrefetcher, ready
+from repro_torch.device import resolve_device, to_device
 from repro_torch.models.cnn import CNNModel
 from repro_torch.optim.optimizers import apply_updates, sgd
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_stack, tree_unflatten
 
 
 class SemiSFLState(NamedTuple):
@@ -63,7 +79,7 @@ class SemiSFLState(NamedTuple):
     opt: Any           # momentum buffers of params (supervised phase)
     queue: FeatureQueue
     round: int
-    step: int          # cumulative count of supervised and semi steps
+    step: torch.Tensor  # () int32: supervised and semi steps taken
 
 
 class SemiCarry(NamedTuple):
@@ -74,7 +90,7 @@ class SemiCarry(NamedTuple):
     proj: Any
     teacher: Any           # frozen during the phase
     queue: FeatureQueue
-    step: int
+    step: torch.Tensor
 
 
 @dataclass
@@ -110,17 +126,8 @@ class DrawSampler:
                                               self.device))
 
 
-def client_slice(stacked, i: int):
-    """Client ``i``'s tree from a stacked (N, ...) tree."""
-    return tree_map(lambda t: t[i], stacked)
-
-
 def requires_grad(tree):
     return tree_map(lambda t: t.detach().requires_grad_(True), tree)
-
-
-def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def selection_rng(holder, rng_np: Optional[np.random.RandomState] = None
@@ -159,6 +166,7 @@ class SemiSFLSystem:
                  lr: float = 0.02, momentum: float = 0.9,
                  use_clustering: bool = True, use_supcon: bool = True,
                  wire_format: WireFormatLike = None,
+                 scan_rounds: bool = True, prefetch: bool = False,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -175,6 +183,21 @@ class SemiSFLSystem:
         # init_state reseeds both from its seed; a test may swap the sampler
         self.sampler = DrawSampler(self.model, 1, self.device)
         self._select_rng: Optional[np.random.RandomState] = None
+        # the scanned executor (the default) or the eager one; the phases
+        # run the same steps, given the draws of the whole phase, and
+        # share one graph memory pool.  They reach the system through a
+        # weak reference, so that its graphs and their memory go with it
+        self.scan_rounds = scan_rounds
+        me, pool = weakref.proxy(self), GraphPool()
+        self.supervised_phase = scan_phase(
+            lambda st, inp: me.supervised_step(st, *inp), pool)
+        self.semi_phase = scan_phase(
+            lambda carry, inp: me.semi_step(carry, *inp), pool)
+        # the round prefetcher (off by default, as in JAX): it owns the
+        # loaders it is bound to between rounds
+        self.prefetch = prefetch
+        self._prefetcher: Optional[RoundPrefetcher] = None
+        self._prefetch_key = None
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> SemiSFLState:
@@ -189,7 +212,8 @@ class SemiSFLSystem:
             opt=self.opt.init(params),
             queue=init_queue(self.s.queue_len, proj_dim(self.cfg),
                              self.device),
-            round=0, step=0)
+            round=0, step=torch.zeros((), dtype=torch.int32,
+                                      device=self.device))
 
     def _forward(self, params, x, dropout_masks=None):
         """Full forward: (logits, projected z, cut features)."""
@@ -231,11 +255,9 @@ class SemiSFLSystem:
 
     # --------------- cross-entity semi-supervised step ----------------
     def _bottoms_forward(self, bottoms, x):
-        """Each client's bottom on its own batch: (N, B, ...) -> stacked
-        (N, B, H', W', C) cut features."""
-        return torch.stack([self.model.bottom_apply(client_slice(bottoms, i),
-                                                    x[i])
-                            for i in range(x.shape[0])])
+        """Each client's bottom on its own batch, vmapped over the client
+        axis: (N, B, ...) -> stacked (N, B, H', W', C) cut features."""
+        return torch.func.vmap(self.model.bottom_apply)(bottoms, x)
 
     def _teacher_targets(self, teacher, teacher_bottoms, xw):
         """Teacher path (inference): client teacher bottoms + server
@@ -332,27 +354,98 @@ class SemiSFLSystem:
         """Step (5): FedAvg over the client axis."""
         return tree_map(lambda t: t.mean(dim=0), client_bottoms)
 
+    def _ensure_prefetcher(self, labeled: Loader,
+                           client_loaders_: list[Loader]) -> RoundPrefetcher:
+        """The prefetcher bound to these loader objects (it owns their
+        streams between rounds); other loaders close it and bind anew."""
+        key = (id(labeled), tuple(id(ld) for ld in client_loaders_))
+        if self._prefetcher is not None and key != self._prefetch_key:
+            self.close()
+        if self._prefetcher is None:
+            put = DevicePut(self.device)
+            self._prefetcher = RoundPrefetcher(
+                labeled, client_loaders_, k_u=self.s.k_u,
+                n_active=self.n_active, sup_put=put, cli_put=put)
+            self._prefetch_key = key
+        return self._prefetcher
+
+    def prefetch_stats(self) -> Optional[dict]:
+        """The prefetcher's counters (``RoundPrefetcher.stats``), or None
+        before the first prefetched round."""
+        return self._prefetcher.stats() if self._prefetcher else None
+
+    def close(self) -> None:
+        """Shut the prefetch worker down, its speculative draws rolled
+        back; idempotent, and the system stays usable."""
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
+            self._prefetch_key = None
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def _supervised_inputs(self, labeled: Loader, pf, k_s: int):
+        """The supervised phase's (K_s, B, ...) images and labels on the
+        device."""
+        if pf is not None:
+            return ready(pf.get_supervised(k_s))
+        xs, ys = labeled.next_many(k_s)
+        return to_device(xs, self.device), to_device(ys, self.device)
+
+    def _client_inputs(self, client_loaders_: list[Loader], pf,
+                       active: list[int], k_u: int) -> torch.Tensor:
+        """The cross-entity phase's (K_u, N, B, ...) images on the
+        device."""
+        if pf is not None:
+            return ready(pf.get_clients(active, k_u))[0]
+        xs, _ = stack_client_batches_many(client_loaders_, active, k_u)
+        return to_device(xs, self.device)
+
     def run_round(self, state: SemiSFLState, labeled: Loader,
                   client_loaders_: list[Loader], controller: FreqController,
                   active: Optional[list[int]] = None,
                   rng_np: Optional[np.random.RandomState] = None
                   ) -> tuple[SemiSFLState, RoundMetrics]:
-        """Drive one aggregation round; returns the new state and metrics.
-        The losses stay on the device until one read at the round's end.
-        The three phases are ``torch.profiler`` spans
-        (``semisfl.supervised_phase``, ``semisfl.cross_entity_phase``,
-        ``semisfl.aggregate``), which cost nothing with no profiler on."""
+        """Drive one aggregation round; returns the new state and metrics
+        (the incoming state is left as it was).  The losses stay on the
+        device until one read at the round's end.  The scanned executor
+        takes each phase's inputs and draws before the phase and runs it
+        as one program (``core/scan.py``); the eager one takes them step
+        by step.  With ``prefetch`` the stacks come from the prefetch
+        worker, which starts on the next round's once this round's phases
+        are dispatched.  Broadcast, selection, the aggregate and the
+        controller run once a round, outside the phases.  The three phases
+        are ``torch.profiler`` spans (``semisfl.supervised_phase``,
+        ``semisfl.cross_entity_phase``, ``semisfl.aggregate``), which cost
+        nothing with no profiler on."""
         k_s, k_u = controller.k_s, self.s.k_u
+        pf = (self._ensure_prefetcher(labeled, client_loaders_)
+              if self.prefetch else None)
 
         # (1) supervised phase
-        f_s = []
         with record_function("semisfl.supervised_phase"):
-            for _ in range(k_s):
-                x, y = labeled.next()
-                state, loss = self.supervised_step(
-                    state, (to_device(x, self.device),
-                            to_device(y, self.device)))
-                f_s.append(loss)
+            if self.scan_rounds or pf is not None:
+                xs, ys = self._supervised_inputs(labeled, pf, k_s)
+            if self.scan_rounds:
+                draws = tree_stack([self.sampler.supervised(xs.shape[1])
+                                    for _ in range(k_s)])
+                state, f_s = self.supervised_phase(state,
+                                                   ((xs, ys), draws))
+            else:
+                f_s = []
+                for i in range(k_s):
+                    if pf is None:
+                        x, y = (to_device(a, self.device)
+                                for a in labeled.next())
+                    else:
+                        x, y = xs[i], ys[i]
+                    state, loss = self.supervised_step(state, (x, y))
+                    f_s.append(loss)
+                f_s = torch.stack(f_s)
 
         # (2) broadcast
         if active is None:
@@ -367,14 +460,32 @@ class SemiSFLSystem:
                           top=state.params["top"],
                           proj=state.params["proj"], teacher=state.teacher,
                           queue=state.queue, step=state.step)
-        f_u, masks = [], []
+        f_u = masks = torch.zeros((0,), device=self.device)
         with record_function("semisfl.cross_entity_phase"):
-            for _ in range(k_u):
-                xu, _ = stack_client_batches(client_loaders_, active)
-                carry, (loss, _h, mask_rate) = self.semi_step(
-                    carry, to_device(xu, self.device))
-                f_u.append(loss)
-                masks.append(mask_rate)
+            if k_u and (self.scan_rounds or pf is not None):
+                xus = self._client_inputs(client_loaders_, pf, active, k_u)
+            if k_u and self.scan_rounds:
+                n, b = xus.shape[1], xus.shape[2]
+                draws = tree_stack([self.sampler.semi(n, b)
+                                    for _ in range(k_u)])
+                carry, (f_u, _h, masks) = self.semi_phase(carry,
+                                                          (xus, draws))
+            elif k_u:
+                f_u, masks = [], []
+                for i in range(k_u):
+                    if pf is None:
+                        xu = to_device(stack_client_batches(
+                            client_loaders_, active)[0], self.device)
+                    else:
+                        xu = xus[i]
+                    carry, (loss, _h, mask_rate) = self.semi_step(carry, xu)
+                    f_u.append(loss)
+                    masks.append(mask_rate)
+                f_u, masks = torch.stack(f_u), torch.stack(masks)
+        if pf is not None:
+            # the phases are dispatched: the worker builds the next round's
+            # stacks while they run and while the losses are read below
+            pf.speculate(k_s, selection_rng(self, rng_np))
 
         # (5) aggregate the bottoms and the teacher bottoms; a top-k wire
         # uploads sparsified deltas against the broadcast references
@@ -396,15 +507,15 @@ class SemiSFLSystem:
                              opt=state.opt, queue=carry.queue,
                              round=state.round + 1, step=carry.step)
 
-        host = lambda xs: (torch.stack(xs).cpu().numpy() if xs
-                           else np.zeros((0,)))
-        f_s_h, f_u_h, mask_h = host(f_s), host(f_u), host(masks)
-        f_s_m = float(np.mean(f_s_h)) if len(f_s_h) else 0.0
-        f_u_m = float(np.mean(f_u_h)) if len(f_u_h) else 0.0
+        # one host read of the round's losses
+        host = torch.cat([f_s.float(), f_u.float(), masks.float()]).cpu()
+        f_s_h, f_u_h, mask_h = np.split(host.numpy(),
+                                        [k_s, k_s + len(f_u)])
+        mean = lambda a: float(np.mean(a)) if len(a) else 0.0
+        f_s_m, f_u_m = mean(f_s_h), mean(f_u_h)
         controller.update(f_s_m, f_u_m)
-        mask_m = float(np.mean(mask_h)) if len(mask_h) else 0.0
-        return state, RoundMetrics(f_s=f_s_m, f_u=f_u_m, mask_rate=mask_m,
-                                   k_s=k_s)
+        return state, RoundMetrics(f_s=f_s_m, f_u=f_u_m,
+                                   mask_rate=mean(mask_h), k_s=k_s)
 
     @torch.no_grad()
     def evaluate(self, state: SemiSFLState, test_x: np.ndarray,

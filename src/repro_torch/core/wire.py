@@ -151,8 +151,7 @@ def sparse_delta_mean(stacked, reference, frac: float):
     ``reference`` (per leaf); the server rebuilds ``reference +
     mean(deltas)``.  Exact FedAvg at ``frac == 1``."""
     def one(s, r):
-        deltas = s - r[None]
-        deltas = torch.stack([topk_sparsify(d, frac) for d in deltas])
+        deltas = torch.func.vmap(lambda d: topk_sparsify(d, frac))(s - r[None])
         return r + deltas.mean(dim=0)
     return tree_map(one, stacked, reference)
 

@@ -1,9 +1,16 @@
 """Batching (numpy): the labeled server loader and the per-client
 unlabeled loaders, a copy of the JAX package's ``data/pipeline.py``
 (``Loader``, ``client_loaders``, ``stack_client_batches_many``) without its
-sharded device placement and the prefetcher's restartable-iterator hooks.
-The same seeds draw the same sample streams."""
+sharded device placement.  The same seeds draw the same sample streams.
+
+Loaders are restartable iterators: :meth:`Loader.state_dict` /
+:meth:`Loader.load_state_dict` / :meth:`Loader.clone` capture and restore
+the whole sampling state (RNG, permutation, cursor), which the round
+prefetcher (``data/prefetch.py``) rolls back to when a speculative draw
+is not the one the round asks for."""
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 
@@ -33,6 +40,24 @@ class Loader:
     def __len__(self):
         return len(self.idx)
 
+    def state_dict(self) -> dict:
+        """The whole sampling state; restoring it replays the stream."""
+        return {"rng": self.rng.get_state(), "order": self._order.copy(),
+                "cursor": self._cursor}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.rng.set_state(sd["rng"])
+        self._order = sd["order"].copy()
+        self._cursor = sd["cursor"]
+
+    def clone(self) -> "Loader":
+        """An independent loader going on with this one's stream (the
+        dataset arrays shared, the sampling state copied)."""
+        other = copy.copy(self)
+        other.rng = np.random.RandomState()
+        other.load_state_dict(self.state_dict())
+        return other
+
     def _take(self, n: int) -> np.ndarray:
         take = np.empty(n, dtype=self.idx.dtype)
         filled = 0
@@ -52,6 +77,12 @@ class Loader:
     def next(self) -> tuple[np.ndarray, np.ndarray]:
         take = self._take(self.batch)
         return self.ds.x[take], self.ds.y[take]
+
+    def next_many(self, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """``k`` batches as ``(K, B, ...)`` stacks, drawn as ``k``
+        successive :meth:`next` calls draw them."""
+        xs, ys = zip(*(self.next() for _ in range(k)))
+        return np.stack(xs), np.stack(ys)
 
 
 def client_loaders(ds: Dataset, parts: list[np.ndarray], batch: int,

@@ -133,3 +133,14 @@ def reset_launch_counts() -> None:
     for counts in _COUNTS:
         for k in counts:
             counts[k] = 0
+
+
+def add_launch_counts(counts: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` to the launch counts.  A replayed CUDA
+    graph (``core/scan.py``) launches the kernels it captured without the
+    wrappers' Python running, so its executor adds the captured step's
+    launches once a replay, and takes back what the wrappers counted while
+    the graph was captured (``times=-1``), when nothing launched."""
+    for table in _COUNTS:
+        for k in table:
+            table[k] += times * counts.get(k, 0)

@@ -121,15 +121,9 @@ def init_train_state(plan: StepPlan, seed: int = 0,
 def train_state_shapes(plan: StepPlan) -> dict:
     """(shape, dtype) of every leaf of the train state, with the state's
     structure (the train branch of the JAX ``input_specs``, layers or
-    xLSTM groups in lists), and of the batch; nothing is allocated.  The
-    queue's ptr is a host int."""
+    xLSTM groups in lists), and of the batch; nothing is allocated."""
     state = init_train_state(plan, device="meta")
-    leaf = lambda t: (tuple(t.shape), t.dtype)
-    q = state.pop("queue")
-    out = tree_map(leaf, state)
-    out["queue"] = FeatureQueue(z=leaf(q.z), label=leaf(q.label),
-                                conf=leaf(q.conf), valid=leaf(q.valid),
-                                ptr=((), int))
+    out = tree_map(lambda t: (tuple(t.shape), t.dtype), state)
     n, b, s = plan.n_clients, plan.per_client_batch, plan.shape.seq_len
     tokens = ((n, b, s), torch.int64)
     return {"state": out, "batch": {"tokens_weak": tokens,

@@ -9,6 +9,11 @@ baselines, on the synthetic image task, on the card unless
       --rounds 30 --full-config
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-cnn \
       --baseline fedswitch --dirichlet 0.1 --ckpt runs/fedswitch
+
+The split methods run each round's phases through the scanned executor
+(``core/scan.py``; ``scan_rounds=False`` asks for the eager one) and, with
+``--prefetch`` (``prefetch=True``), take their stacks from a prefetch
+worker (``data/prefetch.py``).
 """
 from __future__ import annotations
 
@@ -37,16 +42,22 @@ SPLIT_BASELINES = ("semisfl", "fedswitch-sl")
 WIRE_BASELINE_ERR = ("--wire-format compresses the split-link payloads; "
                      "full-model baselines exchange whole models and have "
                      "no split link")
+PREFETCH_BASELINE_ERR = ("--prefetch drives the SemiSFL round executors; "
+                         "full-model baselines have no phase stacks")
+# the split systems' executor options, which the full-model baselines lack
+SPLIT_OPTIONS = ("wire_format", "scan_rounds", "prefetch")
 
 
 def build_system(name: str, cfg, **kw):
     """The system of method ``name``: SemiSFL, FedSwitch-SL or one of
-    :data:`BASELINES` (which take no wire format)."""
+    :data:`BASELINES` (which take no wire format and no executor
+    options)."""
     if name == "semisfl":
         return SemiSFLSystem(cfg, **kw)
     if name == "fedswitch-sl":
         return make_fedswitch_sl(cfg, **kw)
-    kw.pop("wire_format", None)
+    for key in SPLIT_OPTIONS:
+        kw.pop(key, None)
     return BASELINES[name](cfg, **kw)
 
 
@@ -69,16 +80,18 @@ def build_run(arch: str = "paper-cnn", baseline: str = "semisfl",
               client_batch: int = 16, seed: int = 0, smoke: bool = True,
               k_s: int = 15, k_u: int = 4, queue_len: int = 512,
               wire_format: Optional[str] = None, lr: float = 0.02,
+              scan_rounds: bool = True, prefetch: bool = False,
               device: str = "cuda") -> Run:
     """Data, partitions, loaders, system, initial state and controller of
     a run (the set-up half of the JAX launcher's ``run_training``).
 
     ``queue_len`` replaces the config's queue length, as the JAX launcher's
     fixed 512 does; ``lr`` is the system's constant learning rate (the
-    paper's 0.02 by default); ``device`` is where everything runs ("cuda" by
-    default, raising if there is no card).  Raises ``SystemExit`` for an
-    arch that is not a CNN, and for a wire format given to a full-model
-    baseline."""
+    paper's 0.02 by default); ``scan_rounds`` and ``prefetch`` choose the
+    split systems' executor and prefetcher; ``device`` is where everything
+    runs ("cuda" by default, raising if there is no card).  Raises
+    ``SystemExit`` for an arch that is not a CNN, and for a wire format or
+    prefetch given to a full-model baseline."""
     dev = resolve_device(device)
     cfg = smoke_config(arch) if smoke else get_config(arch)
     cfg = replace(cfg, semisfl=replace(
@@ -90,6 +103,8 @@ def build_run(arch: str = "paper-cnn", baseline: str = "semisfl",
     wire = parse_wire_format(wire_format)   # validates the spelling early
     if not wire.identity and baseline not in SPLIT_BASELINES:
         raise SystemExit(WIRE_BASELINE_ERR)
+    if prefetch and baseline not in SPLIT_BASELINES:
+        raise SystemExit(PREFETCH_BASELINE_ERR)
     ds = make_image_dataset(seed, num_classes=cfg.num_classes,
                             n=n_total + 400, image_size=cfg.image_size)
     train, test = train_test_split(ds, 400, seed=seed)
@@ -104,7 +119,8 @@ def build_run(arch: str = "paper-cnn", baseline: str = "semisfl",
                  uniform_partition(seed, len(unl_idx), n_clients)]
 
     system = build_system(baseline, cfg, n_clients_per_round=n_active,
-                          lr=lr, wire_format=wire, device=dev)
+                          lr=lr, wire_format=wire, scan_rounds=scan_rounds,
+                          prefetch=prefetch, device=dev)
     return Run(system=system, state=system.init_state(seed),
                controller=make_controller(cfg, n_labeled, len(train.y)),
                labeled=Loader(train, lab_idx, labeled_batch, seed),
@@ -140,6 +156,13 @@ def run_training(arch: str = "paper-cnn", rounds: int = 30,
         log(f"[{baseline}] round {r}: " + " ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in rec.items() if k != "round"))
+    if getattr(sys_, "prefetch", False):
+        stats = sys_.prefetch_stats()
+        if stats:
+            log(f"[{baseline}] prefetch: {stats['rounds']} rounds, "
+                f"{stats['cancels']} cancels, "
+                f"overlap={stats['overlap_frac']:.2f}")
+        sys_.close()          # join the worker; the system stays usable
     return state, history, sys_
 
 
@@ -161,6 +184,10 @@ def main(argv: Optional[list] = None):
                     help="fp32 (default), int8 or fp8, optionally with a "
                          "top-k delta upload, e.g. 'int8+topk0.1'; split "
                          "methods only")
+    ap.add_argument("--prefetch", action="store_true",
+                    help="assemble each round's batch stacks on a worker "
+                         "thread while the previous round runs (split "
+                         "methods only)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ckpt", default=None,
                     help="write the trained params to CKPT.npz (JAX layout, "
@@ -171,7 +198,8 @@ def main(argv: Optional[list] = None):
                        n_total=args.total, n_clients=args.clients,
                        n_active=args.active, dirichlet=args.dirichlet,
                        seed=args.seed, smoke=not args.full_config,
-                       wire_format=args.wire_format, device=args.device)
+                       wire_format=args.wire_format,
+                       prefetch=args.prefetch, device=args.device)
     if args.ckpt:
         # the params in the JAX layout and the run's record beside them, as
         # the JAX launcher's --ckpt writes them

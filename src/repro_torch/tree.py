@@ -7,6 +7,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
+
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` leafwise over trees of the same structure."""
@@ -34,3 +36,10 @@ def tree_unflatten(tree: Any, leaves: list) -> Any:
     """A tree of ``tree``'s structure holding ``leaves`` in leaf order."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def tree_stack(trees: list) -> Any:
+    """Trees of one structure -> one tree of their leaves stacked on a new
+    leading axis (None leaves stay None)."""
+    return tree_map(lambda *ts: None if ts[0] is None else torch.stack(ts),
+                    *trees)
