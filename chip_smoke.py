@@ -164,16 +164,29 @@ Phases, in order; any failure exits nonzero:
      7th routing probability over the positions compared and whether the
      two sides routed every token alike;
  13. the fifth path: LM training of the full H2O-Danube-1.8B
-     (``repro_torch.launch.steps.make_train_phase``: 24 layers split 6 + 18,
+     (``repro_torch.launch.steps.make_scanned_train_phase``: the step one
+     CUDA graph replayed a step, the state donated; 24 layers split 6 + 18,
      width 2560, bf16, the ``int8`` wire, tau 0, weights and tokens drawn on
-     the card from seed 0), 4 clients x 1 sequence x 4096 tokens, a warm-up
-     step and 3 timed steps with every kernel's launches required (flash
-     forward 126 a step, its backward 42, all through the wgmma kernels,
-     the clustering pair 1, the two-pass quantizer 3), peak memory, then
-     one step under the profiler (no CUDA-core backward kernel in it);
+     the card from seed 0), 4 clients x 1 sequence x 4096 tokens, a first
+     call of one step (the graph's 2 eager warm-up steps, its capture and
+     a replay; its seconds and the capture's printed apart) and 3 timed
+     steps in one call, every kernel's launches required in the 2 + 4
+     steps (flash forward 126 a step, its backward 42, all through the
+     wgmma kernels, the clustering pair 1, the two-pass quantizer 3) and
+     in the captured step, peak memory, then one replayed step under the
+     profiler (no CUDA-core backward kernel in it);
  14. card against CPU on the LM training path: one step of a 2-layer fp32
      H2O-Danube-1.8B at full width (split 1 + 1), 2 clients x 512 tokens,
      every metric and state leaf to 1e-3, the queue's pseudo-labels equal;
+ 14a. graph against eager on it (``phase_lm_graph``): a 2-layer bf16
+     danube at full width, int8, 4 clients x 4096 tokens, two K=3 calls of
+     the eager loop and of the captured, donated phase, every state leaf
+     and metric equal bit for bit, launches a step equal, the donated
+     phase handing back its static buffers and its second call allocating
+     nothing but its metrics; then the prefetched phase (2 phases of K=2
+     from host tokens) against the scanned one, bit for bit, no prefetch
+     thread left; 16a and 18a the same on the cut xLSTM and Zamba2 paths,
+     without the prefetched phase;
  15. the sixth path: LM training of xLSTM-1.3B at full width, as phase 13
      (width 2048, bf16 with the fp32 sLSTM weights), cut to its first 16
      blocks (two groups of 7 mLSTM + 1 sLSTM, split 1 + 1) at rate 2e-4,
@@ -187,7 +200,8 @@ Phases, in order; any failure exits nonzero:
      tokens (two mLSTM chunks), as phase 14;
  17. the seventh path: LM training of Zamba2-7B at full width, as phase 13
      (width 3584, bf16 with the fp32 A_log, D and dt_bias), cut to
-     ZAMBA_TRAIN_LAYERS Mamba2 layers for one card's memory, at JAX's rate,
+     ZAMBA_TRAIN_LAYERS Mamba2 layers for one card's memory (its 3 timed
+     steps one K=3 call, the donated state held once), at JAX's rate,
      with the Mamba2 scan 3 times a layer a step (teacher, student,
      recompute; the mma kernel's, writing its chunk states in the
      recompute) and its backward once (all on the mma route, the first
@@ -426,7 +440,9 @@ def time_ms(fn, iters: int = 50, warmup: int = 5,
     Event ms: CUDA events around back-to-back calls, which is the host's
     enqueue time where that is the longer of the two.  Inputs stay warm in
     L2 unless ``fn`` cycles through :func:`cold_copies`.  ``by_kernel``, if
-    given, receives each kernel's device ms per call by profiler name."""
+    given, receives each kernel's device ms per call by profiler name.
+    Fails if some kernel that ``fn`` launched has no device record in each
+    of the profiles that PROFILE_PADS gives (see :func:`_unrecorded`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -440,19 +456,37 @@ def time_ms(fn, iters: int = 50, warmup: int = 5,
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    # the profiler can lose some of a kernel's records (on the H100 it kept
-    # 4 of 10 launches of the Mamba2 scan after earlier profiled phases);
-    # every call launches each kernel the same number of times, so a kernel
-    # is counted at the next multiple of ``iters`` at its mean duration.
-    # The records are read raw (_device_ops): a plain version's hundred
-    # thousand launches took key_averages() minutes
+    # the profiler drops the device records of a session's first launches,
+    # more of them the more sessions the process has profiled (on the H100,
+    # late in this script, every record of a Mamba2 backward call's 15
+    # launches): each session opens with spin-kernel pads that take those
+    # losses, and is profiled again with 4x the pads while a launch of
+    # ``fn`` still has no record
+    for tries, pads in enumerate(PROFILE_PADS, 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(pads):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        missing, launched = _unrecorded(prof, pads)
+        if not missing:
+            break
+        print(f"[timing] torch.profiler kept no device record of {missing} "
+              f"of the {launched} launches of {iters} calls behind {pads} "
+              f"pads (profile {tries} of {len(PROFILE_PADS)})")
+    else:
+        fail(f"torch.profiler kept no device record of {missing} of "
+             f"{launched} launches in each of {len(PROFILE_PADS)} profiles")
+    # every launch has its record; other device ops (a memset) may still
+    # lose some, and are counted at the next multiple of ``iters`` at their
+    # mean duration.  The records are read raw (_device_ops): a plain
+    # version's hundred thousand launches took key_averages() minutes
     dev, lost = 0.0, []
-    for name, total_s, count in _by_name(_device_ops(prof)):
+    ops = [op for op in _device_ops(prof) if "spin_kernel" not in op[0]]
+    for name, total_s, count in _by_name(ops):
         calls = -(-count // iters) * iters
         if calls != count:
             lost.append(f"{name[:60]} ({count} of {calls})")
@@ -467,6 +501,28 @@ def time_ms(fn, iters: int = 50, warmup: int = 5,
               "event time")
         return event_ms, event_ms
     return dev / 1e3 / iters, event_ms
+
+
+# the pads of each profile of time_ms, one profile after another
+PROFILE_PADS = (256, 1024, 4096, 16384)
+
+
+def _unrecorded(prof, skip: int) -> tuple[int, int]:
+    """(launches with no device record, launches) of a profiled run after
+    its first ``skip`` launches: a runtime launch on the host
+    (``cudaLaunchKernel``, ``cudaLaunchKernelExC``,
+    ``cudaLaunchCooperativeKernel``) and the kernel it launched share a
+    correlation id.  The host's records are kept where the device's are
+    lost (on the H100, torch 2.11, CUDA 12.8)."""
+    from torch.autograd import DeviceType
+    host, device = [], set()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            device.add(e.correlation_id())
+        elif e.name().startswith("cudaLaunch"):
+            host.append((e.start_ns(), e.correlation_id()))
+    launched = [c for _, c in sorted(host)[skip:]]
+    return sum(c not in device for c in launched), len(launched)
 
 
 def _device_ops(prof) -> list:
@@ -3491,7 +3547,9 @@ def _lm_launches(cfg, n: int, wire) -> dict:
 # layers' bf16 state, gradients and the teacher update need about 87 GB
 # before any activation; 72 layers ran out of the 79.18 GiB, 66 peaked at
 # 63.522 GiB and stayed finite at 0.02 (scripts/lm_depth_probe.py --arch
-# zamba2-7b), in one-step calls of the phase (LM_ONE_STEP_CALLS).  Its
+# zamba2-7b), its 3 timed steps one call of the donated phase like the
+# others' (a K-step call of the eager loop, ``make_train_phase``, holds the
+# caller's state beside its own, a second 35.6 GiB).  Its
 # card-vs-CPU step takes two periods of the shared block split 1 + 1
 # period, so that each side applies it once, as phase 12 does: 4 layers,
 # the block every 2, a layout the published model (the block every 6)
@@ -3500,13 +3558,6 @@ def _lm_launches(cfg, n: int, wire) -> dict:
 # fp32 state on the host), over 128 tokens a client (two of the scan
 # kernels' 64-step chunks)
 ZAMBA_TRAIN_LAYERS = 66
-# The paths whose depth fits only one-step calls of make_train_phase: the
-# caller's reference to a K-step call's first state lives until the call
-# returns, a second state in memory (35.6 GiB at 66 Zamba2 layers, beside
-# the step's 63.5 GiB peak past the 79.18 GiB of an NVIDIA H100 80GB HBM3 at
-# 700 W).  The others take their 3 timed steps in one call, so that the
-# phase's K > 1 loop runs on the card.
-LM_ONE_STEP_CALLS = ("zamba2-7b",)
 LM_TRAIN_PATHS = {
     "h2o-danube-1.8b": (
         "lm-train", None, 0.02,
@@ -3538,27 +3589,31 @@ LM_TRAIN_PATHS = {
 def phase_lm_train(card: str, arch: str) -> dict:
     """An LM training path at full width (and the depth and rate of
     LM_TRAIN_PATHS), bf16, through
-    ``repro_torch.launch.steps.make_train_phase`` with the ``int8`` wire and
-    tau 0: 4 clients x 1 sequence x 4096 tokens (train_4k's sequence; the
-    global batch cut from 256 to 4 for one card's memory), weights and
-    tokens from seed 0 (the weak views the same sequences each step, see
-    :func:`_lm_tokens`).  One warm-up step, then 3 timed steps (host clock
-    ending in a synchronize) in one call of the phase, or in three calls of
-    one step on the paths of LM_ONE_STEP_CALLS, every kernel's count set to
-    0 just before the 4 steps and read after; peak device memory; then one
+    ``repro_torch.launch.steps.make_scanned_train_phase`` (the step one CUDA
+    graph, the state donated) with the ``int8`` wire and tau 0: 4 clients x
+    1 sequence x 4096 tokens (train_4k's sequence; the global batch cut
+    from 256 to 4 for one card's memory), weights and tokens from seed 0
+    (the weak views the same sequences each step, see :func:`_lm_tokens`).
+    A first call of one step (the graph's warm-up steps, its capture and
+    one replay), then 3 timed steps in one call (host clock ending in a
+    synchronize), every kernel's count set to 0 just before the first call
+    and read after the timed one; peak device memory; then one replayed
     step under ``torch.profiler`` (its device ops read raw,
     :func:`_device_ops`).
     Fails unless every metric is finite, Eq. (5) is live after the first
     step, the top, the bottoms and the teacher bottoms moved, the queue's
     pointer advanced, every leaf of the state is finite, each kernel ran
-    as often as :func:`_lm_launches` says, and the profiled step shows
-    each of the path's kernels."""
+    as often as :func:`_lm_launches` says in each of the 4 steps and the
+    WARMUP_STEPS eager warm-up steps, and the profiled step shows each of
+    the path's kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.core.scan import WARMUP_STEPS
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.steps import init_train_state, make_train_phase
+    from repro_torch.launch.steps import (init_train_state,
+                                          make_scanned_train_phase)
     from repro_torch.tree import tree_leaves
     tag, depth, lr, _, _, names, refused = LM_TRAIN_PATHS[arch]
     base = get_config(arch)
@@ -3587,45 +3642,44 @@ def phase_lm_train(card: str, arch: str) -> dict:
         int(st["queue"].ptr)]
     before = snap(state)
     tokens = _lm_tokens(cfg, 5, LM_CLIENTS, LM_SEQ, seed=0)
-    phase = make_train_phase(plan, lr=lr, wire="int8")
+    phase = make_scanned_train_phase(plan, lr=lr, wire="int8")
     part = lambda a, b: {k: v[a:b] for k, v in tokens.items()}
 
     reset_launch_counts()
     t0 = time.perf_counter()
     state, m_warm = phase(state, part(0, 1))
     torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    calls = ([(i, i + 1) for i in range(1, 4)] if arch in LM_ONE_STEP_CALLS
-             else [(1, 4)])
+    first_s = time.perf_counter() - t0
+    (graph,) = phase.graphs.values()
     t0 = time.perf_counter()
-    timed = []
-    for a, b in calls:
-        state, m_i = phase(state, part(a, b))
-        timed.append(m_i)
+    state, m = phase(state, part(1, 4))
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 3
-    m = {k: torch.cat([x[k] for x in timed]) for k in timed[0]}
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     metrics = {k: torch.cat([m_warm[k], m[k]]).tolist() for k in m}
     tokens_step = LM_CLIENTS * LM_SEQ
     print(f"[{tag}] {arch} full width, {cfg.num_layers} of "
           f"{base.num_layers} layers, bf16, int8 wire, tau 0, rate {lr}, "
-          f"{LM_CLIENTS} clients x 1 x {LM_SEQ} tokens: warm-up step "
-          f"{warm_s:.4f} s; 3 timed steps in {len(calls)} call"
-          f"{'s' * (len(calls) > 1)} {wall:.6f} s a step, "
+          f"{LM_CLIENTS} clients x 1 x {LM_SEQ} tokens, through the graph "
+          f"(state donated): first call {first_s:.4f} s ({WARMUP_STEPS} "
+          f"warm-up steps and the capture {graph.capture_s:.4f} s, then a "
+          f"replay); 3 timed steps in one call {wall:.6f} s a step, "
           f"{tokens_step / wall:.1f} tokens/s; peak device memory "
           f"{peak / 2**30:.3f} GiB; on {card}")
     print(f"[{tag}] metrics of the 4 steps: " + "; ".join(
         f"{k} {', '.join(f'{x:.6g}' for x in v)}" for k, v in
         metrics.items()))
     want = _lm_launches(cfg, LM_CLIENTS, "int8")
-    print(f"[{tag}] launches in the 4 steps: {launches}; want a step: "
-          f"{want}")
+    steps_run = WARMUP_STEPS + 4
+    print(f"[{tag}] launches in the {WARMUP_STEPS} warm-up and 4 replayed "
+          f"steps: {launches}; want a step: {want}; captured a step: "
+          f"{ {k: v for k, v in graph.launches.items() if v} }")
     for kernel, n in want.items():
-        if launches[kernel] != 4 * n:
+        if launches[kernel] != steps_run * n or graph.launches[kernel] != n:
             fail(f"{arch} training launched {kernel} {launches[kernel]} "
-                 f"times in 4 steps, want {4 * n}")
+                 f"times in {steps_run} steps ({graph.launches[kernel]} "
+                 f"captured a step), want {steps_run * n} ({n})")
     if not np.isfinite([x for v in metrics.values() for x in v]).all():
         fail(f"{arch} training gave non-finite metrics {metrics}")
     if max(metrics["clustering"][1:]) <= 0.0:
@@ -3659,7 +3713,7 @@ def phase_lm_train(card: str, arch: str) -> dict:
     kernels = _by_name(ops)
     busy = sum(t for _, t, _ in kernels)
     ours = _ours(kernels, names)
-    print(f"[{tag}-profile] one step under the profiler: wall "
+    print(f"[{tag}-profile] one replayed step under the profiler: wall "
           f"{wall_prof:.6f} s, device busy {busy:.6f} s (idle share "
           f"{1 - busy / wall_prof:.4f}), {len(ops)} device ops; " + ", ".join(
               f"{k} {t:.6f} s x{n} ({t / max(busy, 1e-12):.4f} of the device "
@@ -3675,7 +3729,8 @@ def phase_lm_train(card: str, arch: str) -> dict:
     wrong = [k for k, _, _ in kernels if any(r in k for r in refused)]
     if wrong:
         fail(f"the bf16 {arch} step ran the CUDA-core backward: {wrong}")
-    del state, prof, ops
+    del state, prof, ops, phase, graph
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -3760,6 +3815,159 @@ def phase_lm_cross_check(arch: str) -> None:
         if counts[kernel] != k_n:
             fail(f"{arch} LM cross-check: the card launched {kernel} "
                  f"{counts[kernel]} times, want {k_n}")
+
+
+# the cut path whose graph phase is also fed by the prefetch worker
+LM_PREFETCH_PATH = "h2o-danube-1.8b"
+
+
+def _bitwise_diff(a, b) -> list:
+    """The paths of the tensor leaves of two trees of the same structure
+    (train states, metric dicts) that differ in a bit or in shape or
+    dtype."""
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [x for k in tree for x in leaves(tree[k], f"{prefix}.{k}")]
+        if isinstance(tree, (list, tuple)):
+            names = getattr(tree, "_fields", range(len(tree)))
+            return [x for k, t in zip(names, tree)
+                    for x in leaves(t, f"{prefix}.{k}")]
+        return [(prefix.lstrip("."), tree)]
+    import torch
+    bits = lambda t: t.contiguous().view(-1).view(torch.uint8)
+    pa, pb = leaves(a), leaves(b)
+    if [p for p, _ in pa] != [p for p, _ in pb]:
+        return ["<structure>"]
+    return [p for (p, x), (_, y) in zip(pa, pb)
+            if x.dtype != y.dtype or x.shape != y.shape
+            or not torch.equal(bits(x), bits(y))]
+
+
+def phase_lm_graph(card: str, arch: str) -> None:
+    """The captured, donated LM phase against the eager loop on the card:
+    ``arch`` at full width, bf16, cut in depth as LM_TRAIN_PATHS cuts it
+    for the card-vs-CPU step (danube 2 layers, xLSTM 4 blocks, Zamba2 4
+    layers), the ``int8`` wire, tau 0, the path's rate, 4 clients x 4096
+    tokens, from one state (seed 1) and one token draw (seed 3): K=3
+    through ``make_train_phase`` (eager) from a clone, and through
+    ``make_scanned_train_phase`` (graph, state donated), then 3 more steps
+    each way from what came back.  Fails unless every state leaf and
+    metric is equal bit for bit after each call, the kernels' launches a
+    step are the same both ways (the graph's captured ones against a third
+    of the eager call's), the donated phase returned the graph's static
+    buffers both times, and the second graph call allocated nothing
+    beyond its metrics.  On LM_PREFETCH_PATH also
+    ``make_prefetched_train_phase`` over 2 phases of K=2 from host tokens
+    against the scanned phase called on the same tokens in calls of K=1
+    and K=3 (its graph's input stacks hold one step, so the second call
+    replays in chunks), bit for bit, and no prefetch thread alive after
+    it."""
+    import threading
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.prefetch import THREAD_NAME
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import (init_train_state,
+                                          make_prefetched_train_phase,
+                                          make_scanned_train_phase,
+                                          make_train_phase)
+    from repro_torch.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    tag, _, lr, cut, _, _, _ = LM_TRAIN_PATHS[arch]
+    base = cut(get_config(arch))
+    cfg = replace(base, semisfl=replace(base.semisfl,
+                                        confidence_threshold=0.0))
+    plan = _lm_plan(cfg, LM_CLIENTS, LM_SEQ)
+    tokens = _lm_tokens(cfg, 6, LM_CLIENTS, LM_SEQ, seed=3)
+    part = lambda a, b: {k: v[a:b] for k, v in tokens.items()}
+    clone = lambda st: tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, st)
+    tensors = lambda st: [t for t in tree_leaves(st)
+                          if isinstance(t, torch.Tensor)]
+    state = init_train_state(plan, seed=1, device="cuda")
+
+    eager = make_train_phase(plan, lr=lr, wire="int8")
+    reset_launch_counts()
+    e_state, e_m = eager(clone(state), part(0, 3))
+    torch.cuda.synchronize()
+    e_counts = {k: v for k, v in launch_counts().items() if v}
+    e_state2, e_m2 = eager(e_state, part(3, 6))
+
+    scanned = make_scanned_train_phase(plan, lr=lr, wire="int8")
+    g_state, g_m = scanned(state, part(0, 3))
+    (graph,) = scanned.graphs.values()
+    static = [t for t in graph.static if isinstance(t, torch.Tensor)]
+    adopted = all(a is b for a, b in zip(tensors(g_state), static))
+    diffs = [_bitwise_diff(g_state, e_state), _bitwise_diff(g_m, e_m)]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    g_state2, g_m2 = scanned(g_state, part(3, 6))
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - mem0
+    # the metrics are the call's only new tensors: 512-byte blocks
+    metric_bytes = sum(-(-t.numel() * t.element_size() // 512) * 512
+                       for t in g_m2.values())
+    again = all(a is b for a, b in zip(tensors(g_state2), static))
+    diffs += [_bitwise_diff(g_state2, e_state2), _bitwise_diff(g_m2, e_m2)]
+    per_step = {k: v / 3 for k, v in e_counts.items()}
+    captured = {k: v for k, v in graph.launches.items() if v}
+    print(f"[{tag}-graph] {arch} width {cfg.d_model}, {cfg.num_layers} "
+          f"layers, bf16, int8, {LM_CLIENTS} x {LM_SEQ} tokens, 2 calls of "
+          f"K=3: graph against eager, leaves and metrics differing "
+          f"{[len(d) for d in diffs]} (state, metrics; each call) of "
+          f"{len(tensors(g_state))} state leaves; launches a step eager "
+          f"{per_step}, captured {captured}; the donated phase returned its "
+          f"static buffers {adopted} and {again}, the second call grew "
+          f"allocated memory by {grown} B (its metrics {metric_bytes} B); "
+          f"capture {graph.capture_s:.4f} s; on {card}")
+    if any(diffs):
+        fail(f"{arch}: the graph's K=3 phases differ from the eager loop's "
+             f"at {[d[:4] for d in diffs]}")
+    if per_step != captured:
+        fail(f"{arch}: launches a step differ, eager {per_step}, graph "
+             f"{captured}")
+    if not (adopted and again and len(static) == len(tensors(state))):
+        fail(f"{arch}: the donated phase did not return its static buffers")
+    if grown > metric_bytes:
+        fail(f"{arch}: a donated K=3 call on its own state allocated "
+             f"{grown} B, its metrics {metric_bytes} B")
+    del e_state, e_state2, g_state, g_state2, state, scanned, graph, static
+
+    if arch == LM_PREFETCH_PATH:
+        # the reference's second call (K=3) replays a K_cap-1 graph in 3
+        # chunks
+        host = [{k: v.cpu().numpy() for k, v in part(a, a + 2).items()}
+                for a in (0, 2)]
+        ref_phase = make_scanned_train_phase(plan, lr=lr, wire="int8")
+        s_ref = init_train_state(plan, seed=1, device="cuda")
+        m_ref = []
+        for a, b in ((0, 1), (1, 4)):
+            s_ref, m = ref_phase(s_ref, part(a, b))
+            m_ref.append(m)
+        m_ref = {k: torch.cat([m[k] for m in m_ref]) for k in m_ref[0]}
+        run = make_prefetched_train_phase(plan, lr=lr, wire="int8")
+        s_pf, m_pf = run(init_train_state(plan, seed=1, device="cuda"),
+                         [lambda h=h: h for h in host])
+        torch.cuda.synchronize()
+        alive = [t.name for t in threading.enumerate()
+                 if t.name == THREAD_NAME]
+        pdiff = [_bitwise_diff(s_pf, s_ref), _bitwise_diff(
+            {k: torch.cat([m[k] for m in m_pf]) for k in m_ref}, m_ref)]
+        print(f"[{tag}-graph] prefetched phase, 2 phases of K=2 from host "
+              f"tokens, against the scanned phase in calls of K=1 and K=3: "
+              f"leaves and metrics differing {[len(d) for d in pdiff]}; "
+              f"prefetch threads alive after it {alive}; on {card}")
+        if any(pdiff) or len(m_pf) != 2:
+            fail(f"{arch}: the prefetched phase differs from the scanned "
+                 f"one at {[d[:4] for d in pdiff]}")
+        if alive:
+            fail(f"{arch}: a prefetch thread outlived its phase: {alive}")
+        del s_ref, s_pf, ref_phase, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}-graph] {time.perf_counter() - t_phase:.1f} s")
 
 
 def _paths(tree, prefix: str = "") -> list:
@@ -3910,6 +4118,7 @@ def main() -> int:
         for kernel, n in lm.items():
             launches[kernel] = launches[kernel] or n
         phase_lm_cross_check(arch)
+        phase_lm_graph(card, arch)
         lap(f"{arch} training path")
 
     rows = []
@@ -3921,6 +4130,13 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1],
                      "library_ms": t["library_ms"]})
+        # no time is below its bound, bar a bytes bound that the L2 can
+        # beat (inputs under 4x its size may be read warm)
+        warm = (t["bound"][1] == "bytes"
+                and t["bound"][0] * 1e-3 * PEAK_BYTES < 4 * l2_bytes())
+        if t["ms"] < t["bound"][0] and not warm:
+            fail(f"{name}: {t['ms']} ms a call is below its bound of "
+                 f"{t['bound'][0]} ms: a lost profiler record?")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,7 +37,10 @@ def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     if mask is None:
-        return -ll.sum(), torch.tensor(float(ll.numel()), device=ll.device)
+        # a fill on the device, not a host copy, so that a CUDA graph can
+        # capture it
+        return -ll.sum(), torch.full((), float(ll.numel()),
+                                     dtype=torch.float32, device=ll.device)
     mask = mask.float()
     return -(ll * mask).sum(), mask.sum()
 

@@ -22,8 +22,15 @@ that counter into (K_cap, ...) buffers, and the new carry is copied into
 the static carry at the end, so a replay needs one call from the host and
 nothing else.  That was chosen over a ``copy_`` into a one-step input
 buffer before each replay, which costs the host a call a leaf a step; a
-phase copies its inputs into the stacks once a leaf instead.  A phase
-longer than K_cap captures anew with longer stacks.
+phase copies its inputs into the stacks once a leaf instead.  K_cap is
+the first phase's K; a longer phase replays in chunks of K_cap steps, its
+inputs copied in and its outputs out once a chunk, so that it needs no
+second capture (and no second warm-up of a step that may fill the card).
+
+With ``donate_carry`` the graph adopts the first carry's tensors as its
+static carry and hands them back: the state updates in place, as JAX's
+donated buffers do, and a phase holds one state, not three (the caller's,
+the static one and a fresh copy).
 
 On the CPU the phase is a plain loop over the same ``step_fn``.
 
@@ -34,6 +41,7 @@ is no unroll setting: a replay is the whole step either way."""
 from __future__ import annotations
 
 import functools
+import gc
 import time
 from typing import Any, Callable, Tuple
 
@@ -112,16 +120,20 @@ def _copy(dst: list, src: list) -> None:
 
 class _Graph:
     """One step captured at the shapes of ``carry`` and of one step of
-    ``inputs``, with input stacks of ``k_cap`` steps."""
+    ``inputs``, with input stacks of ``k_cap`` steps.  With ``donate`` the
+    static carry is ``carry``'s own tensors, else a clone of them."""
 
     def __init__(self, step_fn: Step, carry: Carry, inputs: Inputs,
-                 k_cap: int, pool: GraphPool):
+                 k_cap: int, pool: GraphPool, donate: bool):
         t0 = time.perf_counter()
         self.k_cap = k_cap
+        self.donate = donate
         self.carry = _skeleton(carry)
         leaves = tree_leaves(carry)
-        self.static = [t.clone() if isinstance(t, torch.Tensor) else t
-                       for t in leaves]
+        if donate:
+            _check_distinct(leaves)
+        self.static = [t.clone() if isinstance(t, torch.Tensor)
+                       and not donate else t for t in leaves]
         static_carry = tree_unflatten(carry, self.static)
         dev = next(t.device for t in self.static
                    if isinstance(t, torch.Tensor))
@@ -130,7 +142,8 @@ class _Graph:
                                       dtype=t.dtype, device=dev)
                           for t in tree_leaves(inputs)]
         self.k_idx = torch.zeros(1, dtype=torch.long, device=dev)
-        self._load_inputs(inputs)
+        _copy([s for s in self.in_stacks if s is not None],
+              [t for t in tree_leaves(inputs) if t is not None])
         first = tree_unflatten(inputs, [None if s is None else s[0]
                                         for s in self.in_stacks])
 
@@ -147,6 +160,10 @@ class _Graph:
                                        dtype=o.dtype, device=dev)
                            for o in tree_leaves(outs)]
         del outs
+        # the warm-up's dead tensors, cycles included, leave the default
+        # pool before the capture fills the graph's (``torch.cuda.graph``
+        # empties the cache on entry)
+        gc.collect()
 
         before = kernels.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
@@ -180,36 +197,53 @@ class _Graph:
         # the host's seconds for the warm-up and the capture, once a shape
         self.capture_s = time.perf_counter() - t0
 
-    def _load_inputs(self, inputs: Inputs) -> None:
-        k = _phase_len(inputs)
-        _copy([s[:k] for s in self.in_stacks if s is not None],
-              [t for t in tree_leaves(inputs) if t is not None])
-
     def run(self, carry: Carry, inputs: Inputs) -> Tuple[Carry, Any]:
         k = _phase_len(inputs)
         leaves = tree_leaves(carry)
-        _copy([t for t in self.static if isinstance(t, torch.Tensor)],
-              [t for t, s in zip(leaves, self.static)
-               if isinstance(s, torch.Tensor)])
-        self._load_inputs(inputs)
-        self.k_idx.zero_()
-        for _ in range(k):
-            self.graph.replay()
-        kernels.add_launch_counts(self.launches, k)
         tensors = [t for t in self.static if isinstance(t, torch.Tensor)]
-        fresh = [torch.empty_like(t) for t in tensors]
-        _copy(fresh, tensors)
-        it = iter(fresh)
-        out_carry = [next(it) if isinstance(s, torch.Tensor) else c
-                     for s, c in zip(self.static, leaves)]
+        _copy(tensors, [t for t, s in zip(leaves, self.static)
+                        if isinstance(s, torch.Tensor)])
+        stacks = [s for s in self.in_stacks if s is not None]
+        given = [t for t in tree_leaves(inputs) if t is not None]
         outs = [torch.empty((k,) + tuple(s.shape[1:]), dtype=s.dtype,
                             device=s.device) for s in self.out_stacks]
-        _copy(outs, [s[:k] for s in self.out_stacks])
+        for a in range(0, k, self.k_cap):
+            n = min(self.k_cap, k - a)
+            _copy([s[:n] for s in stacks], [t[a:a + n] for t in given])
+            self.k_idx.zero_()
+            for _ in range(n):
+                self.graph.replay()
+            _copy([o[a:a + n] for o in outs],
+                  [s[:n] for s in self.out_stacks])
+        kernels.add_launch_counts(self.launches, k)
+        if self.donate:
+            out_carry = [s if isinstance(s, torch.Tensor) else c
+                         for s, c in zip(self.static, leaves)]
+        else:
+            fresh = [torch.empty_like(t) for t in tensors]
+            _copy(fresh, tensors)
+            it = iter(fresh)
+            out_carry = [next(it) if isinstance(s, torch.Tensor) else c
+                         for s, c in zip(self.static, leaves)]
         return (tree_unflatten(self.carry, out_carry),
                 tree_unflatten(self.out_template, outs))
 
 
-def scan_phase(step_fn: Step, pool: GraphPool | None = None
+def _check_distinct(leaves: list) -> None:
+    """A donated carry's tensors become the graph's buffers, each written
+    once a step: two leaves on one storage would write each other."""
+    seen = set()
+    for t in leaves:
+        if isinstance(t, torch.Tensor) and t.numel():
+            ptr = t.untyped_storage().data_ptr()
+            if ptr in seen:
+                raise ValueError("scan_phase: a donated carry holds two "
+                                 "leaves on one storage")
+            seen.add(ptr)
+
+
+def scan_phase(step_fn: Step, pool: GraphPool | None = None, *,
+               donate_carry: bool = False
                ) -> Callable[[Carry, Inputs], Tuple[Carry, Any]]:
     """A K-step phase from a one-step ``step_fn(carry, inputs) -> (carry,
     outs)``: ``phase(carry, stacked_inputs) -> (carry, stacked_outs)``.
@@ -222,11 +256,19 @@ def scan_phase(step_fn: Step, pool: GraphPool | None = None
     as it went in, and is passed through.
 
     On CUDA tensors the step is captured as a CUDA graph once per shapes
-    and replayed K times (see the module docstring); the returned carry
-    and outputs are fresh tensors, not the graph's buffers, so a caller may
-    keep an old carry.  Phases built with one ``pool`` capture into one
-    memory pool (by default each phase has its own).  On CPU tensors the
-    phase loops over ``step_fn``."""
+    and replayed K times (see the module docstring).  The outputs are
+    fresh tensors.  By default so is the returned carry, not the graph's
+    buffers, so a caller may keep an old carry.  ``donate_carry`` donates
+    the carry, as JAX's ``donate_argnums`` does: the first call's carry
+    tensors become the graph's static buffers (no copy), every call
+    returns those same tensors holding the new state, and a later call's
+    carry is copied into them unless it is them (a phase fed what it
+    returned copies nothing).  The caller's references to a donated carry,
+    and to any carry the phase returned, then hold the newest state: keep
+    none of them for its old values.  Its tensors must not share storage.
+    Phases built with one ``pool`` capture into one memory pool (by
+    default each phase has its own).  On CPU tensors the phase loops over
+    ``step_fn`` and ``donate_carry`` changes nothing."""
     graphs: dict[str, _Graph] = {}
     pool = GraphPool() if pool is None else pool
 
@@ -241,9 +283,9 @@ def scan_phase(step_fn: Step, pool: GraphPool | None = None
             return carry, tree_map(lambda *o: torch.stack(o), *outs)
         key = _spec(carry) + _spec(_at(inputs, 0))
         g = graphs.get(key)
-        if g is None or g.k_cap < k:
-            graphs.pop(key, None)
-            g = graphs[key] = _Graph(step_fn, carry, inputs, k, pool)
+        if g is None:
+            g = graphs[key] = _Graph(step_fn, carry, inputs, k, pool,
+                                     donate_carry)
         return g.run(carry, inputs)
 
     phase.graphs = graphs

@@ -235,7 +235,7 @@ def slstm_scan_ref(wx: torch.Tensor, r: torch.Tensor,
         f_g = torch.exp(ft + m - m_new)
         c = f_g * c + i_g * torch.tanh(zt)
         n = f_g * n + i_g
-        h = torch.sigmoid(ot) * c / torch.maximum(n, n.new_tensor(N_MIN))
+        h = torch.sigmoid(ot) * c / torch.maximum(n, n.new_full((), N_MIN))
         m = m_new
         hs.append(h)
         if save:
@@ -290,13 +290,13 @@ def slstm_scan_bwd_ref(r: torch.Tensor, pre: torch.Tensor, c: torch.Tensor,
         cp, np_, mp = ((c[:, t - 1], n[:, t - 1], m[:, t - 1]) if t > 0
                        else (c_prev, n_prev, m_prev))
         g = dh[:, t].float() + dh_rec
-        n_c = torch.maximum(n_t, n_t.new_tensor(N_MIN))
+        n_c = torch.maximum(n_t, n_t.new_full((), N_MIN))
         sig = torch.sigmoid(ot)
         a = g / n_c                                  # h = (s c) / n~
         d_o = a * c_t * sig * (1.0 - sig)
         dc = dc + a * sig
         dn_c = -g * (sig * c_t) / (n_c * n_c)
-        dn = dn + dn_c * _tie(n_t, n_t.new_tensor(N_MIN))
+        dn = dn + dn_c * _tie(n_t, n_t.new_full((), N_MIN))
         i_g = torch.exp(it - m_t)
         f_g = torch.exp(ft + mp - m_t)
         tz = torch.tanh(zt)

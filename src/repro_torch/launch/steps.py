@@ -1,12 +1,16 @@
 """Step builders of the decoder LMs: the JAX package's ``launch/steps.py``
 without mesh or sharding.
 
-  * ``make_train_step`` / ``make_train_phase``: one SemiSFL cross-entity
-    iteration on a dense decoder LM, on xLSTM or on the Zamba2 hybrid
-    (``make_train_step(plan, dist, lr, wire=..., mesh=None)`` and
-    ``make_scanned_train_phase`` in JAX), with ``StepPlan`` / ``make_plan``,
-    the state's shapes (the train branch of ``input_specs``) and a seeded
-    initial state; other models raise;
+  * ``make_train_step``: one SemiSFL cross-entity iteration on a dense
+    decoder LM, on xLSTM or on the Zamba2 hybrid (``make_train_step(plan,
+    dist, lr, wire=..., mesh=None)`` in JAX), with ``StepPlan`` /
+    ``make_plan``, the state's shapes (the train branch of
+    ``input_specs``) and a seeded initial state; other models raise;
+  * ``make_scanned_train_phase`` / ``make_prefetched_train_phase``: K
+    steps as one CUDA graph of the step replayed K times, the state
+    donated (``core/scan.py``), and that phase fed by the prefetch
+    worker, as JAX's; ``make_train_phase`` is the same K steps as an eager
+    loop, what the graph is held to;
   * ``make_prefill_step`` / ``make_decode_step``: split-inference serving
     of the dense, MoE/MLA (DeepSeek-V2, Arctic), xLSTM and Zamba2 models.
 
@@ -48,12 +52,14 @@ from repro_torch.core import losses
 from repro_torch.core.ema import ema_update
 from repro_torch.core.engine import requires_grad
 from repro_torch.core.queue import FeatureQueue, enqueue, init_queue
+from repro_torch.core.scan import scan_phase
 from repro_torch.core.split import (apply_projection_head,
                                     init_projection_head, pool_features,
                                     proj_dim)
 from repro_torch.core.wire import (WireFormatLike, fake_quantize,
                                    parse_wire_format, quantize_grad,
                                    resolve_fmt)
+from repro_torch.data.prefetch import DevicePut, Prefetcher, ready
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (DecoderLM, HybridMamba,
                                             XLSTMModel, build_model)
@@ -247,13 +253,13 @@ def make_train_phase(plan: StepPlan, lr: float = 0.02, *,
                      wire: WireFormatLike = None) -> Callable:
     """``phase(state, batches) -> (state, metrics)``: K iterations of
     :func:`make_train_step` over batches whose leaves have a leading K
-    axis, the metrics stacked to (K,) tensors on the device, as the JAX
-    ``make_scanned_train_phase`` returns them (a Python loop here, not a
-    compiled scan).  The caller's reference to ``state`` lives until the
-    call returns, so from its second step on a K > 1 call holds one state
-    more than a one-step call: where that state does not fit beside a
-    step's peak (Zamba2-7B at 66 layers: a 35.6 GiB state, a 63.5 GiB peak
-    on an NVIDIA H100 80GB HBM3 at 700 W), call it one step at a time."""
+    axis, the metrics stacked to (K,) tensors on the device, as
+    :func:`make_scanned_train_phase` returns them, but as an eager Python
+    loop, one dispatch an op: what the captured phase is held to.  The
+    caller's reference to ``state`` lives until the call returns, so from
+    its second step on a K > 1 call holds one state more than a one-step
+    call (Zamba2-7B at 66 layers: a 35.6 GiB state beside a 63.5 GiB step
+    peak on an NVIDIA H100 80GB HBM3 at 700 W does not fit)."""
     step = make_train_step(plan, lr, wire=wire)
 
     def phase(state: dict, batches: dict):
@@ -267,6 +273,64 @@ def make_train_phase(plan: StepPlan, lr: float = 0.02, *,
                        for key in out[0]}
 
     return phase
+
+
+def make_scanned_train_phase(plan: StepPlan, lr: float = 0.02, *,
+                             wire: WireFormatLike = None) -> Callable:
+    """``phase(state, batches) -> (state, metrics)``: JAX's
+    ``make_scanned_train_phase`` without ``dist``: :func:`make_train_step`
+    through ``core/scan.py::scan_phase`` with the state donated, as JAX's
+    default.  On the card the step is warmed up, captured once as a CUDA
+    graph and replayed K times; the graph adopts the first state's tensors
+    and every call returns them updated in place, so a phase holds one
+    state and the caller's old references hold the new one.  On the CPU it
+    is the eager loop."""
+    return scan_phase(make_train_step(plan, lr, wire=wire),
+                      donate_carry=True)
+
+
+def make_prefetched_train_phase(plan: StepPlan, lr: float = 0.02, *,
+                                wire: WireFormatLike = None) -> Callable:
+    """:func:`make_scanned_train_phase` fed by the prefetch worker, as
+    JAX's ``make_prefetched_train_phase`` without a mesh:
+    ``run(state, batch_thunks) -> (state, [stacked metrics per phase])``
+    over zero-argument thunks, each building one phase's host batches
+    (numpy ``{"tokens_weak", "tokens_strong"}``, each (K, N, b, S)).  A
+    worker thread (two phases deep) builds phase k+1's batches and moves
+    them to the state's device with the port's pinned ``DevicePut``
+    (pinned host memory, a copy on a side stream that the phase's stream
+    waits on) while phase k runs.  The worker is joined before ``run``
+    returns, also when a thunk raises (its error surfaces as a
+    ``PrefetchError``, chained)."""
+    phase = make_scanned_train_phase(plan, lr, wire=wire)
+
+    def run(state: dict, batch_thunks):
+        thunks = list(batch_thunks)
+        dev = next(t.device for t in tree_leaves(state)
+                   if isinstance(t, torch.Tensor))
+        mover = DevicePut(dev)
+
+        def move(thunk):
+            b = thunk()
+            return list(b), mover(*b.values())
+
+        pf = Prefetcher(depth=2)
+        metrics = []
+        try:
+            if thunks:
+                pf.submit("batch0", lambda: move(thunks[0]))
+            for i in range(len(thunks)):
+                if i + 1 < len(thunks):
+                    pf.submit(f"batch{i + 1}",
+                              lambda t=thunks[i + 1]: move(t))
+                keys, moved = pf.get()[1]
+                state, ms = phase(state, dict(zip(keys, ready(moved))))
+                metrics.append(ms)
+        finally:
+            pf.close()
+        return state, metrics
+
+    return run
 
 
 # ===========================================================================

@@ -57,6 +57,16 @@ def _no_aux(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward pass (non-reentrant
+    ``torch.utils.checkpoint``).  The RNG state is not stashed: the stash
+    reads and restores the device generator's state at every call, which
+    a CUDA graph's capture need not allow, and no layer draws random
+    numbers in training, so no number changes."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 # ===========================================================================
 # Attention-family layer (GQA attention or MLA; dense MLP or MoE)
 # ===========================================================================
@@ -110,8 +120,7 @@ def _run_attn_stack(stack: list, cfg: ArchConfig, x: torch.Tensor, *,
     aux = _no_aux(x)
     for i, p_i in enumerate(stack):
         if remat:
-            x, aux_i = checkpoint(_train_layer, p_i, cfg, x, positions,
-                                  use_reentrant=False)
+            x, aux_i = _remat(_train_layer, p_i, cfg, x, positions)
         else:
             x, c, aux_i = _apply_attn_layer(
                 p_i, cfg, x, positions=positions, mode=mode,
@@ -330,8 +339,8 @@ class HybridMamba(DecoderLM):
         new_ssm = []
         for idx, p_i in enumerate(params["stack"]):
             if remat:
-                x = checkpoint(_train_block, _apply_mamba_layer, p_i, cfg, x,
-                               None, use_reentrant=False)
+                x = _remat(_train_block, _apply_mamba_layer, p_i, cfg, x,
+                           None)
                 new_ssm.append(ssm_caches[idx])
             else:
                 x, c = _apply_mamba_layer(p_i, cfg, x, mode=mode,
@@ -342,8 +351,8 @@ class HybridMamba(DecoderLM):
                 # the JAX model's do_shared: the same computation as an
                 # attention layer with a dense MLP
                 if remat:
-                    x = checkpoint(_train_layer, params["shared_attn"], cfg,
-                                   x, positions, use_reentrant=False)[0]
+                    x = _remat(_train_layer, params["shared_attn"], cfg, x,
+                               positions)[0]
                     continue
                 x, kv, _ = _apply_attn_layer(
                     params["shared_attn"], cfg, x, positions=positions,
@@ -474,11 +483,10 @@ class XLSTMModel:
         for g_p, g_c in zip(groups, cache["groups"]):
             if mode == "train" and torch.is_grad_enabled():
                 for m_p, m_c in zip(g_p["mlstm"], g_c["mlstm"]):
-                    x = checkpoint(_train_block, xl.apply_mlstm_block, m_p,
-                                   cfg, x, m_c, use_reentrant=False)
-                x = checkpoint(_train_block, xl.apply_slstm_block,
-                               g_p["slstm"], cfg, x, g_c["slstm"],
-                               use_reentrant=False)
+                    x = _remat(_train_block, xl.apply_mlstm_block, m_p,
+                               cfg, x, m_c)
+                x = _remat(_train_block, xl.apply_slstm_block, g_p["slstm"],
+                           cfg, x, g_c["slstm"])
                 new_groups.append(g_c)
                 continue
             new_m = []

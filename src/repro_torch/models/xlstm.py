@@ -155,8 +155,10 @@ def mlstm_chunked(q, k, v, logi, logf, cache: Optional[MLSTMCache],
     m_out = torch.stack(m_in[1:] + [m], 1)
     m_in = torch.stack(m_in, 1)                          # (b, j, nh)
     inter_log = Fc + m_in[:, :, None, :]
+    # the floor a fill on the device (no host copy: a CUDA graph captures
+    # it)
     m_new = torch.maximum(torch.maximum(D.amax(dim=3), inter_log),
-                          inter_log.new_tensor(NEG_INF))
+                          inter_log.new_full((), NEG_INF))
     W = torch.exp(D - m_new[:, :, :, None, :])           # (b, j, t, s, nh)
     inter_w = torch.exp(inter_log - m_new)               # (b, j, c, nh)
     wC = torch.exp(tail - m_out[:, :, None, :])
@@ -247,7 +249,7 @@ def slstm_step(p: dict, cfg: ArchConfig, carry: SLSTMCache,
     f = torch.exp(ft + carry.m - m_new)
     c = f * carry.c + i * torch.tanh(zt)
     n = f * carry.n + i
-    h = torch.sigmoid(ot) * c / torch.maximum(n, n.new_tensor(N_MIN))
+    h = torch.sigmoid(ot) * c / torch.maximum(n, n.new_full((), N_MIN))
     return SLSTMCache(h=h, c=c, n=n, m=m_new), h
 
 
