@@ -67,7 +67,11 @@ Phases, in order; any failure exits nonzero:
      differentiable scan against autograd of the plain scan, both designs'
      per-phase clocks and both routes timed in turns at B 4 and 1; also in
      3b the flash forward and backward at Zamba2-7B's
-     shared-block training shape (hd 112), timed; and time
+     shared-block training shape (hd 112), timed, and the backward at MLA's
+     (192, 128) pair (FLASH_BWD_MLA_CASES in both dtypes, rows that see no
+     key, DeepSeek-V2's training shape (B, 128, 4096, 192 / 128) at B 4 in
+     bf16 and B 1 in both dtypes, two bf16 launches bit for bit; the dK/dV
+     kernel's two passes' ptxas report), timed at B 4 and 1; and time
      kernel, plain version and, where one exists, the one PyTorch call
      that computes the same function (the quantizer's versions on inputs
      read from HBM, as its bound assumes, the fused kernel also warm in L2;
@@ -185,8 +189,8 @@ Phases, in order; any failure exits nonzero:
      phase handing back its static buffers and its second call allocating
      nothing but its metrics; then the prefetched phase (2 phases of K=2
      from host tokens) against the scanned one, bit for bit, no prefetch
-     thread left; 16a and 18a the same on the cut xLSTM and Zamba2 paths,
-     without the prefetched phase;
+     thread left; 16a, 18a and 20a the same on the cut xLSTM, Zamba2 and
+     DeepSeek-V2 paths, without the prefetched phase;
  15. the sixth path: LM training of xLSTM-1.3B at full width, as phase 13
      (width 2048, bf16 with the fp32 sLSTM weights), cut to its first 16
      blocks (two groups of 7 mLSTM + 1 sLSTM, split 1 + 1) at rate 2e-4,
@@ -212,7 +216,21 @@ Phases, in order; any failure exits nonzero:
  18. card against CPU on it: one step of a 4-layer fp32 Zamba2-7B at full
      width (the shared block every 2 layers, split 2 + 2), 2 clients x 128
      tokens, as phase 14;
- 19. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
+ 19. the eighth path: LM training of DeepSeek-V2 at full width, as phase
+     13 (width 5120, bf16 with the fp32 routers), cut to
+     DEEPSEEK_TRAIN_LAYERS (2: the dense MLA prefix layer in each client's
+     bottom, one MLA + MoE layer of 160 experts in the top; 3 ran out of
+     the card's memory) at JAX's rate, with the wgmma flash kernels at
+     (192, 128) (15 forward and 5 backward launches a step), the
+     clustering pair and the quantizer as there, the expert products
+     grouped with no host read, and the routing of the warm-up steps
+     (tokens per expert, the smallest gap between a token's 6th and 7th
+     routing probability);
+ 20. card against CPU on it: one step of a 2-layer fp32 DeepSeek-V2 at
+     d_model 1024 (16 heads, 16 experts top 6 with 2 shared, the published
+     MLA ranks and head dims, d_ff and vocabulary), 2 clients x 256
+     tokens, as phase 14, with every MoE layer call's routing equal;
+ 21. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
 Every profiled run's device records are read raw from the profiler
 (``_device_ops``), not through ``key_averages()``.
 
@@ -2971,9 +2989,17 @@ def _with_routing(cfg, fn):
     from repro_torch.models import moe
     moe.ROUTING = [] if cfg.moe is not None else None
     try:
-        return fn(), moe.ROUTING or []
+        out = fn()
+        return out, _routing_host(moe.ROUTING or [])
     finally:
         moe.ROUTING = None
+
+
+def _routing_host(records: list) -> list:
+    """``moe.ROUTING`` records (device tensors) read on the host: each
+    call's tokens per expert as a list and its gap as a float."""
+    return [{"counts": r["counts"].tolist(), "gap": float(r["gap"])}
+            for r in records]
 
 
 def _routing_line(records: list) -> str:
@@ -3198,6 +3224,16 @@ FLASH_BWD_CASES = [
 # atol that bounds e, the fp32 gap of the sums' orders, which the fp32
 # cases measure at danube's shape (below 3e-6 on an H100): 1e-5
 FLASH_BWD_TOLS = {"float32": (2e-4, 2e-4), "bfloat16": (1e-5, 2.0 ** -7)}
+# MLA's (192, 128) pair, in FLASH_BWD_CASES' style: (b, h, kvh, sq, skv,
+# causal, window), the forward's FLASH_MLA_CASES shapes at unscaled q.
+# The tolerance's atol assumes the fp32 sums of the two sides within 1e-5;
+# under a peaked softmax (q scaled by 8) they are not, at equal head dims
+# too (python3 scripts/flash_bwd_peaked_study.py on the card)
+FLASH_BWD_MLA_CASES = [
+    (1, 4, 4, 300, 300, True, 0), (2, 2, 2, 129, 129, True, 0),
+    (1, 4, 4, 77, 300, False, 0), (1, 2, 2, 300, 77, False, 0),
+    (1, 4, 2, 256, 256, True, 0), (1, 2, 2, 1000, 1000, True, 200),
+    (1, 4, 4, 512, 512, True, 0)]
 # H2O-Danube-1.8B at train_4k with the global batch cut to 4 sequences:
 # the top's attention is q (4, 32, 4096, 80) over k, v (4, 8, 4096, 80)
 LM_ARCH, LM_CLIENTS, LM_SEQ = "h2o-danube-1.8b", 4, 4096
@@ -3205,12 +3241,39 @@ LM_HEADS, LM_KV_HEADS, LM_HD = 32, 8, 80
 LM_WINDOWS = (0, 1024)
 
 
+# heads a plain-version call takes where the heads are not grouped (MLA's
+# 128 heads of (4096, 4096) fp32 scores would take 8.6 GB a matrix)
+REF_HEADS = 32
+
+
+def _head_chunks(h: int, kvh: int) -> list:
+    """Head slices to run the plain versions over: chunks of REF_HEADS
+    where every query head has its own KV head, else all heads at once."""
+    if h != kvh:
+        return [slice(None)]
+    return [slice(i, min(i + REF_HEADS, h)) for i in range(0, h, REF_HEADS)]
+
+
+def _bwd_ref(q, k, v, o, lse, g, causal=True, window=0):
+    """``ref.flash_attention_bwd_ref`` over :func:`_head_chunks`."""
+    import torch
+
+    from repro_torch.kernels import ref
+    parts = [ref.flash_attention_bwd_ref(
+        q[:, hs], k[:, hs], v[:, hs], o[:, hs], lse[:, hs], g[:, hs],
+        causal=causal, window=window)
+        for hs in _head_chunks(q.shape[1], k.shape[1])]
+    return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+
+
 def _check_bwd(q, k, v, g, what, tol, causal=True, window=0) -> float:
     """The forward kernel's output and lse against their plain versions
-    (one sequence at a time), then the backward kernels against theirs on
-    the forward kernel's output and lse; the gradients must come back in
-    their inputs' dtypes and strides.  ``tol`` is the backward's (atol,
-    rtol); the forward is held to ``FLASH_TOLS``."""
+    (one sequence and head chunk at a time), then the backward kernels
+    against theirs on the forward kernel's output and lse; the gradients
+    must come back in their inputs' dtypes and strides.  ``tol`` is the
+    backward's (atol, rtol); the forward is held to ``FLASH_TOLS``.  v
+    (and g, the output's gradient) may have a head dim of their own (MLA's
+    pair)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -3218,19 +3281,23 @@ def _check_bwd(q, k, v, g, what, tol, causal=True, window=0) -> float:
     o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                      with_lse=True)
     fwd_tol = FLASH_TOLS[str(q.dtype).removeprefix("torch.")]
+    chunks = _head_chunks(q.shape[1], k.shape[1])
     o_err = 0.0
     for i in range(q.shape[0]):
-        sl = slice(i, i + 1)
-        o_want = ref.flash_attention_ref(q[sl], k[sl], v[sl], causal=causal,
-                                         window=window).float()
-        o_err = max(o_err, float((o[sl].float() - o_want).abs().max()))
-        if not torch.allclose(o[sl].float(), o_want, atol=fwd_tol,
-                              rtol=fwd_tol):
-            fail(f"flash forward {what} differs from the plain version by "
-                 f"{o_err}")
-        del o_want
-    lse_want = ref.flash_attention_lse_ref(q, k, causal=causal,
-                                           window=window)
+        for hs in chunks:
+            sl = (slice(i, i + 1), hs)
+            o_want = ref.flash_attention_ref(q[sl], k[sl], v[sl],
+                                             causal=causal,
+                                             window=window).float()
+            o_err = max(o_err, float((o[sl].float() - o_want).abs().max()))
+            if not torch.allclose(o[sl].float(), o_want, atol=fwd_tol,
+                                  rtol=fwd_tol):
+                fail(f"flash forward {what} differs from the plain version "
+                     f"by {o_err}")
+            del o_want
+    lse_want = torch.cat([ref.flash_attention_lse_ref(
+        q[:, hs], k[:, hs], causal=causal, window=window) for hs in chunks],
+        dim=1)
     seen = torch.isfinite(lse_want)
     if not (torch.equal(seen, torch.isfinite(lse))
             and torch.allclose(lse[seen], lse_want[seen], atol=1e-4,
@@ -3240,8 +3307,7 @@ def _check_bwd(q, k, v, g, what, tol, causal=True, window=0) -> float:
     before = dict(fa.LAUNCHES)
     got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g, causal=causal,
                                       window=window)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, g, causal=causal,
-                                       window=window)
+    want = _bwd_ref(q, k, v, o, lse, g, causal=causal, window=window)
     torch.cuda.synchronize()
     wgmma = int(q.dtype == torch.bfloat16)
     if (fa.LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"],
@@ -3273,13 +3339,16 @@ def _check_bwd(q, k, v, g, what, tol, causal=True, window=0) -> float:
     return err
 
 
-def _model_views(gen, dt, b, s, h, kvh, hd, extra=()):
-    """q, k, v (and ``extra`` more q-shaped tensors) as the model hands
-    them over: (B, heads, S, hd) views of (B, S, heads, hd) tensors."""
+def _model_views(gen, dt, b, s, h, kvh, hd, extra=(), hd_v=0):
+    """q, k, v (and ``extra`` more tensors shaped like the output) as the
+    model hands them over: (B, heads, S, hd) views of (B, S, heads, hd)
+    tensors; v and the output have head dim ``hd_v`` where it is given."""
     import torch
-    view = lambda n: torch.randn(b, s, n, hd, generator=gen, device="cuda"
-                                 ).to(dt).transpose(1, 2)
-    return [view(h), view(kvh), view(kvh)] + [view(h) for _ in extra]
+    hd_v = hd_v or hd
+    view = lambda n, d: torch.randn(b, s, n, d, generator=gen,
+                                    device="cuda").to(dt).transpose(1, 2)
+    return [view(h, hd), view(kvh, hd), view(kvh, hd_v)] + [
+        view(h, hd_v) for _ in extra]
 
 
 def _ptxas_rows(log: str, kernel: str) -> list:
@@ -3301,16 +3370,21 @@ def _ptxas_rows(log: str, kernel: str) -> list:
 
 def phase_flash_bwd(card: str, ptxas: str = "") -> dict:
     """Flash attention's backward on the card: every ``FLASH_BWD_CASES``
-    entry in fp32 (the CUDA-core kernels) and bf16 (the tensor-core ones),
-    every head dim in bf16, rows that see no key (zero gradients, no NaN),
-    then H2O-Danube-1.8B's training shape (model views) at windows 0 and
-    1024 in both types, and at head dims 64 and 128, where two launches
-    must agree bit for bit; then timed at that shape in bf16, causal
-    (:func:`_time_flash_train`); then Zamba2-7B's shared-block training
-    shape, q, k, v (4, 32, 4096, 112) bf16 causal views (hd 112, no GQA),
-    checked and timed the same way."""
+    entry and every ``FLASH_BWD_MLA_CASES`` entry (MLA's (192, 128) pair) in
+    fp32 (the CUDA-core kernels) and bf16 (the tensor-core ones), every
+    head dim in bf16, rows that see no key (zero gradients, no NaN; at
+    equal dims and at the pair), then H2O-Danube-1.8B's training shape
+    (model views) at windows 0 and 1024 in both types, and at head dims 64
+    and 128, where two launches must agree bit for bit; then timed at that
+    shape in bf16, causal (:func:`_time_flash_train`); then Zamba2-7B's
+    shared-block training shape, q, k, v (4, 32, 4096, 112) bf16 causal
+    views (hd 112, no GQA), checked and timed the same way; then
+    DeepSeek-V2's MLA training shape, q, k (B, 128, 4096, 192) and v (B,
+    128, 4096, 128) causal views at B 4 (bf16) and B 1 (bf16 and fp32),
+    checked, two bf16 launches bit for bit, and timed."""
     import torch
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    # the dK/dV kernel's third template argument: 3 both, 1 dV, 2 dK
     for kernel in ("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"):
         for row in _ptxas_rows(ptxas, kernel):
             print(f"[kernels] flash backward ptxas: {row}")
@@ -3339,6 +3413,29 @@ def phase_flash_bwd(card: str, ptxas: str = "") -> dict:
                 and float(dq[:, :, 23:].float().abs().max()) == 0.0):
             fail(f"flash backward ({dname}): a row that sees no key has a "
                  "finite lse or a nonzero or NaN gradient")
+        # MLA's pair, then rows that see no key
+        for b, h, kvh, sq, skv, causal, window in FLASH_BWD_MLA_CASES:
+            q = randn(b, h, sq, MLA_HD).to(dt)
+            k = randn(b, kvh, skv, MLA_HD).to(dt)
+            v, g = (randn(b, n, s_, MLA_HD_V).to(dt)
+                    for n, s_ in ((kvh, skv), (h, sq)))
+            err = max(err, _check_bwd(
+                q, k, v, g, f"{dname} MLA q ({b}, {h}, {sq}, {MLA_HD}) kv "
+                f"({kvh}, {skv}) v {MLA_HD_V} causal={causal} "
+                f"window={window}", tol, causal, window))
+        q, k = randn(1, 2, 64, MLA_HD).to(dt), randn(1, 2, 16, MLA_HD).to(dt)
+        v, g = randn(1, 2, 16, MLA_HD_V).to(dt), randn(1, 2, 64,
+                                                       MLA_HD_V).to(dt)
+        o, lse = fa.flash_attention_cuda(q, k, v, window=8, with_lse=True)
+        dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g,
+                                                 window=8)
+        torch.cuda.synchronize()
+        if not (bool(torch.isneginf(lse[:, :, 23:]).all())
+                and all(bool(torch.isfinite(t.float()).all())
+                        for t in (dq, dk, dv))
+                and float(dq[:, :, 23:].float().abs().max()) == 0.0):
+            fail(f"flash backward ({dname}, MLA's pair): a row that sees no "
+                 "key has a finite lse or a nonzero or NaN gradient")
     tol = FLASH_BWD_TOLS["bfloat16"]
     for hd in fa.HEAD_DIMS:
         q, k, v, g = _model_views(gen, torch.bfloat16, 2, 300, 4, 2, hd,
@@ -3381,6 +3478,32 @@ def phase_flash_bwd(card: str, ptxas: str = "") -> dict:
     _time_flash_train(card, "zamba2-7b's training shape", q, k, v, g)
     del q, k, v, g
     torch.cuda.empty_cache()
+    # DeepSeek-V2's MLA on the training path: q, k (B, 128, 4096, 192) and
+    # v (B, 128, 4096, 128), views of the model's (B, S, H, d) tensors, at
+    # the top's B 4 (bf16) and a client bottom's B 1 (bf16 and fp32)
+    t_mla = time.perf_counter()
+    for b_mla, dnames in ((b, ("bfloat16",)), (1, ("bfloat16", "float32"))):
+        for dname in dnames:
+            dt = getattr(torch, dname)
+            q, k, v, g = _model_views(gen, dt, b_mla, s, DEEPSEEK_HEADS,
+                                      DEEPSEEK_HEADS, MLA_HD, extra=(1,),
+                                      hd_v=MLA_HD_V)
+            where = f"deepseek-v2-236b's training shape (B {b_mla})"
+            err = max(err, _check_bwd(
+                q, k, v, g, f"{dname} at {where} q {tuple(q.shape)} v "
+                f"{tuple(v.shape)}", FLASH_BWD_TOLS[dname]))
+            if dname == "bfloat16":
+                o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+                first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g)
+                again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g)
+                if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                    fail(f"flash backward at {where}: two launches differ")
+                del o, lse, first, again
+                _time_flash_train(card, where, q, k, v, g)
+            del q, k, v, g
+            torch.cuda.empty_cache()
+    print(f"[kernels] flash backward at deepseek-v2-236b's training shape: "
+          f"checked and timed in {time.perf_counter() - t_mla:.1f} s")
     return {"err": err, "timing": timing}
 
 
@@ -3388,20 +3511,29 @@ def _time_flash_train(card: str, where: str, q, k, v, g) -> dict:
     """Flash attention at one bf16 causal training shape: the forward (with
     its lse) and the backward, each timed against the library
     (``scaled_dot_product_attention``: its forward, and its forward and
-    backward less its forward) and its bound, the backward also against its
-    plain version, with its rate counted over the 5 products the bound
-    counts and over those the bf16 kernels issue.  Returns the backward's
-    times and bound, for the ``kernels`` line."""
+    backward less its forward, with the backend it took named) and its
+    bound, the backward also against its plain version (over
+    :func:`_head_chunks`), with its rate counted over the 5 products the
+    bound counts and over those the bf16 kernels issue.  v and g may have
+    a head dim of their own (MLA's pair): S, dQ and dK are products over
+    q's head dim, P V, dP and dV over v's.  A library call that fails (no
+    backend, or out of memory) is reported and left out.  Returns the
+    backward's times and bound, for the ``kernels`` line."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     b, h, s, hd = q.shape
+    hd_v = v.shape[-1]
     o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
     pairs = _attn_pairs(s, s, True, 0)
     size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
-    issued = 4 + 2 * fa.BWD_KV_TERMS + fa.BWD_DQ_TERMS
+    # operations a visible pair in the products the bf16 kernels issue: S
+    # twice (three times at a pair, dV and dK in two passes), dP twice, P
+    # and dS in BWD_KV_TERMS terms for dV and dK, dS in BWD_DQ_TERMS for dQ
+    n_s = 2 if hd == hd_v else 3
+    issued = 2 * (n_s * hd + 2 * hd_v + fa.BWD_KV_TERMS * (hd + hd_v)
+                  + fa.BWD_DQ_TERMS * hd)
     lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(
         lq, lk, lv, is_causal=True, enable_gqa=k.shape[1] != h)
@@ -3410,25 +3542,43 @@ def _time_flash_train(card: str, where: str, q, k, v, g) -> dict:
                     iters=5, warmup=1),
         bwd=time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, g),
                     iters=5, warmup=1),
-        plain=time_ms(lambda: ref.flash_attention_bwd_ref(
-            q, k, v, o, lse, g), iters=3, warmup=1),
-        lib_fwd=time_ms(lambda: sdpa().detach(), iters=10, warmup=2),
-        lib_fwd_bwd=time_ms(lambda: torch.autograd.grad(
-            sdpa(), (lq, lk, lv), g), iters=10, warmup=2))
-    library = (t["lib_fwd_bwd"][0] - t["lib_fwd"][0],
-               t["lib_fwd_bwd"][1] - t["lib_fwd"][1])
-    shape = f"q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal"
+        plain=time_ms(lambda: _bwd_ref(q, k, v, o, lse, g), iters=3,
+                      warmup=1))
+    lib_kernels: dict = {}
+    try:
+        t["lib_fwd"] = time_ms(lambda: sdpa().detach(), iters=10, warmup=2)
+        t["lib_fwd_bwd"] = time_ms(lambda: torch.autograd.grad(
+            sdpa(), (lq, lk, lv), g), iters=10, warmup=2,
+            by_kernel=lib_kernels)
+        library = (t["lib_fwd_bwd"][0] - t["lib_fwd"][0],
+                   t["lib_fwd_bwd"][1] - t["lib_fwd"][1])
+        print(f"[timing] flash_attention_bwd at {where}: the library call "
+              f"takes the {_sdpa_backend(lib_kernels)} backend; its "
+              "kernels " + ", ".join(f"{n[:70]} {ms:.4f} ms" for n, ms in
+                                     lib_kernels.items()))
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        t["lib_fwd"] = library = None
+        print(f"[timing] flash_attention at {where}: no library time, "
+              f"scaled_dot_product_attention raised "
+              f"{str(e).splitlines()[0][:200]}")
+        torch.cuda.empty_cache()
+    shape = (f"q {tuple(q.shape)} kv {tuple(k.shape)}"
+             + (f" v {tuple(v.shape)}" if hd_v != hd else "")
+             + " bf16 causal")
+    lib_text = lambda lib: ("no library time" if lib is None else
+                            f"{lib[0]:.4f} ms (events {lib[1]:.4f})")
     out = {}
-    for name, n_prod, n_bytes in (
-            ("forward", 2, size(q, k, v, o) + lse.numel() * 4),
-            ("backward", 5, 2 * size(q, k, v) + size(o, g)
-             + lse.numel() * 4)):
-        n_flops = n_prod * 2 * b * h * hd * pairs
+    for name, n_prod, per_pair, n_bytes in (
+            ("forward", 2, 2 * (hd + hd_v), size(q, k, v, o)
+             + lse.numel() * 4),
+            ("backward", 5, 2 * (3 * hd + 2 * hd_v), 2 * size(q, k, v)
+             + size(o, g) + lse.numel() * 4)):
+        n_flops = per_pair * b * h * pairs
         bound = bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS)
         if name == "forward":
             ms, lib = t["fwd"], t["lib_fwd"]
             detail = (f"library (scaled_dot_product_attention) "
-                      f"{lib[0]:.4f} ms (events {lib[1]:.4f})")
+                      f"{lib_text(lib)}")
             rate = f"{n_flops / ms[0] / 1e9:.1f} TFLOP/s"
             label = "flash forward (with lse)"
         else:
@@ -3436,25 +3586,28 @@ def _time_flash_train(card: str, where: str, q, k, v, g) -> dict:
             detail = (f"plain {t['plain'][0]:.4f} ms (events "
                       f"{t['plain'][1]:.4f}), library "
                       f"(scaled_dot_product_attention forward + backward "
-                      f"{t['lib_fwd_bwd'][0]:.4f} less forward "
-                      f"{t['lib_fwd'][0]:.4f}) {lib[0]:.4f} ms (events "
-                      f"{lib[1]:.4f})")
+                      f"less forward) {lib_text(lib)}")
             rate = (f"{n_flops / ms[0] / 1e9:.1f} TFLOP/s counting the 5 "
-                    f"products, {issued * n_flops / 5 / ms[0] / 1e9:.1f} "
-                    f"counting the {issued} the bf16 kernels issue (S and "
-                    f"dP twice; P and dS as {fa.BWD_KV_TERMS} bf16 terms "
-                    f"for dK and dV, dS as {fa.BWD_DQ_TERMS} for dQ)")
+                    f"products, "
+                    f"{issued * b * h * pairs / ms[0] / 1e9:.1f} counting "
+                    f"the {issued} operations a pair the bf16 kernels issue "
+                    f"(S {n_s} times, dP twice; P and dS as "
+                    f"{fa.BWD_KV_TERMS} bf16 terms for dK and dV, dS as "
+                    f"{fa.BWD_DQ_TERMS} for dQ)")
             label = "flash_attention_bwd"
             out = {"ms": ms[0], "plain_ms": t["plain"][0],
-                   "library_ms": lib[0], "bound": bound}
+                   "library_ms": None if lib is None else lib[0],
+                   "bound": bound}
         print(f"[timing] {label} at {where}, {shape} ({n_flops:.4g} "
               f"operations in {n_prod} products, {n_bytes / 1e6:.1f} MB): "
               f"kernel {ms[0]:.4f} ms (events {ms[1]:.4f}), {detail}, bound "
               f"{bound[0]:.4f} ms ({bound[1]}; "
               f"{n_flops / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 "
               f"CUDA-core peak); kernel at {rate}, "
-              f"{bound[0] / ms[0]:.4f} of the bound, "
-              f"{ms[0] / lib[0]:.2f}x the library's time; on {card}")
+              f"{bound[0] / ms[0]:.4f} of the bound"
+              + ("" if lib is None else
+                 f", {ms[0] / lib[0]:.2f}x the library's time")
+              + f"; on {card}")
     del o, lse, lq, lk, lv
     return out
 
@@ -3556,8 +3709,16 @@ def _lm_launches(cfg, n: int, wire) -> dict:
 # does not have, which still runs every fp32 kernel of the path (two
 # periods of 6 layers took that phase 177.6 s, most of it the full-width
 # fp32 state on the host), over 128 tokens a client (two of the scan
-# kernels' 64-step chunks)
+# kernels' 64-step chunks).  DeepSeek-V2 trains at full width cut to
+# DEEPSEEK_TRAIN_LAYERS (the dense prefix layer in each client's bottom,
+# MLA + MoE layers of 160 experts in the top; an MoE layer is about 7.95 GB
+# in bf16, and the state holds the top twice and 8 bottoms) at JAX's rate.
+# Its card-vs-CPU step and graph check cannot hold two full-width states:
+# they take d_model 1024 with 16 heads and 16 experts (top 6 of 1536, 2
+# shared), the published MLA ranks and head dims (q/k 192 over v 128),
+# d_ff and vocabulary, 2 layers split 1 + 1, over 256 tokens a client
 ZAMBA_TRAIN_LAYERS = 66
+DEEPSEEK_TRAIN_LAYERS = 2
 LM_TRAIN_PATHS = {
     "h2o-danube-1.8b": (
         "lm-train", None, 0.02,
@@ -3583,7 +3744,66 @@ LM_TRAIN_PATHS = {
          "flash_bwd_dq_wgmma", "clustering_", "amax_kernel", "qdq_kernel"),
         ("flash_bwd_dkdv<", "flash_bwd_dq<", "mamba2_scan_kernel(",
          "mamba2_scan_bwd_kernel<", "mamba2_scan_bwd_merge")),
+    "deepseek-v2-236b": (
+        "lm-train-deepseek", DEEPSEEK_TRAIN_LAYERS, 0.02,
+        lambda cfg: replace(cfg, num_layers=2, d_model=1024, num_heads=16,
+                            num_kv_heads=16,
+                            moe=replace(cfg.moe, num_experts=16),
+                            semisfl=replace(cfg.semisfl, split_layer=1)),
+        256,
+        ("flash_kernel_wgmma", "flash_bwd_delta", "flash_bwd_dkdv_wgmma",
+         "flash_bwd_dq_wgmma", "clustering_", "amax_kernel", "qdq_kernel"),
+        ("flash_bwd_dkdv<", "flash_bwd_dq<")),
 }
+
+
+def _check_moe_route(card: str, cfg, tag: str) -> None:
+    """The MoE layer's expert route on the card against its plain version:
+    one MoE layer of ``cfg`` at full width (bf16, weights drawn from seed
+    4), one client's 4096 tokens, through ``moe.apply_moe`` on the grouped
+    products and on the per-expert loop (``route=``): the output, the aux
+    loss and the gradients of x, the router and the experts, for one
+    output cotangent.  Each leaf's largest difference must stay within
+    2^-7 of the leaf's largest magnitude (one bf16 ulp at its scale: the
+    two routes' products sum in other orders before the bf16 rounding),
+    and the aux loss must be equal (the routing is one computation)."""
+    import torch
+
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    p = moe.init_moe(cfg, gen, "cuda", torch.bfloat16)
+    x = torch.randn(1, LM_SEQ, cfg.d_model, generator=gen,
+                    device="cuda").bfloat16()
+    g = torch.randn(1, LM_SEQ, cfg.d_model, generator=gen,
+                    device="cuda").bfloat16()
+    runs = {}
+    for route in ("grouped", "loop"):
+        leaves = {"x": x.clone().requires_grad_(True),
+                  "router": p["router"].clone().requires_grad_(True),
+                  **{f"experts.{k}": v.clone().requires_grad_(True)
+                     for k, v in p["experts"].items()}}
+        q = dict(p, router=leaves["router"], experts={
+            k: leaves[f"experts.{k}"] for k in p["experts"]})
+        out, aux = moe.apply_moe(q, cfg, leaves["x"], route=route)
+        grads = torch.autograd.grad((out.float() * g.float()).sum() + aux,
+                                    list(leaves.values()))
+        runs[route] = ({"out": out.detach(), "aux": aux.detach(),
+                        **dict(zip(leaves, grads))})
+        del leaves, q, out, aux, grads
+    torch.cuda.synchronize()
+    rel = {k: float((runs["grouped"][k].float() - runs["loop"][k].float())
+                    .abs().max() / runs["loop"][k].float().abs().max()
+                    .clamp_min(1e-30)) for k in runs["loop"]}
+    print(f"[{tag}] the expert route on the card, one MoE layer at full "
+          f"width ({cfg.moe.num_experts} experts, top {cfg.moe.top_k}), "
+          f"bf16, {LM_SEQ} tokens: grouped products against the per-expert "
+          f"loop, max|diff| / max|loop| " + ", ".join(
+              f"{k} {v:.3g}" for k, v in rel.items()) + f"; on {card}")
+    if rel["aux"] != 0.0 or max(rel.values()) > 2.0 ** -7:
+        fail(f"the grouped expert route differs from the per-expert loop: "
+             f"{rel}")
+    del runs, p, x, g
+    torch.cuda.empty_cache()
 
 
 def phase_lm_train(card: str, arch: str) -> dict:
@@ -3605,7 +3825,12 @@ def phase_lm_train(card: str, arch: str) -> dict:
     pointer advanced, every leaf of the state is finite, each kernel ran
     as often as :func:`_lm_launches` says in each of the 4 steps and the
     WARMUP_STEPS eager warm-up steps, and the profiled step shows each of
-    the path's kernels."""
+    the path's kernels.  An MoE path also prints its routing over the
+    first call's eager warm-up steps (``moe.ROUTING``, set for that call
+    and read after it): tokens per expert and the smallest gap between the
+    k-th and (k+1)-th routing probability; and, before its state is drawn,
+    holds its MoE layer's grouped expert route to the per-expert loop
+    (:func:`_check_moe_route`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3614,12 +3839,15 @@ def phase_lm_train(card: str, arch: str) -> dict:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import (init_train_state,
                                           make_scanned_train_phase)
+    from repro_torch.models import moe
     from repro_torch.tree import tree_leaves
     tag, depth, lr, _, _, names, refused = LM_TRAIN_PATHS[arch]
     base = get_config(arch)
     cfg = replace(base, num_layers=depth or base.num_layers,
                   semisfl=replace(base.semisfl, confidence_threshold=0.0))
     plan = _lm_plan(cfg, LM_CLIENTS, LM_SEQ)
+    if cfg.moe is not None:
+        _check_moe_route(card, cfg, tag)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3646,9 +3874,17 @@ def phase_lm_train(card: str, arch: str) -> dict:
     part = lambda a, b: {k: v[a:b] for k, v in tokens.items()}
 
     reset_launch_counts()
+    moe.ROUTING = [] if cfg.moe is not None else None
     t0 = time.perf_counter()
-    state, m_warm = phase(state, part(0, 1))
-    torch.cuda.synchronize()
+    try:
+        state, m_warm = phase(state, part(0, 1))
+        torch.cuda.synchronize()
+        # the warm-up steps' records; the capture's come last
+        records = moe.ROUTING or []
+        records = _routing_host(records[:len(records) * WARMUP_STEPS
+                                        // (WARMUP_STEPS + 1)])
+    finally:
+        moe.ROUTING = None
     first_s = time.perf_counter() - t0
     (graph,) = phase.graphs.values()
     t0 = time.perf_counter()
@@ -3667,6 +3903,9 @@ def phase_lm_train(card: str, arch: str) -> dict:
           f"replay); 3 timed steps in one call {wall:.6f} s a step, "
           f"{tokens_step / wall:.1f} tokens/s; peak device memory "
           f"{peak / 2**30:.3f} GiB; on {card}")
+    if records:
+        print(f"[{tag}] routing in the {WARMUP_STEPS} warm-up steps: "
+              f"{_routing_line(records)}")
     print(f"[{tag}] metrics of the 4 steps: " + "; ".join(
         f"{k} {', '.join(f'{x:.6g}' for x in v)}" for k, v in
         metrics.items()))
@@ -3749,7 +3988,11 @@ def phase_lm_cross_check(arch: str) -> None:
     (cuBLAS and the CPU sum in other orders, the kernels against their
     plain versions too: the tolerance of phase 5), and the sequence
     pseudo-labels written to the queue equal; the card's step must launch
-    each kernel as :func:`_lm_launches` says."""
+    each kernel as :func:`_lm_launches` says.  An MoE path (DeepSeek-V2 at
+    d_model 1024, see LM_TRAIN_PATHS) must route every MoE layer call's
+    tokens to the same experts on both sides (the card's fp32 expert
+    products take the per-expert loop, the CPU's the grouped products),
+    and prints the smallest routing gap."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3770,11 +4013,20 @@ def phase_lm_cross_check(arch: str) -> None:
     state_cpu, batch_cpu = _to_cpu(state), _to_cpu(batch)
     t0 = time.perf_counter()
     reset_launch_counts()
-    new_gpu, m_gpu = step(state, batch)
+    (new_gpu, m_gpu), r_gpu = _with_routing(cfg, lambda: step(state, batch))
     torch.cuda.synchronize()
     counts = launch_counts()
     del state
-    new_cpu, m_cpu = step(state_cpu, batch_cpu)
+    (new_cpu, m_cpu), r_cpu = _with_routing(
+        cfg, lambda: step(state_cpu, batch_cpu))
+    if r_cpu:
+        same = [r["counts"] for r in r_gpu] == [r["counts"] for r in r_cpu]
+        print(f"[cross-{tag}] routing on the CPU: {_routing_line(r_cpu)}; "
+              f"the card's tokens per expert equal to the CPU's in every "
+              f"layer call: {same}")
+        if not same:
+            fail(f"{arch} LM cross-check: the card routed tokens to other "
+                 f"experts than the CPU")
     got, want = (lm_train_state_to_numpy(x) for x in (new_gpu, new_cpu))
     q_gpu, q_cpu = got.pop("queue"), want.pop("queue")
     leaves = list(zip(_paths(got), _paths(want)))
@@ -3971,7 +4223,11 @@ def phase_lm_graph(card: str, arch: str) -> None:
 
 
 def _paths(tree, prefix: str = "") -> list:
-    """(path, leaf) of a tree of dicts and lists of numpy arrays, in order."""
+    """(path, leaf) of a tree of dicts and lists of numpy arrays, in order;
+    a None (an empty layer segment, a DeepSeek bottom's ``stack``) has
+    none."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in tree for x in _paths(tree[k], f"{prefix}.{k}")]
     if isinstance(tree, (list, tuple)):

@@ -4,7 +4,8 @@
   python3 scripts/lm_depth_probe.py [--arch ARCH] [layers:rate ...]
 
 For each depth and rate (for xlstm-1.3b, the default arch, by default
-48:2e-4 24:2e-4 16:2e-4 48:2e-5; for zamba2-7b 66:0.02 60:0.02 54:0.02) it
+48:2e-4 24:2e-4 16:2e-4 48:2e-5; for zamba2-7b 66:0.02 60:0.02 54:0.02; for
+deepseek-v2-236b 3:0.02 2:0.02) it
 draws the full-width train state of ARCH cut to that many blocks or layers
 (bf16, seed 0), then runs 3 SemiSFL steps of chip_smoke.py's LM path
 (4 clients x 1 x 4096 tokens, the ``int8`` wire, tau 0) and prints, a step,
@@ -17,8 +18,8 @@ change over the 3 steps of client 0's bottom, its teacher and the top, and
 the peak device memory.  It is the witness for chip_smoke.py's
 LM_TRAIN_PATHS cuts: xLSTM-1.3B's 16 blocks at rate 2e-4 (``python
 tests/test_torch_xlstm_train.py`` runs the same reading on the CPU at the
-smoke width through both packages) and Zamba2-7B's depth, where memory
-sets it.  Each step is a call of the step function that drops the state
+smoke width through both packages) and Zamba2-7B's and DeepSeek-V2's
+depths, where memory sets them.  Each step is a call of the step function that drops the state
 it started from, so the peak is one state, the gradients and the update's
 new trees.  It reuses chip_smoke.py's plan and token helpers.  Needs a
 card and ``nvcc``; imports nothing of JAX."""
@@ -34,7 +35,8 @@ STEPS = 3
 
 
 DEFAULTS = {"xlstm-1.3b": ["48:2e-4", "24:2e-4", "16:2e-4", "48:2e-5"],
-            "zamba2-7b": ["66:0.02", "60:0.02", "54:0.02"]}
+            "zamba2-7b": ["66:0.02", "60:0.02", "54:0.02"],
+            "deepseek-v2-236b": ["3:0.02", "2:0.02"]}
 
 
 def main(arch: str, cases) -> None:

@@ -169,20 +169,23 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 def _stack_trees(trees: list):
     """Trees of numpy arrays with one structure -> one tree of arrays with
-    a leading axis (JAX's stacked layout)."""
-    return tree_map(lambda *xs: np.stack(xs), *trees)
+    a leading axis (JAX's stacked layout; None leaves stay None)."""
+    return tree_map(lambda *xs: None if xs[0] is None else np.stack(xs),
+                    *trees)
 
 
 def _lm_half_to_numpy(part: dict) -> dict:
     """The port's ``bottom`` or ``top`` tree -> numpy in the JAX layout
     (the inverse of :func:`_lm_half_from_numpy`): ``stack`` and
-    ``prefix`` on a leading layer axis; xLSTM's ``groups`` as ``{"mlstm":
-    on (groups, blocks), "slstm": on (groups,)}``."""
+    ``prefix`` on a leading layer axis, an empty one None (a DeepSeek
+    bottom's ``stack`` where its prefix layers fill the split); xLSTM's
+    ``groups`` as ``{"mlstm": on (groups, blocks), "slstm": on
+    (groups,)}``."""
     out = {}
     for key, sub in part.items():
         leaves = tree_map(_array, sub)
-        if key in _LAYER_SEGMENTS and leaves:
-            leaves = _stack_trees(leaves)
+        if key in _LAYER_SEGMENTS:
+            leaves = _stack_trees(leaves) if leaves else None
         elif key == "groups" and leaves:
             leaves = {"mlstm": _stack_trees([_stack_trees(g["mlstm"])
                                              for g in leaves]),
@@ -197,15 +200,19 @@ def lm_train_state_from_numpy(state: dict,
     structure) as numpy -> the port's (``repro_torch.launch.steps``).
     JAX stacks the N clients' bottoms and teacher bottoms on a leading
     client axis, and each bottom's layers on a second one inside
-    ``stack`` (xLSTM's groups inside ``groups``, and each group's mLSTM
-    blocks on a third); the port keeps a list of N client trees, each with
-    a list of per-layer trees (of per-group trees).  The top, teacher top
+    ``stack`` and ``prefix`` (xLSTM's groups inside ``groups``, and each
+    group's mLSTM blocks on a third; an empty segment is None); the port
+    keeps a list of N client trees, each with a list of per-layer trees
+    (of per-group trees; an empty list for an empty segment).  An MoE
+    layer's router, experts and shared or dense-residual MLPs and an MLA
+    layer's weights unstack like any other layer's.  The top, teacher top
     and projection heads unstack as ``lm_params_from_numpy`` does; the
     queue goes through :func:`queue_from_numpy`."""
     def clients(stacked):
         n = len(tree_leaves(stacked)[0])
-        return [_lm_half_from_numpy(tree_map(lambda a, i=i: a[i], stacked),
-                                    device) for i in range(n)]
+        return [_lm_half_from_numpy(tree_map(
+            lambda a, i=i: None if a is None else a[i], stacked), device)
+            for i in range(n)]
     to_t = lambda sub: tree_map(lambda a: _tensor(a, device), sub)
     q = state["queue"]
     return {"client_bottoms": clients(state["client_bottoms"]),

@@ -9,7 +9,11 @@
 // stand-in _chunked_attend (src/repro/models/attention.py), and JAX's VJP of
 // that is the reference.  Given the forward's q, k, v, its output o and
 // each row's log-sum-exp lse (flash_attention.cu writes it), and the
-// output's gradient dO, with s = 1 / sqrt(hd) and G = H / KVH:
+// output's gradient dO, with s = 1 / sqrt(hd) and G = H / KVH (q and k
+// have head dim hd, v, o and dO hd_v: equal, 32 to 128, or MLA's (192,
+// 128), DeepSeek-V2's 128 nope + 64 rope columns over 128 value columns,
+// where this replaces JAX's VJP of the chunked softmax in
+// src/repro/models/mla.py's apply_mla; dQ and dK have hd columns, dV hd_v):
 //
 //   P[i, j]  = exp(s q_i . k_j - lse_i)   where key j is unmasked, else 0
 //   D_i      = dO_i . o_i
@@ -26,7 +30,7 @@
 // no key has lse = -inf and P = 0, so its gradients are 0, never NaN (P is
 // only evaluated where the key is unmasked).  P, dS and the accumulators
 // are fp32; the gradients are rounded once, to the input's type, when they
-// are written.  Both routes first launch flash_bwd_delta<T, HD> (D, one
+// are written.  Both routes first launch flash_bwd_delta<T, HDV> (D, one
 // warp a row); then, by the inputs' type:
 //
 // bf16 (every training path): two kernels on the tensor cores, each
@@ -52,8 +56,8 @@
 // and chaining every tile's wgmma into the accumulator over a key's whole
 // column (4,096 rows of 4 heads at danube's shape) put all 24 of those
 // checks over the limit, up to 10.5x.
-//   flash_bwd_dkdv_wgmma<HD>  one block per (key tile of 128, KV head,
-//       batch), the heaviest causal key tiles first; two consumer
+//   flash_bwd_dkdv_wgmma<HD, HDV, What>  one block per (key tile of 128,
+//       KV head, batch), the heaviest causal key tiles first; two consumer
 //       warpgroups own 64 keys each, and a producer warpgroup (setmaxnreg
 //       gives its registers to them) loads K and V once by TMA, then
 //       streams Q and dO tiles of 64 rows over the group's G heads and, for
@@ -68,27 +72,35 @@
 //       and Q as the MN-major B operand in pieces of at most 64 head-dim
 //       columns, one per swizzle atom), each added into dV or dK.  P is
 //       formed while the dP product runs.  The sum over the group is the
-//       loop in the block, in a fixed order.
-//   flash_bwd_dq_wgmma<HD>    one block per (query tile of 128, head,
+//       loop in the block, in a fixed order.  At MLA's (192, 128) a
+//       consumer thread would hold 96 dK and 64 dV floats beside the S^T
+//       and dP^T tiles (32 each) and the terms, past the 240 registers
+//       setmaxnreg gives it, so the kernel runs twice (What): first dV
+//       alone (S^T, P^T, P^T dO; V not loaded), then dK alone (S^T, dP^T,
+//       dS^T Q), each recomputing P from lse; K is three boxes of 64
+//       columns, V and dO two, Q three: 160 KB of shared memory for dK.
+//   flash_bwd_dq_wgmma<HD, HDV>  one block per (query tile of 128, head,
 //       batch), the heaviest tile first; Q, dO, lse and D staged once, K
 //       and V tiles of 128 keys streamed by TMA over the keys the tile can
 //       see; per tile each consumer warpgroup (64 rows) computes S = Q K^T
 //       and dP = dO V^T (the forward's first product), dS, its terms, and
 //       dS K (K as the MN-major B operand, the forward's second product),
-//       added into dQ.
+//       added into dQ.  At (192, 128) the K/V ring is one stage deep:
+//       Q (48 KB), dO (32 KB) and one K (48 KB) and V (32 KB) stage;
+//       two stages would pass the 227 KB a block may have.
 // Both mask only the tiles that hold a masked key for some row, skip a
 // warpgroup's tile where it holds none that is unmasked, and read lse =
 // +inf for a row past Sq or one that sees no key, so that its P is 0.
 //
 // fp32 (the card-against-CPU checks): CUDA-core kernels, fp32 arithmetic
 // throughout (a wgmma on fp32 data would be TF32).
-//   flash_bwd_dkdv<float, HD>  one block per (key tile of 64, KV head,
-//       batch), the heaviest causal tiles first; K and V stay in shared
+//   flash_bwd_dkdv<float, HD, HDV>  one block per (key tile of 64, KV
+//       head, batch), the heaviest causal tiles first; K and V stay in shared
 //       memory while the block walks the group's G query heads and, for
 //       each, the query tiles of 64 rows that can see a key of its tile; it
 //       recomputes S and dP = dO V^T, then P and dS, and adds P^T dO to dV
 //       and dS^T Q to dK in registers;
-//   flash_bwd_dq<float, HD>    one block per (query tile of 64, head,
+//   flash_bwd_dq<float, HD, HDV>  one block per (query tile of 64, head,
 //       batch), Q, dO, lse and D staged once; it walks the key tiles the
 //       forward visits, recomputes S, dP, P and dS, and adds dS K to dQ.
 // Each block has 256 threads on a 16 x 16 grid; a thread holds a 4 x 4
@@ -111,6 +123,11 @@
 // cores; only the other warpgroup's products overlap that.  The fp32
 // kernels multiply on the CUDA cores (the five products alone are 12.8 ms
 // at the fp32 peak) and read shared memory every two to four multiply-adds.
+// At DeepSeek-V2's training shape, q and k (4, 128, 4096, 192) and v (4,
+// 128, 4096, 128), causal, the 5 products are 1,664 operations a visible
+// pair, 7.1e12 operations: 7.2 ms at the bf16 peak (1.8 ms at B 1); the
+// bf16 kernels issue S three times, dP twice, P^T dO and dS^T Q in 3
+// terms and dS K in 2, 4,352 a pair, 2.6 times the bound's.
 //
 // Built without --use_fast_math: exp of a score far below lse must give 0.
 // No allocation and no synchronisation here: each entry point launches on
@@ -172,22 +189,24 @@ __device__ __forceinline__ void load_t(float* __restrict__ dst,
   }
 }
 
-// Two 64 x 64 products over the head dim at once, a 4 x 4 piece a thread:
-// sa[i][j] = sum_d A[d][4 ty + i] B[d][tx + 16 j], sb likewise from A2 and
-// B2.  A and A2 have row stride kWide, B and B2 kNarrow.
-template <int HD>
+// Two 64 x 64 products at once, a 4 x 4 piece a thread: sa[i][j] = sum_d
+// A[d][4 ty + i] B[d][tx + 16 j] over HD rows d, sb likewise from A2 and B2
+// over HD2 (q's and v's head dims: S and dP).  A and A2 have row stride
+// kWide, B and B2 kNarrow.
+template <int HD, int HD2>
 __device__ __forceinline__ void scores(float (&sa)[4][4], float (&sb)[4][4],
                                        const float* __restrict__ A,
                                        const float* __restrict__ B,
                                        const float* __restrict__ A2,
                                        const float* __restrict__ B2, int ty,
                                        int tx) {
+  constexpr int kBoth = HD < HD2 ? HD : HD2;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) sa[i][j] = sb[i][j] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
+  for (int d = 0; d < kBoth; ++d) {
     const float4 a = *reinterpret_cast<const float4*>(A + d * kWide + 4 * ty);
     const float4 a2 =
         *reinterpret_cast<const float4*>(A2 + d * kWide + 4 * ty);
@@ -206,6 +225,29 @@ __device__ __forceinline__ void scores(float (&sa)[4][4], float (&sb)[4][4],
         sa[i][j] = fmaf(av[i], b[j], sa[i][j]);
         sb[i][j] = fmaf(av2[i], b2[j], sb[i][j]);
       }
+  }
+  // the longer depth's rest (none where the head dims are equal)
+#pragma unroll 4
+  for (int d = kBoth; d < HD; ++d) {
+    const float4 a = *reinterpret_cast<const float4*>(A + d * kWide + 4 * ty);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float b = B[d * kNarrow + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sa[i][j] = fmaf(av[i], b, sa[i][j]);
+    }
+  }
+#pragma unroll 4
+  for (int d = kBoth; d < HD2; ++d) {
+    const float4 a = *reinterpret_cast<const float4*>(A2 + d * kWide + 4 * ty);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float b = B2[d * kNarrow + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sb[i][j] = fmaf(av[i], b, sb[i][j]);
+    }
   }
 }
 
@@ -262,14 +304,14 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[r] = acc;
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr int dkdv_floats() {
-  // K^T, V^T [HD][kWide]; Q^T, dO^T [HD][kNarrow]; P, dS [kTile][kWide];
-  // lse, D [kTile]
-  return 2 * HD * kWide + 2 * HD * kNarrow + 2 * kTile * kWide + 2 * kTile;
+  // K^T [HD], V^T [HDV] of kWide; Q^T [HD], dO^T [HDV] of kNarrow; P, dS
+  // [kTile][kWide]; lse, D [kTile]
+  return (HD + HDV) * (kWide + kNarrow) + 2 * kTile * kWide + 2 * kTile;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
@@ -278,13 +320,13 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                int Sq, int Skv, Strides qs, Strides ks, Strides vs,
                Strides dos, Strides dks, Strides dvs, int causal, int window,
                float scale) {
-  constexpr int kC = HD / 16;
+  constexpr int kC = HD / 16, kCV = HDV / 16;
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);  // [HD][kWide]
-  float* vt = kt + HD * kWide;                  // [HD][kWide]
-  float* qt = vt + HD * kWide;                  // [HD][kNarrow]
-  float* dot = qt + HD * kNarrow;               // [HD][kNarrow]
-  float* ps = dot + HD * kNarrow;               // [kTile q][kWide k]
+  float* vt = kt + HD * kWide;                  // [HDV][kWide]
+  float* qt = vt + HDV * kWide;                 // [HD][kNarrow]
+  float* dot = qt + HD * kNarrow;               // [HDV][kNarrow]
+  float* ps = dot + HDV * kNarrow;              // [kTile q][kWide k]
   float* dss = ps + kTile * kWide;              // [kTile q][kWide k]
   float* row_lse = dss + kTile * kWide;         // [kTile]
   float* row_d = row_lse + kTile;               // [kTile]
@@ -305,13 +347,17 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int t_end = q_end > q_begin ? (q_end + kTile - 1) / kTile : t_begin;
 
   load_t<T, HD, kWide>(kt, k + batch * ks.b + kv_head * ks.h, ks.s, k0, Skv);
-  load_t<T, HD, kWide>(vt, v + batch * vs.b + kv_head * vs.h, vs.s, k0, Skv);
+  load_t<T, HDV, kWide>(vt, v + batch * vs.b + kv_head * vs.h, vs.s, k0,
+                        Skv);
 
-  float acc_dk[4][kC], acc_dv[4][kC];
+  float acc_dk[4][kC], acc_dv[4][kCV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int c = 0; c < kC; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
+    for (int c = 0; c < kC; ++c) acc_dk[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCV; ++c) acc_dv[i][c] = 0.f;
+  }
 
   for (int hh = 0; hh < group; ++hh) {
     const int head = kv_head * group + hh;
@@ -321,8 +367,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();  // the last tile's Q, dO, P and dS are no longer read
       load_t<T, HD, kNarrow>(qt, q + batch * qs.b + head * qs.h, qs.s, q0,
                              Sq);
-      load_t<T, HD, kNarrow>(dot, dout + batch * dos.b + head * dos.h,
-                             dos.s, q0, Sq);
+      load_t<T, HDV, kNarrow>(dot, dout + batch * dos.b + head * dos.h,
+                              dos.s, q0, Sq);
       if (tid < kTile) {
         const bool in = q0 + tid < Sq;
         row_lse[tid] = in ? lse[row_base + q0 + tid] : 0.f;
@@ -332,7 +378,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 
       // S^T and dP^T: keys 4 ty + i, query rows tx + 16 j
       float st[4][4], dpt[4][4];
-      scores<HD>(st, dpt, kt, qt, vt, dot, ty, tx);
+      scores<HD, HDV>(st, dpt, kt, qt, vt, dot, ty, tx);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = tx + 16 * j, qi = q0 + r;
@@ -351,7 +397,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
             make_float4(ds[0], ds[1], ds[2], ds[3]);
       }
       __syncthreads();
-      accumulate<HD>(acc_dv, ps, dot, ty, tx);  // dV += P^T dO
+      accumulate<HDV>(acc_dv, ps, dot, ty, tx);  // dV += P^T dO
       accumulate<HD>(acc_dk, dss, qt, ty, tx);  // dK += dS^T Q
     }
   }
@@ -363,21 +409,23 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     const int key = k0 + 4 * ty + i;
     if (key >= Skv) continue;
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int d = tx + 16 * c;
-      dkb[(long long)key * dks.s + d] = from_f<T>(acc_dk[i][c] * scale);
-      dvb[(long long)key * dvs.s + d] = from_f<T>(acc_dv[i][c]);
-    }
+    for (int c = 0; c < kC; ++c)
+      dkb[(long long)key * dks.s + tx + 16 * c] =
+          from_f<T>(acc_dk[i][c] * scale);
+#pragma unroll
+    for (int c = 0; c < kCV; ++c)
+      dvb[(long long)key * dvs.s + tx + 16 * c] = from_f<T>(acc_dv[i][c]);
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr int dq_floats() {
-  // Q^T, dO^T [HD][kWide]; K^T, V^T [HD][kNarrow]; dS [kTile k][kWide q]
-  return 2 * HD * kWide + 2 * HD * kNarrow + kTile * kWide;
+  // Q^T [HD], dO^T [HDV] of kWide; K^T [HD], V^T [HDV] of kNarrow; dS
+  // [kTile k][kWide q]
+  return (HD + HDV) * (kWide + kNarrow) + kTile * kWide;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
@@ -388,10 +436,10 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kC = HD / 16;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [HD][kWide]
-  float* dot = qt + HD * kWide;                 // [HD][kWide]
-  float* kt = dot + HD * kWide;                 // [HD][kNarrow]
-  float* vt = kt + HD * kNarrow;                // [HD][kNarrow]
-  float* dst = vt + HD * kNarrow;               // [kTile k][kWide q]
+  float* dot = qt + HD * kWide;                 // [HDV][kWide]
+  float* kt = dot + HDV * kWide;                // [HD][kNarrow]
+  float* vt = kt + HD * kNarrow;                // [HDV][kNarrow]
+  float* dst = vt + HDV * kNarrow;              // [kTile k][kWide q]
 
   // block -> (query tile, head, batch), the query tile slowest and
   // reversed: under the causal mask the last tiles see the most keys
@@ -403,8 +451,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
   load_t<T, HD, kWide>(qt, q + batch * qs.b + head * qs.h, qs.s, q0, Sq);
-  load_t<T, HD, kWide>(dot, dout + batch * dos.b + head * dos.h, dos.s, q0,
-                       Sq);
+  load_t<T, HDV, kWide>(dot, dout + batch * dos.b + head * dos.h, dos.s, q0,
+                        Sq);
   // this thread's rows 4 ty + i: their lse and D
   const long long row_base = ((long long)batch * H + head) * Sq;
   float l[4], dd[4];
@@ -433,12 +481,12 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = t * kTile;
     __syncthreads();  // the last tile's K, V and dS are no longer read
     load_t<T, HD, kNarrow>(kt, kb, ks.s, k0, Skv);
-    load_t<T, HD, kNarrow>(vt, vb, vs.s, k0, Skv);
+    load_t<T, HDV, kNarrow>(vt, vb, vs.s, k0, Skv);
     __syncthreads();
 
     // S and dP: query rows 4 ty + i, keys tx + 16 j
     float s[4][4], dp[4][4];
-    scores<HD>(s, dp, qt, kt, dot, vt, ty, tx);
+    scores<HD, HDV>(s, dp, qt, kt, dot, vt, ty, tx);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = tx + 16 * j;
@@ -534,6 +582,33 @@ __device__ __forceinline__ void issue_terms(
       wgmma_rs<N>(tile, a[kk][k], smem_desc(b_addr + kk * 2 * kAtomBytes));
 }
 
+// the boxes of 64 head-dim columns a tile of head dim HD takes
+template <int HD>
+__host__ __device__ constexpr int boxes() {
+  return (HD + kChunk - 1) / kChunk;
+}
+
+// acc's box C (columns 64 C .. of a 64 x HD fp32 wgmma accumulator
+// fragment) += A . B, B's box at b_addr: the products into a zeroed tile,
+// then added into acc with fp32 adds
+template <int HD, int C, int KSteps, int T>
+__device__ __forceinline__ void add_box(float* acc,
+                                        const uint32_t (&a)[KSteps][T][4],
+                                        uint32_t b_addr) {
+  constexpr int kN = HD - C * kChunk < kChunk ? HD - C * kChunk : kChunk;
+  float tile[kChunk / 2];
+#pragma unroll
+  for (int i = 0; i < kChunk / 2; ++i) tile[i] = 0.f;
+  fence_regs<kChunk / 2>(tile);
+  wgmma_fence();
+  issue_terms<kN, KSteps, T>(tile, a, b_addr);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<kChunk / 2>(tile);
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[C * kChunk / 2 + i] += tile[i];
+}
+
 // acc (64 x HD, fp32, a wgmma accumulator fragment) += A . B, B's HD
 // columns in boxes of 64 box_bytes apart.  wgmma sums a box's products into
 // a zeroed tile, which is added into acc with fp32 adds: the tensor cores
@@ -547,25 +622,12 @@ template <int HD, int KSteps, int T>
 __device__ __forceinline__ void add_product(
     float* acc, const uint32_t (&a)[KSteps][T][4], uint32_t b_addr,
     int box_bytes) {
-  constexpr int kN0 = HD < kChunk ? HD : kChunk;  // columns in box 0
-  constexpr int kN1 = HD - kN0;                   // in box 1
-  float tile[kChunk / 2];
-#pragma unroll
-  for (int c = 0; c < (kN1 > 0 ? 2 : 1); ++c) {
-#pragma unroll
-    for (int i = 0; i < kChunk / 2; ++i) tile[i] = 0.f;
-    fence_regs<kChunk / 2>(tile);
-    wgmma_fence();
-    if (c == 0) issue_terms<kN0, KSteps, T>(tile, a, b_addr);
-    if constexpr (kN1 > 0)
-      if (c == 1) issue_terms<kN1, KSteps, T>(tile, a, b_addr + box_bytes);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<kChunk / 2>(tile);
-#pragma unroll
-    for (int i = 0; i < (c == 0 ? kN0 : kN1) / 2; ++i)
-      acc[c * kChunk / 2 + i] += tile[i];
-  }
+  static_assert(boxes<HD>() <= 3, "head dim");
+  add_box<HD, 0, KSteps, T>(acc, a, b_addr);
+  if constexpr (boxes<HD>() > 1)
+    add_box<HD, 1, KSteps, T>(acc, a, b_addr + box_bytes);
+  if constexpr (boxes<HD>() > 2)
+    add_box<HD, 2, KSteps, T>(acc, a, b_addr + 2 * box_bytes);
 }
 
 // a row's lse and D as the wgmma kernels read them: lse in base 2 (lse
@@ -584,14 +646,20 @@ __device__ __forceinline__ void row_stats(const float* __restrict__ lse,
   }
 }
 
-template <int HD>
+// what a launch of the dK/dV kernel forms: both (equal head dims), or, at
+// MLA's (192, 128), dV in one pass and dK in a second (each recomputes P
+// from lse; the second also dP)
+constexpr int kDv = 1, kDk = 2, kDkDv = kDv | kDk;
+
+template <int HD, int HDV, int What>
 constexpr int dkdv_wgmma_bytes() {
-  constexpr int chunks = (HD + kChunk - 1) / kChunk;
-  // K, V tiles of 128 keys; kStages x (Q, dO) tiles of 64 rows; alignment
-  return 2 * chunks * kBoxBytes + kStages * 2 * chunks * kRowBox + 1024;
+  // K (and V where dK is formed) tiles of 128 keys; kStages x (Q, dO) tiles
+  // of 64 rows; alignment
+  return (boxes<HD>() + ((What & kDk) ? boxes<HDV>() : 0)) * kBoxBytes +
+         kStages * (boxes<HD>() + boxes<HDV>()) * kRowBox + 1024;
 }
 
-template <int HD>
+template <int HD, int HDV, int What>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -603,13 +671,22 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      __nv_bfloat16* __restrict__ dv, int B, int H, int KVH,
                      int Sq, int Skv, Strides dks, Strides dvs, int causal,
                      int window, float scale, float scale_log2) {
-  static_assert(HD % 16 == 0 && HD <= 2 * kChunk, "head dim");
-  constexpr int kChunks = (HD + kChunk - 1) / kChunk;
-  constexpr int kKvTile = kChunks * kBoxBytes;  // K or V, 128 keys
-  constexpr int kQTile = kChunks * kRowBox;     // Q or dO, 64 rows
+  static_assert(HD % 16 == 0 && HD <= 3 * kChunk, "q/k head dim");
+  static_assert(HDV % 16 == 0 && HDV <= 2 * kChunk, "v head dim");
+  // both accumulators a consumer thread: up to 2 x 64 floats
+  static_assert(What != kDkDv || (HD == HDV && HD <= 2 * kChunk),
+                "dK and dV in one pass at equal head dims up to 128 only");
+  constexpr bool kWantDk = What & kDk, kWantDv = What & kDv;
+  constexpr int kChunks = boxes<HD>(), kVChunks = boxes<HDV>();
+  constexpr int kKTile = kChunks * kBoxBytes;   // K, 128 keys
+  constexpr int kVTile = kWantDk ? kVChunks * kBoxBytes : 0;  // V
+  constexpr int kQTile = kChunks * kRowBox;     // Q, 64 rows
+  constexpr int kDoTile = kVChunks * kRowBox;   // dO, 64 rows
   constexpr int kSteps = HD / 16;          // k16 steps of K Q^T over hd
+  constexpr int kVSteps = HDV / 16;        // of V dO^T over hd_v
   constexpr int kRSteps = kKvRows / 16;    // k16 steps of P^T dO over rows
-  constexpr int kAcc = HD / 2;             // dK or dV floats a thread holds
+  constexpr int kAcc = HD / 2;             // dK floats a thread holds
+  constexpr int kVAcc = HDV / 2;           // dV floats a thread holds
   constexpr int kS = kKvRows / 2;          // S^T floats a thread holds
 
   extern __shared__ uint8_t smem_raw[];
@@ -618,8 +695,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   // the swizzle atoms must start on 1024-byte boundaries
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sk = smem;                         // [kChunks][128][64]
-  uint8_t* sv = sk + kKvTile;
-  uint8_t* sq = sv + kKvTile;                 // [kStages] tiles of 64 rows
+  uint8_t* sv = sk + kKTile;                  // [kVChunks][128][64] or none
+  uint8_t* sq = sv + kVTile;                  // [kStages] tiles of 64 rows
   uint8_t* sdo = sq + kStages * kQTile;       // [kStages] tiles
 
   // block -> (key tile, KV head, batch), the key tile slowest: under the
@@ -654,26 +731,27 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         kProducerRegs));
     if (warp == kConsumerWarps && lane == 0) {
-      // K and V once, then each step's Q and dO into the next free stage
-      mbar_expect_tx(&bar_kv, 2 * kKvTile);
-      for (int c = 0; c < kChunks; ++c) {
+      // K (and V) once, then each step's Q and dO into the next free stage
+      mbar_expect_tx(&bar_kv, kKTile + kVTile);
+      for (int c = 0; c < kChunks; ++c)
         tma_load_4d(sk + c * kBoxBytes, &tm_k, &bar_kv, c * kChunk, k0,
                     kv_head, batch);
-        tma_load_4d(sv + c * kBoxBytes, &tm_v, &bar_kv, c * kChunk, k0,
-                    kv_head, batch);
-      }
+      if constexpr (kWantDk)
+        for (int c = 0; c < kVChunks; ++c)
+          tma_load_4d(sv + c * kBoxBytes, &tm_v, &bar_kv, c * kChunk, k0,
+                      kv_head, batch);
       for (int i = 0; i < n_steps; ++i) {
         const int s = i % kStages;
         const int head = kv_head * group + i / n_qt;
         const int q0 = (t_begin + i % n_qt) * kKvRows;
         mbar_wait(&bar_empty[s], ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(&bar_full[s], 2 * kQTile);
-        for (int c = 0; c < kChunks; ++c) {
+        mbar_expect_tx(&bar_full[s], kQTile + kDoTile);
+        for (int c = 0; c < kChunks; ++c)
           tma_load_4d(sq + s * kQTile + c * kRowBox, &tm_q, &bar_full[s],
                       c * kChunk, q0, head, batch);
-          tma_load_4d(sdo + s * kQTile + c * kRowBox, &tm_do, &bar_full[s],
+        for (int c = 0; c < kVChunks; ++c)
+          tma_load_4d(sdo + s * kDoTile + c * kRowBox, &tm_do, &bar_full[s],
                       c * kChunk, q0, head, batch);
-        }
       }
     } else if (warp == kConsumerWarps + 1) {
       // each step's lse and D, beside its tiles
@@ -700,9 +778,11 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int key = kw0 + (warp % 4) * 16 + lane / 4;
     const int col = 2 * (lane % 4);
 
-    float dk_acc[kAcc], dv_acc[kAcc];
+    float dk_acc[kAcc], dv_acc[kVAcc];
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < kAcc; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVAcc; ++i) dv_acc[i] = 0.f;
 
     const uint32_t k_addr = smem_u32(sk) + wg * 64 * 128;
     const uint32_t v_addr = smem_u32(sv) + wg * 64 * 128;
@@ -718,8 +798,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                         (window <= 0 || q0 - (kw0 + 63) < window);
       if (seen) {
         const uint32_t q_addr = smem_u32(sq + s * kQTile);
-        const uint32_t do_addr = smem_u32(sdo + s * kQTile);
-        // S^T = K Q^T and dP^T = V dO^T, two groups in flight
+        const uint32_t do_addr = smem_u32(sdo + s * kDoTile);
+        // S^T = K Q^T and (where dK is formed) dP^T = V dO^T, two groups in
+        // flight
         float st[kS], dpt[kS];
         wgmma_fence();
 #pragma unroll
@@ -731,16 +812,20 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                                  (kk % 4) * 32),
                        kk > 0);
         wgmma_commit();
+        if constexpr (kWantDk) {
 #pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk)
-          wgmma_ss_n64(dpt,
-                       smem_desc(v_addr + (kk / 4) * kBoxBytes +
-                                 (kk % 4) * 32),
-                       smem_desc(do_addr + (kk / 4) * kRowBox +
-                                 (kk % 4) * 32),
-                       kk > 0);
-        wgmma_commit();
-        wgmma_wait<1>();
+          for (int kk = 0; kk < kVSteps; ++kk)
+            wgmma_ss_n64(dpt,
+                         smem_desc(v_addr + (kk / 4) * kBoxBytes +
+                                   (kk % 4) * 32),
+                         smem_desc(do_addr + (kk / 4) * kRowBox +
+                                   (kk % 4) * 32),
+                         kk > 0);
+          wgmma_commit();
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
         fence_regs<kS>(st);
 
         // P^T in place of S^T: the fragment's column 8 j + col + (e & 1)
@@ -772,22 +857,33 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                                         -tl[8 * j + col + (e & 1)]));
         }
 
-        wgmma_wait<0>();
-        fence_regs<kS>(dpt);
-
         // dS^T = P^T (dP^T - D) in place of dP^T; then dV += P^T dO and
         // dK += dS^T Q, each A in kKvTerms terms
+        if constexpr (kWantDk) {
+          wgmma_wait<0>();
+          fence_regs<kS>(dpt);
 #pragma unroll
-        for (int j = 0; j < kS / 4; ++j)
+          for (int j = 0; j < kS / 4; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dpt[4 * j + e] = st[4 * j + e] *
-                             (dpt[4 * j + e] - td[8 * j + col + (e & 1)]);
-        uint32_t pa[kRSteps][kKvTerms][4], da[kRSteps][kKvTerms][4];
-        pack_terms<kRSteps, kKvTerms>(st, pa);
-        pack_terms<kRSteps, kKvTerms>(dpt, da);
-        add_product<HD, kRSteps, kKvTerms>(dv_acc, pa, do_addr, kRowBox);
-        add_product<HD, kRSteps, kKvTerms>(dk_acc, da, q_addr, kRowBox);
+            for (int e = 0; e < 4; ++e)
+              dpt[4 * j + e] = st[4 * j + e] *
+                               (dpt[4 * j + e] - td[8 * j + col + (e & 1)]);
+        }
+        if constexpr (What == kDkDv) {
+          uint32_t pa[kRSteps][kKvTerms][4], da[kRSteps][kKvTerms][4];
+          pack_terms<kRSteps, kKvTerms>(st, pa);
+          pack_terms<kRSteps, kKvTerms>(dpt, da);
+          add_product<HDV, kRSteps, kKvTerms>(dv_acc, pa, do_addr, kRowBox);
+          add_product<HD, kRSteps, kKvTerms>(dk_acc, da, q_addr, kRowBox);
+        } else if constexpr (What == kDv) {
+          uint32_t pa[kRSteps][kKvTerms][4];
+          pack_terms<kRSteps, kKvTerms>(st, pa);
+          add_product<HDV, kRSteps, kKvTerms>(dv_acc, pa, do_addr, kRowBox);
+        } else {
+          uint32_t da[kRSteps][kKvTerms][4];
+          pack_terms<kRSteps, kKvTerms>(dpt, da);
+          add_product<HD, kRSteps, kKvTerms>(dk_acc, da, q_addr, kRowBox);
+        }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&bar_empty[s]);
@@ -800,28 +896,41 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     for (int h = 0; h < 2; ++h) {
       const int kj = key + 8 * h;
       if (kj >= Skv) continue;
-      __nv_bfloat16* krow = dkb + kj * dks.s + col;
-      __nv_bfloat16* vrow = dvb + kj * dvs.s + col;
+      if constexpr (kWantDk) {
+        __nv_bfloat16* krow = dkb + kj * dks.s + col;
 #pragma unroll
-      for (int j = 0; j < kAcc / 4; ++j) {
-        *reinterpret_cast<uint32_t*>(krow + 8 * j) =
-            pack_bf16(dk_acc[4 * j + 2 * h] * scale,
-                      dk_acc[4 * j + 2 * h + 1] * scale);
-        *reinterpret_cast<uint32_t*>(vrow + 8 * j) =
-            pack_bf16(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+        for (int j = 0; j < kAcc / 4; ++j)
+          *reinterpret_cast<uint32_t*>(krow + 8 * j) =
+              pack_bf16(dk_acc[4 * j + 2 * h] * scale,
+                        dk_acc[4 * j + 2 * h + 1] * scale);
+      }
+      if constexpr (kWantDv) {
+        __nv_bfloat16* vrow = dvb + kj * dvs.s + col;
+#pragma unroll
+        for (int j = 0; j < kVAcc / 4; ++j)
+          *reinterpret_cast<uint32_t*>(vrow + 8 * j) =
+              pack_bf16(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
       }
     }
   }
 }
 
+// the dQ kernel's K/V ring: kStages deep, one stage at MLA's (192, 128),
+// where Q (48 KB), dO (32 KB) and two stages of K and V (2 x 80 KB) would
+// pass the 227 KB a block may have
 template <int HD>
-constexpr int dq_wgmma_bytes() {
-  constexpr int tile = (HD + kChunk - 1) / kChunk * kBoxBytes;
-  // Q, dO; kStages x (K, V); alignment
-  return 2 * tile + kStages * 2 * tile + 1024;
+__host__ __device__ constexpr int dq_stages() {
+  return HD > 2 * kChunk ? 1 : kStages;
 }
 
-template <int HD>
+template <int HD, int HDV>
+constexpr int dq_wgmma_bytes() {
+  // Q, dO; the stages of (K, V); alignment
+  return (1 + dq_stages<HD>()) * (boxes<HD>() + boxes<HDV>()) *
+             kBoxBytes + 1024;
+}
+
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -832,23 +941,26 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    __nv_bfloat16* __restrict__ dq, int B, int H, int KVH,
                    int Sq, int Skv, Strides dqs, int causal, int window,
                    float scale, float scale_log2) {
-  static_assert(HD % 16 == 0 && HD <= 2 * kChunk, "head dim");
-  constexpr int kChunks = (HD + kChunk - 1) / kChunk;
-  constexpr int kTileBytes = kChunks * kBoxBytes;  // Q, dO, K or V tile
+  static_assert(HD % 16 == 0 && HD <= 3 * kChunk, "q/k head dim");
+  static_assert(HDV % 16 == 0 && HDV <= 2 * kChunk, "v head dim");
+  constexpr int kSt = dq_stages<HD>();
+  constexpr int kChunks = boxes<HD>(), kVChunks = boxes<HDV>();
+  constexpr int kQBytes = kChunks * kBoxBytes;   // a Q or K tile
+  constexpr int kVBytes = kVChunks * kBoxBytes;  // a dO or V tile
   constexpr int kSteps = HD / 16;         // k16 steps of Q K^T over hd
+  constexpr int kVSteps = HDV / 16;       // of dO V^T over hd_v
   constexpr int kPSteps = kDqKeys / 16;   // k16 steps of dS K over keys
   constexpr int kAcc = HD / 2;            // dQ floats a thread holds
   constexpr int kS = kDqKeys / 2;         // S floats a thread holds
 
   extern __shared__ uint8_t smem_raw[];
-  __shared__ uint64_t bar_q, bar_k[kStages], bar_v[kStages],
-      bar_empty[kStages];
+  __shared__ uint64_t bar_q, bar_k[kSt], bar_v[kSt], bar_empty[kSt];
   __shared__ float row_lse[kDqRows], row_d[kDqRows];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sq = smem;                              // [kChunks][128][64]
-  uint8_t* sdo = sq + kTileBytes;
-  uint8_t* sk = sdo + kTileBytes;                  // [kStages] tiles
-  uint8_t* sv = sk + kStages * kTileBytes;         // [kStages] tiles
+  uint8_t* sq = smem;                              // [boxes][128][64]
+  uint8_t* sdo = sq + kQBytes;
+  uint8_t* sk = sdo + kVBytes;                     // [kSt] tiles
+  uint8_t* sv = sk + kSt * kQBytes;                // [kSt] tiles
 
   // block -> (query tile, head, batch), the query tile slowest and
   // reversed: under the causal mask the last tiles see the most keys
@@ -868,7 +980,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     mbar_init(&bar_q, kFullArrivals);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kSt; ++s) {
       mbar_init(&bar_k[s], 1);
       mbar_init(&bar_v[s], 1);
       mbar_init(&bar_empty[s], kConsumerWarps);
@@ -882,24 +994,24 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
         kProducerRegs));
     if (warp == kConsumerWarps && lane == 0) {
       // Q and dO once, then each K/V tile into the next free stage
-      mbar_expect_tx(&bar_q, 2 * kTileBytes);
-      for (int c = 0; c < kChunks; ++c) {
+      mbar_expect_tx(&bar_q, kQBytes + kVBytes);
+      for (int c = 0; c < kChunks; ++c)
         tma_load_4d(sq + c * kBoxBytes, &tm_q, &bar_q, c * kChunk, q0, head,
                     batch);
+      for (int c = 0; c < kVChunks; ++c)
         tma_load_4d(sdo + c * kBoxBytes, &tm_do, &bar_q, c * kChunk, q0,
                     head, batch);
-      }
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kStages;
+        const int s = i % kSt;
         const int k0 = (t_begin + i) * kDqKeys;
-        mbar_wait(&bar_empty[s], ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(&bar_k[s], kTileBytes);
+        mbar_wait(&bar_empty[s], ((i / kSt) & 1) ^ 1);
+        mbar_expect_tx(&bar_k[s], kQBytes);
         for (int c = 0; c < kChunks; ++c)
-          tma_load_4d(sk + s * kTileBytes + c * kBoxBytes, &tm_k, &bar_k[s],
+          tma_load_4d(sk + s * kQBytes + c * kBoxBytes, &tm_k, &bar_k[s],
                       c * kChunk, k0, kv_head, batch);
-        mbar_expect_tx(&bar_v[s], kTileBytes);
-        for (int c = 0; c < kChunks; ++c)
-          tma_load_4d(sv + s * kTileBytes + c * kBoxBytes, &tm_v, &bar_v[s],
+        mbar_expect_tx(&bar_v[s], kVBytes);
+        for (int c = 0; c < kVChunks; ++c)
+          tma_load_4d(sv + s * kVBytes + c * kBoxBytes, &tm_v, &bar_v[s],
                       c * kChunk, k0, kv_head, batch);
       }
     } else if (warp == kConsumerWarps + 1) {
@@ -934,8 +1046,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
 
     for (int i = 0; i < n_tiles; ++i) {
-      const int s = i % kStages;
-      const uint32_t parity = (i / kStages) & 1;
+      const int s = i % kSt;
+      const uint32_t parity = (i / kSt) & 1;
       const int k0 = (t_begin + i) * kDqKeys;
       // does a row of this warpgroup see a key of this tile?
       const bool seen = wg_row0 < Sq && (!causal || k0 <= wg_row0 + 63) &&
@@ -947,8 +1059,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       } else {
         // S = Q K^T and dP = dO V^T, two groups in flight
         float sc[kS], dp[kS];
-        const uint32_t k_addr = smem_u32(sk + s * kTileBytes);
-        const uint32_t v_addr = smem_u32(sv + s * kTileBytes);
+        const uint32_t k_addr = smem_u32(sk + s * kQBytes);
+        const uint32_t v_addr = smem_u32(sv + s * kVBytes);
         mbar_wait(&bar_k[s], parity);
         wgmma_fence();
 #pragma unroll
@@ -960,7 +1072,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
         wgmma_commit();
         mbar_wait(&bar_v[s], parity);
 #pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk) {
+        for (int kk = 0; kk < kVSteps; ++kk) {
           const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
           wgmma_ss_n128(dp, smem_desc(do_addr + off), smem_desc(v_addr + off),
                         kk > 0);
@@ -1033,7 +1145,7 @@ Strides strides_of(const long long* st, int t) {
   return Strides{st[3 * t], st[3 * t + 1], st[3 * t + 2]};
 }
 
-// D = rowsum(dO o) into delta, (B, H, Sq) fp32
+// D = rowsum(dO o) into delta, (B, H, Sq) fp32; HD is v's head dim
 template <typename T, int HD>
 cudaError_t launch_delta(const void* o, const void* dout, float* delta,
                          int B, int H, int Sq, const long long* st,
@@ -1047,7 +1159,7 @@ cudaError_t launch_delta(const void* o, const void* dout, float* delta,
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int H, int KVH, int Sq, int Skv,
@@ -1060,36 +1172,65 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const T* dop = static_cast<const T*>(dout);
   const float scale = (float)(1.0 / sqrt((double)HD));
 
-  cudaError_t err = launch_delta<T, HD>(o, dout, delta, B, H, Sq, st,
-                                        stream);
+  cudaError_t err = launch_delta<T, HDV>(o, dout, delta, B, H, Sq, st,
+                                         stream);
   if (err != cudaSuccess) return (int)err;
 
-  constexpr int kv_bytes = dkdv_floats<HD>() * (int)sizeof(float);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, HD>,
+  constexpr int kv_bytes = dkdv_floats<HD, HDV>() * (int)sizeof(float);
+  static_assert(kv_bytes <= 232448, "shared memory a block may have");
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, HD, HDV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kv_bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_kt = (Skv + kTile - 1) / kTile;
-  flash_bwd_dkdv<T, HD><<<n_kt * B * KVH, kThreads, kv_bytes, stream>>>(
+  flash_bwd_dkdv<T, HD, HDV>
+      <<<n_kt * B * KVH, kThreads, kv_bytes, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       B, H, KVH, Sq, Skv, S(0), S(1), S(2), S(4), S(6), S(7), causal, window,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  constexpr int q_bytes = dq_floats<HD>() * (int)sizeof(float);
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, HD>,
+  constexpr int q_bytes = dq_floats<HD, HDV>() * (int)sizeof(float);
+  static_assert(q_bytes <= 232448, "shared memory a block may have");
+  err = cudaFuncSetAttribute(flash_bwd_dq<T, HD, HDV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              q_bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (Sq + kTile - 1) / kTile;
-  flash_bwd_dq<T, HD><<<n_qt * B * H, kThreads, q_bytes, stream>>>(
+  flash_bwd_dq<T, HD, HDV><<<n_qt * B * H, kThreads, q_bytes, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<T*>(dq), B, H, KVH, Sq, Skv,
       S(0), S(1), S(2), S(4), S(5), causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+// one launch of the dK/dV kernel forming What (kDv, kDk or both)
+template <int HD, int HDV, int What>
+cudaError_t launch_dkdv_wgmma(const CUtensorMap& tm_q64,
+                              const CUtensorMap& tm_k,
+                              const CUtensorMap& tm_v,
+                              const CUtensorMap& tm_do64, const float* lse,
+                              const float* delta, void* dk, void* dv, int B,
+                              int H, int KVH, int Sq, int Skv,
+                              const long long* st, int causal, int window,
+                              float scale, cudaStream_t stream) {
+  constexpr int bytes = dkdv_wgmma_bytes<HD, HDV, What>();
+  static_assert(bytes <= 232448, "shared memory a block may have");
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma<HD, HDV, What>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int n_kt = (Skv + kKvKeys - 1) / kKvKeys;
+  flash_bwd_dkdv_wgmma<HD, HDV, What>
+      <<<n_kt * B * KVH, kWgThreads, bytes, stream>>>(
+          tm_q64, tm_k, tm_v, tm_do64, lse, delta,
+          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+          B, H, KVH, Sq, Skv, strides_of(st, 6), strides_of(st, 7), causal,
+          window, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int HD, int HDV>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, float* delta, void* dq,
                  void* dk, void* dv, int B, int H, int KVH, int Sq, int Skv,
@@ -1098,49 +1239,57 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   // the dK/dV kernel streams Q and dO in boxes of 64 rows, the dQ kernel
-  // reads them in boxes of 128; K and V are read in boxes of 128 by both
+  // reads them in boxes of 128; K and V are read in boxes of 128 by both;
+  // q and k have head dim HD, v and dO HDV
   CUtensorMap tm_q64, tm_do64, tm_q, tm_do, tm_k, tm_v;
   CUresult r = make_map(&tm_q64, encode, q, HD, Sq, H, B, st, kKvRows);
   if (r == CUDA_SUCCESS)
-    r = make_map(&tm_do64, encode, dout, HD, Sq, H, B, st + 12, kKvRows);
+    r = make_map(&tm_do64, encode, dout, HDV, Sq, H, B, st + 12, kKvRows);
   if (r == CUDA_SUCCESS) r = make_map(&tm_q, encode, q, HD, Sq, H, B, st);
   if (r == CUDA_SUCCESS)
-    r = make_map(&tm_do, encode, dout, HD, Sq, H, B, st + 12);
+    r = make_map(&tm_do, encode, dout, HDV, Sq, H, B, st + 12);
   if (r == CUDA_SUCCESS)
     r = make_map(&tm_k, encode, k, HD, Skv, KVH, B, st + 3);
   if (r == CUDA_SUCCESS)
-    r = make_map(&tm_v, encode, v, HD, Skv, KVH, B, st + 6);
+    r = make_map(&tm_v, encode, v, HDV, Skv, KVH, B, st + 6);
   if (r != CUDA_SUCCESS) return -(int)r;
   const float scale = (float)(1.0 / sqrt((double)HD));
 
-  cudaError_t err = launch_delta<__nv_bfloat16, HD>(o, dout, delta, B, H,
-                                                    Sq, st, stream);
+  cudaError_t err = launch_delta<__nv_bfloat16, HDV>(o, dout, delta, B, H,
+                                                     Sq, st, stream);
   if (err != cudaSuccess) return (int)err;
 
-  constexpr int kv_bytes = dkdv_wgmma_bytes<HD>();
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kv_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int n_kt = (Skv + kKvKeys - 1) / kKvKeys;
-  flash_bwd_dkdv_wgmma<HD><<<n_kt * B * KVH, kWgThreads, kv_bytes, stream>>>(
-      tm_q64, tm_k, tm_v, tm_do64, lse, delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B,
-      H, KVH, Sq, Skv, strides_of(st, 6), strides_of(st, 7), causal, window,
-      scale, scale * kLog2e);
-  err = cudaGetLastError();
+  // dK and dV in one pass at equal head dims; at MLA's (192, 128) both
+  // accumulators (96 + 64 floats a thread) with the S and dP tiles would
+  // pass the consumers' 240 registers, so dV in a first pass and dK in a
+  // second
+  if constexpr (HD == HDV) {
+    err = launch_dkdv_wgmma<HD, HDV, kDkDv>(
+        tm_q64, tm_k, tm_v, tm_do64, lse, delta, dk, dv, B, H, KVH, Sq, Skv,
+        st, causal, window, scale, stream);
+  } else {
+    err = launch_dkdv_wgmma<HD, HDV, kDv>(
+        tm_q64, tm_k, tm_v, tm_do64, lse, delta, dk, dv, B, H, KVH, Sq, Skv,
+        st, causal, window, scale, stream);
+    if (err == cudaSuccess)
+      err = launch_dkdv_wgmma<HD, HDV, kDk>(
+          tm_q64, tm_k, tm_v, tm_do64, lse, delta, dk, dv, B, H, KVH, Sq,
+          Skv, st, causal, window, scale, stream);
+  }
   if (err != cudaSuccess) return (int)err;
 
-  constexpr int q_bytes = dq_wgmma_bytes<HD>();
-  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<HD>,
+  constexpr int q_bytes = dq_wgmma_bytes<HD, HDV>();
+  static_assert(q_bytes <= 232448, "shared memory a block may have");
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<HD, HDV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              q_bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (Sq + kDqRows - 1) / kDqRows;
-  flash_bwd_dq_wgmma<HD><<<n_qt * B * H, kWgThreads, q_bytes, stream>>>(
-      tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<__nv_bfloat16*>(dq),
-      B, H, KVH, Sq, Skv, strides_of(st, 5), causal, window, scale,
-      scale * kLog2e);
+  flash_bwd_dq_wgmma<HD, HDV>
+      <<<n_qt * B * H, kWgThreads, q_bytes, stream>>>(
+          tm_q, tm_k, tm_v, tm_do, lse, delta,
+          static_cast<__nv_bfloat16*>(dq), B, H, KVH, Sq, Skv,
+          strides_of(st, 5), causal, window, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -1149,16 +1298,16 @@ using Launch = int (*)(const void*, const void*, const void*, const void*,
                        void*, int, int, int, int, int, const long long*, int,
                        int, cudaStream_t);
 
-template <int HD>
+template <int HD, int HDV = HD>
 Launch pick(bool bf16) {
-  if (bf16) return launch_wgmma<HD>;
-  return launch<float, HD>;
+  if (bf16) return launch_wgmma<HD, HDV>;
+  return launch<float, HD, HDV>;
 }
 
 int run(bool bf16, const void* q, const void* k, const void* v,
         const void* o, const void* dout, const float* lse, float* delta,
         void* dq, void* dk, void* dv, int B, int H, int KVH, int Sq, int Skv,
-        int hd, const long long* strides, int causal, int window,
+        int hd, int hd_v, const long long* strides, int causal, int window,
         void* stream) {
   if (B < 1 || H < 1 || KVH < 1 || H % KVH || Sq < 1 || Skv < 1 ||
       window < 0)
@@ -1168,7 +1317,10 @@ int run(bool bf16, const void* q, const void* k, const void* v,
   if (n_kt * B * KVH > 0x7fffffffLL || n_qt * B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Launch fn = nullptr;
-  switch (hd) {
+  if (hd_v != hd) {
+    if (hd != 192 || hd_v != 128) return (int)cudaErrorInvalidValue;
+    fn = pick<192, 128>(bf16);
+  } else switch (hd) {
     case 32: fn = pick<32>(bf16); break;
     case 64: fn = pick<64>(bf16); break;
     case 80: fn = pick<80>(bf16); break;
@@ -1183,9 +1335,10 @@ int run(bool bf16, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, o, dout, dq: (B, H, Sq, hd); k, v, dk, dv: (B, KVH, Skv, hd), each
-// addressed through strides[3 t .. 3 t + 2] = its (batch, head, sequence)
-// strides in elements, t = q, k, v, o, dout, dq, dk, dv.  lse: the
+// q, dq: (B, H, Sq, hd); o, dout: (B, H, Sq, hd_v); k, dk: (B, KVH, Skv,
+// hd); v, dv: (B, KVH, Skv, hd_v), hd_v == hd or (hd, hd_v) = (192, 128);
+// each addressed through strides[3 t .. 3 t + 2] = its (batch, head,
+// sequence) strides in elements, t = q, k, v, o, dout, dq, dk, dv.  lse: the
 // forward's (B, H, Sq) fp32; delta: (B, H, Sq) fp32 scratch.  The blocks
 // of the dK/dV kernel (key tiles x B x KVH) and the dQ kernel (query tiles
 // x B x H) must fit a 1-d grid.  flash_attention_bwd takes float32 tensors
@@ -1198,17 +1351,18 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* dout, const float* lse,
                                    float* delta, void* dq, void* dk,
                                    void* dv, int B, int H, int KVH, int Sq,
-                                   int Skv, int hd, const long long* strides,
-                                   int causal, int window, void* stream) {
+                                   int Skv, int hd, int hd_v,
+                                   const long long* strides, int causal,
+                                   int window, void* stream) {
   return run(false, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KVH, Sq,
-             Skv, hd, strides, causal, window, stream);
+             Skv, hd, hd_v, strides, causal, window, stream);
 }
 
 extern "C" int flash_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int B, int H, int KVH, int Sq, int Skv, int hd,
+    void* dv, int B, int H, int KVH, int Sq, int Skv, int hd, int hd_v,
     const long long* strides, int causal, int window, void* stream) {
   return run(true, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KVH, Sq,
-             Skv, hd, strides, causal, window, stream);
+             Skv, hd, hd_v, strides, causal, window, stream);
 }

@@ -36,9 +36,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (192, 128)); the output has v's.  On the card any strides with a
     contiguous head dim go in, and the output has q's layout; where a
     gradient is recorded the call goes through :class:`FlashAttention`
-    (forward kernel with its lse, backward kernels; the backward raises
-    at unequal head dims), else through the forward kernel alone.  On the
-    CPU autograd differentiates the plain version."""
+    (forward kernel with its lse, backward kernels, at every head dim and
+    pair the forward takes), else through the forward kernel alone.  On
+    the CPU autograd differentiates the plain version."""
     if _route(q, "flash_attention") == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):

@@ -21,11 +21,11 @@ per call.
 The forward can also write each row's log-sum-exp (fp32, (B, H, Sq)).
 :class:`FlashAttention` saves it with q, k, v and the output, and its
 backward launches D = rowsum(dO o), then dK and dV (one block per key tile
-and KV head, the GQA group summed in the block, no atomics), then dQ, by
-dtype again (equal head dims only: MLA's backward is not ported and
-raises): bf16 to ``flash_attention_bwd_wgmma`` (wgmma on the tensor
-cores, Q/dO or K/V streamed by TMA, P and dS as 3 bf16 terms for dK and
-dV, dS as 2 for dQ;
+and KV head, the GQA group summed in the block, no atomics; at MLA's (192,
+128) in bf16 dV in one launch and dK in a second), then dQ, by dtype again,
+at every head dim the forward takes: bf16 to ``flash_attention_bwd_wgmma``
+(wgmma on the tensor cores, Q/dO or K/V streamed by TMA, P and dS as 3
+bf16 terms for dK and dV, dS as 2 for dQ;
 the same layout rule as the forward, a ``do`` that breaks it copied
 first), fp32 to ``flash_attention_bwd`` (the CUDA cores); gradients in the
 inputs' dtype and layouts.  Its reference is JAX's VJP of
@@ -47,8 +47,9 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0}
 
 HEAD_DIMS = (32, 64, 80, 96, 112, 128)
-# (q/k head dim, v head dim) pairs with unequal dims that the forward .cu
-# instantiates (its switch; a CPU test holds the two to each other)
+# (q/k head dim, v head dim) pairs with unequal dims that the forward and
+# backward .cu files instantiate (their switches; CPU tests hold them to
+# each other)
 HEAD_DIM_PAIRS = ((192, 128),)
 # every head dim a TMA map of the bf16 kernels reads
 _TMA_DIMS = tuple(sorted(set(HEAD_DIMS).union(*HEAD_DIM_PAIRS)))
@@ -86,7 +87,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention_bwd")
     for entry in BWD_ENTRY.values():
         fn = getattr(lib, entry)
-        fn.argtypes = [_P] * 10 + [_I] * 6 + [_P, _I, _I, _P]
+        fn.argtypes = [_P] * 10 + [_I] * 7 + [_P, _I, _I, _P]
         fn.restype = _I
     return lib
 
@@ -170,8 +171,8 @@ def _on_card(named: dict) -> None:
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: int, **more: torch.Tensor) -> None:
     """Raise on what neither kernel takes; ``more`` names tensors shaped
-    like q (the output and its gradient, for the backward, which takes
-    equal head dims only)."""
+    like q with v's head dim (the output and its gradient, for the
+    backward)."""
     _on_card({"q": q, "k": k, "v": v, **more})
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.dim() != 4 or t.dtype != q.dtype:
@@ -184,9 +185,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash attention takes fp32 or bf16, not {q.dtype}")
     b, h, sq, hd = q.shape
     for name, t in more.items():
-        if t.shape != q.shape:
+        if t.shape != q.shape[:3] + v.shape[3:]:
             raise ValueError(f"flash attention: {name} {tuple(t.shape)} is "
-                             f"not shaped like q {tuple(q.shape)}")
+                             f"not shaped like q {tuple(q.shape)} with v's "
+                             f"head dim {v.shape[3]}")
     if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"flash attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
@@ -250,13 +252,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     do may be any views with a contiguous head dim, in bf16 also meeting
     :func:`wgmma_layout_problem`'s rule (a q, k or v that does not raises;
     a ``do`` without a contiguous head dim, or in bf16 one the rule
-    refuses, is copied first); lse is (B, H, Sq) fp32.  bf16 launches the
+    refuses, is copied first); o and do have v's head dim, which may be
+    apart from q's where ``HEAD_DIM_PAIRS`` names the pair (a pair it does
+    not name raises); lse is (B, H, Sq) fp32.  bf16 launches the
     tensor-core kernels, fp32 the CUDA-core ones (``BWD_ENTRY``)."""
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            f"flash attention backward: q/k head dim {q.shape[-1]} over v "
-            f"head dim {v.shape[-1]} (MLA) has no backward kernel; MLA "
-            "training is not ported")
     if do.dim() == 4 and (do.stride(-1) != 1 or (
             do.dtype == q.dtype == torch.bfloat16
             and _tma_problem("do", do))):
@@ -278,7 +277,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     status = getattr(_bwd_lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, kvh, sq, skv, hd,
+        dk.data_ptr(), dv.data_ptr(), b, h, kvh, sq, skv, hd, v.shape[-1],
         ctypes.cast(strides, ctypes.c_void_p), int(causal), int(window),
         stream)
     if status < 0:

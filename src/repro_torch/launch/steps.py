@@ -1,11 +1,14 @@
 """Step builders of the decoder LMs: the JAX package's ``launch/steps.py``
 without mesh or sharding.
 
-  * ``make_train_step``: one SemiSFL cross-entity iteration on a dense
-    decoder LM, on xLSTM or on the Zamba2 hybrid (``make_train_step(plan,
-    dist, lr, wire=..., mesh=None)`` in JAX), with ``StepPlan`` /
-    ``make_plan``, the state's shapes (the train branch of
-    ``input_specs``) and a seeded initial state; other models raise;
+  * ``make_train_step``: one SemiSFL cross-entity iteration on a decoder
+    LM (dense or MoE layers, GQA attention or MLA: DeepSeek-V2's dense
+    prefix layer and MLA + MoE layers, Arctic's MoE with a dense
+    residual), on xLSTM or on the Zamba2 hybrid (``make_train_step(plan,
+    dist, lr, wire=..., mesh=None)`` in JAX, its MoE on the dense path),
+    with ``StepPlan`` / ``make_plan``, the state's shapes (the train
+    branch of ``input_specs``) and a seeded initial state; other models
+    (vision, encoder-decoder) raise;
   * ``make_scanned_train_phase`` / ``make_prefetched_train_phase``: K
     steps as one CUDA graph of the step replayed K times, the state
     donated (``core/scan.py``), and that phase fed by the prefetch
@@ -25,12 +28,15 @@ hybrid's Mamba2 layers, beside its ``shared_attn`` block) or of xLSTM groups
 run one after another, where JAX vmaps them, and each client's gradient is
 rescaled by N (Eq. (8)), as ``core/engine.py`` does for the CNNs.  On the
 card attention differentiates through the flash kernels
-(``kernels.FlashAttention``), the sLSTM through its scan kernels
-(``kernels.slstm_scan``'s ``SLSTMScan``) and the Mamba2 scan through its
-(``kernels.mamba2_scan``'s ``Mamba2Scan``); the mLSTM's chunk loop through
-autograd.  Each dense layer, each xLSTM block, and each Mamba2 layer and
-application of the hybrid's shared block is recomputed in the backward
-pass (``models/transformer.py``).
+(``kernels.FlashAttention``, MLA's at its (192, 128) head dims), the
+sLSTM through its scan kernels (``kernels.slstm_scan``'s ``SLSTMScan``)
+and the Mamba2 scan through its (``kernels.mamba2_scan``'s
+``Mamba2Scan``); the mLSTM's chunk loop and the MoE's routing and grouped
+expert products through autograd.  Each attention-family layer (a
+DeepSeek bottom's prefix layers too), each xLSTM block, and each Mamba2
+layer and application of the hybrid's shared block is recomputed in the
+backward pass (``models/transformer.py``); the MoE layers' load-balance
+losses, summed in layer order, enter the loss times 0.001.
 
 Serving.  Each step runs the bottom (client) half, hands its features to
 the top (server) half, and returns the cache of both halves.  KV caches
@@ -61,6 +67,7 @@ from repro_torch.core.wire import (WireFormatLike, fake_quantize,
                                    resolve_fmt)
 from repro_torch.data.prefetch import DevicePut, Prefetcher, ready
 from repro_torch.device import resolve_device
+from repro_torch.models.moe import expert_route
 from repro_torch.models.transformer import (DecoderLM, HybridMamba,
                                             XLSTMModel, build_model)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -89,11 +96,10 @@ def make_plan(cfg: ArchConfig, shape: InputShape, *,
 
 def _train_model(plan: StepPlan) -> DecoderLM | HybridMamba | XLSTMModel:
     model = build_model(plan.cfg)
-    if not isinstance(model, (DecoderLM, HybridMamba, XLSTMModel)) \
-            or plan.cfg.moe is not None or plan.cfg.use_mla:
+    if not isinstance(model, (DecoderLM, HybridMamba, XLSTMModel)):
         raise NotImplementedError(
-            f"{plan.cfg.name}: the port trains dense decoder LMs, the Zamba2 "
-            "hybrid and xLSTM only (MoE and MLA training is not ported)")
+            f"{plan.cfg.name}: the port trains dense decoder LMs, the MoE "
+            "and MLA decoders, the Zamba2 hybrid and xLSTM only")
     return model
 
 
@@ -134,6 +140,26 @@ def train_state_shapes(plan: StepPlan) -> dict:
     tokens = ((n, b, s), torch.int64)
     return {"state": out, "batch": {"tokens_weak": tokens,
                                     "tokens_strong": tokens}}
+
+
+# a leaf with more elements than this is updated in slices of its first
+# dim, so that the update's fp32 temporaries stay small (DeepSeek-V2's
+# 160 experts' up, gate and down weights, 1.26e9 elements a leaf, would
+# take 5 GB each in fp32); every element's arithmetic is the same
+UPDATE_SLICE = 1 << 26
+
+
+def _sgd(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
+    """p - lr g in fp32, rounded to p's dtype (JAX's ``sub``), a slice of
+    at most about UPDATE_SLICE elements at a time."""
+    if p.dim() == 0 or p.numel() <= UPDATE_SLICE:
+        return (p.float() - lr * g.float()).to(p.dtype)
+    out = torch.empty_like(p)
+    rows = max(1, UPDATE_SLICE // (p.numel() // p.shape[0]))
+    for i in range(0, p.shape[0], rows):
+        out[i:i + rows] = (p[i:i + rows].float()
+                           - lr * g[i:i + rows].float()).to(p.dtype)
+    return out
 
 
 def make_train_step(plan: StepPlan, lr: float = 0.02, *,
@@ -191,11 +217,16 @@ def make_train_step(plan: StepPlan, lr: float = 0.02, *,
                 state["teacher_bottoms"], batch["tokens_weak"], False)
             t_logits = top_forward(state["t_top"], t_feats,
                                    t_extras)["logits"]
-            pseudo_tok, ok_tok, _ = losses.pseudo_labels(
-                t_logits, s.confidence_threshold)
-            # sequence-level pseudo-labels for the clustering term
-            probs_mean = torch.softmax(t_logits.float(), -1).mean(dim=1)
+            # the teacher's fp32 softmax once (``losses.pseudo_labels``'
+            # arithmetic): token pseudo-labels and their confidence, and
+            # its mean over S for the sequence-level pseudo-labels of the
+            # clustering term
+            probs = torch.softmax(t_logits.float(), dim=-1)
             del t_logits
+            conf_tok, pseudo_tok = probs.max(dim=-1)
+            ok_tok = conf_tok > s.confidence_threshold
+            probs_mean = probs.mean(dim=1)
+            del probs, conf_tok
             conf_seq, pseudo_seq = probs_mean.max(-1)
             conf_seq = conf_seq > s.confidence_threshold * 0.5
             tz = apply_projection_head(state["t_proj"],
@@ -221,8 +252,7 @@ def make_train_step(plan: StepPlan, lr: float = 0.02, *,
                                                               leaves)))
         del live, leaves
         with torch.no_grad():
-            sub = lambda p, g: tree_map(
-                lambda a, b: (a.float() - lr * b.float()).to(a.dtype), p, g)
+            sub = lambda p, g: tree_map(lambda a, b: _sgd(a, b, lr), p, g)
             new_top = sub(state["top"], grads.pop("top"))
             new_proj = sub(state["proj"], grads.pop("proj"))
             # Eq. (8): each client applies its own gradient, N times its
@@ -284,9 +314,28 @@ def make_scanned_train_phase(plan: StepPlan, lr: float = 0.02, *,
     graph and replayed K times; the graph adopts the first state's tensors
     and every call returns them updated in place, so a phase holds one
     state and the caller's old references hold the new one.  On the CPU it
-    is the eager loop."""
-    return scan_phase(make_train_step(plan, lr, wire=wire),
-                      donate_carry=True)
+    is the eager loop.  An MoE state whose expert products take the loop
+    on its device (``models/moe.py::expert_route``: fp32 on the card) reads
+    the experts' counts on the host, which a capture refuses: it raises
+    before any step."""
+    phase = scan_phase(make_train_step(plan, lr, wire=wire),
+                       donate_carry=True)
+    if plan.cfg.moe is None:
+        return phase
+    dtype = getattr(torch, plan.cfg.dtype)
+
+    def checked(state: dict, batches: dict):
+        dev = next(t.device for t in tree_leaves(batches)
+                   if isinstance(t, torch.Tensor))
+        if dev.type == "cuda" and expert_route(dtype, dev) != "grouped":
+            raise ValueError(
+                f"{plan.cfg.name}: the {plan.cfg.dtype} MoE's expert "
+                f"products read their counts on the host on {dev}, which a "
+                "CUDA graph cannot capture; use make_train_phase")
+        return phase(state, batches)
+
+    checked.graphs = phase.graphs
+    return checked
 
 
 def make_prefetched_train_phase(plan: StepPlan, lr: float = 0.02, *,

@@ -16,7 +16,10 @@ hands (B, H, S, d) views of q, k (d = nope + rope) and v (d = v_head_dim)
 to the flash wrapper, causal, where JAX runs its chunked jnp softmax; the
 scale is 1 / sqrt(nope + rope).  On the card a bf16 prefill goes through
 the wgmma kernel (DeepSeek-V2's (192, 128) pair), which raises on views it
-cannot read; nothing falls back.
+cannot read; nothing falls back.  Training takes the same branch: the
+gradient flows back through the flash backward kernels at the pair
+(``kernels.FlashAttention``), the q/k concatenation and k_rope's
+broadcast over the heads (summed back into the one shared slice).
 
 The cache is written in place, as the attention cache is."""
 from __future__ import annotations

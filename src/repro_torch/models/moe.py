@@ -4,9 +4,9 @@ router, the load-balance loss, the shared and dense-residual branches and
 
 The port computes the function of JAX's ``apply_moe_dense`` but runs only
 the selected experts: the (token, expert) assignments are stable-sorted by
-expert, and each expert that has tokens takes one ``up``, ``gate`` and
-``down`` product over its rows, where JAX runs every expert on every token
-and weighs the unselected ones 0.  The arithmetic is JAX's:
+expert, and each expert takes one ``up``, ``gate`` and ``down`` product
+over its rows, where JAX runs every expert on every token and weighs the
+unselected ones 0.  The arithmetic is JAX's:
 
   * router logits in fp32 (``x.float() @ router``), softmax, top-k,
     the k weights renormalised by their sum floored at 1e-9;
@@ -17,16 +17,28 @@ and weighs the unselected ones 0.  The arithmetic is JAX's:
   * then the shared experts' and the dense residual's outputs added, in
     that order.
 
-A call reads the per-expert counts on the host once (to cut the sorted
-rows into the experts' slices).  No Pallas kernel stands behind this layer
-(JAX leaves its products to XLA), so they are ``torch.matmul``.  The
-expert-parallel path (``apply_moe_ep``: capacity drops, all_to_all) is not
-ported.
+The route reads no value on the host, so a CUDA graph can capture it
+(``launch/steps.py::make_scanned_train_phase`` does, training): the
+per-expert counts are a scatter-add on the device (JAX's ``one_hot(...).sum``
+in integers), their running sum the group offsets, and the three products
+are grouped products over the expert-sorted rows (``torch._grouped_mm``,
+one launch each; no Pallas kernel stands behind this layer, JAX leaves its
+einsums to XLA).  The rows are gathered from x's tokens, each repeated k
+times, through the sort's permutation, so their gradient is a permutation
+and a sum over each token's k copies, in a fixed order: two runs give the
+same bits.  Which route a call takes is :func:`expert_route`'s: the grouped
+products on the CPU and for bf16 on the card; the plain version, one
+``up``/``gate``/``down`` product per expert with tokens, cut at counts read
+on the host, for fp32 on the card (PyTorch checks ``_grouped_mm``'s
+CUDA inputs for bf16) and wherever a caller asks for it (``route="loop"``, what the tests
+hold the grouped route to).  The expert-parallel path (``apply_moe_ep``:
+capacity drops, all_to_all) is not ported.
 
-``ROUTING``, when set to a list, receives one record per call: the tokens
-each expert took and a 0-d tensor holding the smallest gap, over the
-call's tokens, between the k-th and the (k+1)-th routing probability (how
-near a token came to another expert)."""
+``ROUTING``, when set to a list, receives one record per call: a (E,)
+tensor of the tokens each expert took and a 0-d tensor holding the
+smallest gap, over the call's tokens, between the k-th and the (k+1)-th
+routing probability (how near a token came to another expert), both on
+the device and read by the caller after the call."""
 from __future__ import annotations
 
 import math
@@ -90,12 +102,21 @@ def _routing(router: torch.Tensor, x: torch.Tensor, m: MoEConfig):
     return weights, idx, probs
 
 
+def expert_counts(idx: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """(E,) int64: how many of the (T, k) assignments ``idx`` each expert
+    took, summed on the device (no host read, unlike ``bincount`` on the
+    card)."""
+    flat = idx.reshape(-1)
+    return torch.zeros(num_experts, dtype=torch.int64,
+                       device=idx.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def aux_load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
                           num_experts: int) -> torch.Tensor:
     """Switch-style load-balance loss: E * sum_e f_e * P_e, fp32."""
     me = probs.mean(0)
-    ce = torch.bincount(idx.reshape(-1), minlength=num_experts).float() \
-        / idx.shape[0]
+    ce = expert_counts(idx, num_experts).float() / idx.shape[0]
     return num_experts * (me * ce).sum()
 
 
@@ -124,35 +145,69 @@ def _expert(e: dict, i: int, x: torch.Tensor, cfg: ArchConfig
     return h @ e["down"][i]
 
 
-def apply_moe(p: dict, cfg: ArchConfig,
-              x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d) in x's dtype, aux loss fp32 scalar)."""
+def _experts_grouped(e: dict, rows: torch.Tensor, counts: torch.Tensor,
+                     cfg: ArchConfig) -> torch.Tensor:
+    """Every expert's MLP on its slice of the expert-sorted rows (T k, d),
+    the slices cut at the running sum of ``counts`` on the device: three
+    grouped products, as :func:`_expert` computes each slice."""
+    offs = counts.cumsum(0).to(torch.int32)
+    mm = lambda a, w: torch._grouped_mm(a, w, offs=offs)
+    h = mm(rows, e["up"])
+    h = F.silu(mm(rows, e["gate"])) * h if cfg.mlp_gated \
+        else _act(h, cfg.act)
+    return mm(h, e["down"])
+
+
+def _experts_loop(e: dict, rows: torch.Tensor, counts: torch.Tensor,
+                  cfg: ArchConfig) -> torch.Tensor:
+    """The plain version of :func:`_experts_grouped`: one :func:`_expert`
+    call per expert with rows, cut at the counts read on the host."""
+    ys, start = [], 0
+    for i, n in enumerate(counts.tolist()):
+        if n:
+            ys.append(_expert(e, i, rows[start:start + n], cfg))
+            start += n
+    return torch.cat(ys)
+
+
+def expert_route(dtype: torch.dtype, device: torch.device | str) -> str:
+    """``"grouped"`` on the CPU and for bf16 on the card (PyTorch checks
+    ``_grouped_mm``'s CUDA inputs for bf16), else ``"loop"`` (which reads
+    the counts on the host)."""
+    return ("grouped" if torch.device(device).type == "cpu"
+            or dtype == torch.bfloat16 else "loop")
+
+
+def apply_moe(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+              route: Optional[str] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d) in x's dtype, aux loss fp32 scalar);
+    ``route`` ("grouped" or "loop") overrides :func:`expert_route`."""
     m = cfg.moe
     b, s, d = x.shape
     x2d = x.reshape(-1, d)
     t, k = x2d.shape[0], m.top_k
     weights, idx, probs = _routing(p["router"], x2d, m)
+    counts = expert_counts(idx, m.num_experts)
     aux = aux_load_balance_loss(probs, idx, m.num_experts)
 
     # each token's k assignments in increasing expert order, then all
     # assignments stable-sorted by expert
     idx_e, perm = idx.sort(dim=-1)
     w_e = weights.gather(-1, perm)
-    flat = idx_e.reshape(-1)
-    order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=m.num_experts).tolist()  # sync
+    order = torch.argsort(idx_e.reshape(-1), stable=True)
     if ROUTING is not None:
-        top = torch.topk(probs, min(k + 1, m.num_experts), dim=-1).values
-        ROUTING.append({"counts": counts,
-                        "gap": (top[:, k - 1] - top[:, -1]).min()})
-    rows = x2d[order // k]
-    ys, start = [], 0
-    for i, n in enumerate(counts):
-        if n:
-            ys.append(_expert(p["experts"], i, rows[start:start + n], cfg))
-            start += n
-    y_sorted = torch.cat(ys)
-    del ys, rows
+        with torch.no_grad():
+            top = torch.topk(probs, min(k + 1, m.num_experts), dim=-1).values
+            ROUTING.append({"counts": counts,
+                            "gap": (top[:, k - 1] - top[:, -1]).min()})
+    # row i of the sorted assignments is token order[i] // k's: each token
+    # repeated k times, then permuted
+    rows = x2d[:, None].expand(t, k, d).reshape(t * k, d)[order]
+    route = route or expert_route(x.dtype, x.device)
+    experts = {"grouped": _experts_grouped, "loop": _experts_loop}[route]
+    y_sorted = experts(p["experts"], rows, counts, cfg)
+    del rows
     y = torch.empty_like(y_sorted)
     y[order] = y_sorted                         # back to (token, k) order
     y = y.view(t, k, d)

@@ -272,7 +272,8 @@ class _Recorder:
             setattr(self, entry, functools.partial(self._call, entry))
 
     def _call(self, entry, *args):
-        strides = ctypes.cast(args[16], ctypes.POINTER(ctypes.c_longlong * 24)
+        # (ten pointers, B, H, KVH, Sq, Skv, hd, hd_v, strides, ...)
+        strides = ctypes.cast(args[17], ctypes.POINTER(ctypes.c_longlong * 24)
                               ).contents
         self.calls.append((entry, args[4], tuple(strides)))
         return 0

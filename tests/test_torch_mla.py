@@ -266,13 +266,35 @@ def test_output_keeps_q_layout_with_v_head_dim():
     assert fa.output_like(q, 192).stride() == q.stride()
 
 
-def test_backward_refuses_unequal_head_dims():
-    """MLA training is not ported: the flash backward raises at unequal
-    head dims before it looks at anything else."""
-    q = torch.zeros(1, 2, 8, 192)
-    v = torch.zeros(1, 2, 8, 128)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        fa.flash_attention_bwd_cuda(q, q, v, v, torch.zeros(1, 2, 8), v)
+def _bwd_args(d: int, dv: int, dt):
+    """q, k (1, 2, 64, d), v, o and dO (1, 2, 64, dv) and the lse, on
+    ``meta``: what the backward wrapper checks before any launch."""
+    q, k = _meta((1, 2, 64, d), dt), _meta((1, 2, 64, d), dt)
+    v, o, do = (_meta((1, 2, 64, dv), dt) for _ in range(3))
+    return q, k, v, o, _meta((1, 2, 64), torch.float32), do
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_accepts_the_mla_pair(dtype, monkeypatch):
+    """(192, 128) passes the backward's checks in both dtypes: o and dO
+    have v's head dim, the gradients each their input's."""
+    q, k, v, o, lse, do = _bwd_args(192, 128, getattr(torch, dtype))
+    monkeypatch.setattr(fa, "_on_card", lambda named: None)
+    fa._check(q, k, v, 0, o=o, do=do)
+    with pytest.raises(ValueError, match="not shaped like q"):
+        fa._check(q, k, v, 0, o=_meta((1, 2, 64, 192), q.dtype), do=do)
+
+
+@pytest.mark.parametrize("d,dv", [(128, 192), (192, 192), (128, 64),
+                                  (192, 64), (96, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_refuses_pairs_not_built(d, dv, dtype, monkeypatch):
+    """A pair the backward .cu does not instantiate raises, in both dtypes,
+    before any launch, as the forward's wrapper does."""
+    q, k, v, o, lse, do = _bwd_args(d, dv, getattr(torch, dtype))
+    monkeypatch.setattr(fa, "_on_card", lambda named: None)
+    with pytest.raises(ValueError, match="head dims|head dim of"):
+        fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
 
 
 def test_deepseek_prefill_views_fit_the_wgmma_kernel(monkeypatch):

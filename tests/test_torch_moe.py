@@ -101,8 +101,9 @@ def test_aux_loss_matches_jax(arch):
 
 
 def test_routing_record():
-    """``ROUTING`` receives each call's tokens per expert (summing to T k)
-    and its smallest gap between the k-th and (k+1)-th probability."""
+    """``ROUTING`` receives each call's tokens per expert (a tensor on x's
+    device summing to T k, bincount's counts) and its smallest gap between
+    the k-th and (k+1)-th probability."""
     _, tcfg, _, tp = _layers("deepseek-v2-236b", "float32")
     _, tx = _x((2, 64), tcfg.d_model, "float32", seed=5)
     moe.ROUTING = []
@@ -112,9 +113,11 @@ def test_routing_record():
     finally:
         moe.ROUTING = None
     k = tcfg.moe.top_k
-    assert sum(rec["counts"]) == 128 * k
-    _, _, probs = moe._routing(tp["router"], tx.reshape(-1, tcfg.d_model),
-                               tcfg.moe)
+    assert int(rec["counts"].sum()) == 128 * k
+    _, idx, probs = moe._routing(tp["router"], tx.reshape(-1, tcfg.d_model),
+                                 tcfg.moe)
+    assert torch.equal(rec["counts"], torch.bincount(
+        idx.reshape(-1), minlength=tcfg.moe.num_experts))
     top = probs.sort(-1, descending=True).values
     assert float(rec["gap"]) == pytest.approx(
         float((top[:, k - 1] - top[:, k]).min()))
@@ -131,15 +134,3 @@ def test_moe_param_count_matches_jax(arch, which):
         jcfg, tcfg = jax_smoke_config(arch), smoke_config(arch)
     assert tcfg.param_count() == jcfg.param_count()
 
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_moe_training_is_refused(arch):
-    """MoE and MLA training is not ported (the flash backward has no
-    (192, 128) kernel, and the step carries no aux loss): the train state
-    raises rather than train a model that is not held to JAX."""
-    from repro_torch.configs import INPUT_SHAPES
-    from repro_torch.launch import steps
-    plan = steps.make_plan(smoke_config(arch), INPUT_SHAPES["train_4k"],
-                           n_clients=2)
-    with pytest.raises(NotImplementedError, match="MoE and MLA training"):
-        steps.init_train_state(plan, device="cpu")
