@@ -103,7 +103,9 @@ Phases, in order; any failure exits nonzero:
      bill a round;
  6b. card against CPU, from each run's state and the same draws: a
      supervised step and a local step of each full-model baseline (beside
-     it, how far 1 ulp in the student moves the CPU's result), and a
+     it, how far 1 ulp in the student moves the CPU's result; FedMatch's
+     local step also from its run's first state, since its final state
+     may have drifted to where no local loss is live), and a
      FedSwitch-SL semi step (its projection head unchanged), to 1e-3;
      then, read and not held, SemiFL's local step with the student scaled
      x40 with its labeller, where a rounding decides a ReLU or max-pool
@@ -112,7 +114,8 @@ Phases, in order; any failure exits nonzero:
      fused route) and of the full paper-vgg16 (144 x 144 images, the
      two-pass route), each with its launch counts, peak device memory and
      one profiled round on cuDNN's default algorithms, and its peak
-     through the eager executor beside it; then the 3 rounds again
+     through the eager executor (over one round) beside it; then the 3
+     rounds again
      through the eager executor on its deterministic ones, and from that
      state a card-against-CPU
      semi step at full widths with 2 clients of 8 samples;
@@ -134,7 +137,8 @@ Phases, in order; any failure exits nonzero:
      prompt, 32 greedy tokens, with its parameters counted first and the
      launch counts read after the prefill and after the decode (40 flash
      launches in the prefill, all of them the wgmma kernel's, none in
-     decode), then the same run again under ``torch.profiler``;
+     decode), then the same run again, to PROFILE_TOKENS (8) tokens, under
+     ``torch.profiler``;
   8. card against CPU on the serving path: the same fp32 weights of a
      2-layer Qwen3-14B at full width, one prefill of 256 tokens and 4
      decode steps on each;
@@ -167,6 +171,26 @@ Phases, in order; any failure exits nonzero:
      split 1 + 1), as phase 8, with the smallest gap between the 6th and
      7th routing probability over the positions compared and whether the
      two sides routed every token alike;
+ 12c. the sixth serving path: the full Qwen2-VL-7B (``serve_config``: 28
+     layers split 7 + 21, width 3584, 28 query heads over 4 KV heads of
+     128, M-RoPE, bf16, weights drawn on the card from seed 0; 8 patch
+     embeddings ahead of the prompt, as the JAX driver draws them), as
+     phase 7, one flash launch a layer in the prefill (GQA 7, all the
+     wgmma kernel's) and none in decode; then under the profiler;
+ 12d. card against CPU on it: the same fp32 weights of a 2-layer
+     Qwen2-VL-7B at full width (split 1 + 1), as phase 8, the prefill's
+     M-RoPE positions with planes that differ (``_grid_serve``);
+ 12e. the seventh serving path: the full SeamlessM4T-medium (12 encoder
+     layers split 6 + 6, 12 decoder layers, width 1024, bf16; 2048 frames
+     of ``randn`` frame embeddings and 8 decoder tokens, as the JAX driver
+     draws them), as phase 7, with 36 flash launches in the prefill (12
+     encoder, non-causal; 12 decoder self- and 12 cross-attention) and 12
+     a decode step (the cross-attention over the whole 2080-row cross
+     cache, one query row), all the wgmma kernel's; then under the
+     profiler;
+ 12f. card against CPU on it: the same fp32 weights of SeamlessM4T-medium
+     at full width cut to 2 encoder layers (split 1 + 1) and 1 decoder
+     layer, as phase 8;
  13. the fifth path: LM training of the full H2O-Danube-1.8B
      (``repro_torch.launch.steps.make_scanned_train_phase``: the step one
      CUDA graph replayed a step, the state donated; 24 layers split 6 + 18,
@@ -230,7 +254,30 @@ Phases, in order; any failure exits nonzero:
      d_model 1024 (16 heads, 16 experts top 6 with 2 shared, the published
      MLA ranks and head dims, d_ff and vocabulary), 2 clients x 256
      tokens, as phase 14, with every MoE layer call's routing equal;
- 21. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
+ 21. the ninth path: LM training of Qwen2-VL-7B at full width, as phase
+     13 (28 query heads over 4 KV heads of 128, M-RoPE, bf16), cut to
+     QWEN2VL_TRAIN_LAYERS (14 of 28, split 3 + 11; 16 ran out of the
+     card's memory through the graph), each sequence
+     1024 patch embeddings (an image grid of 32 x 32, M-RoPE planes that
+     differ) ahead of 3072 tokens (JAX's train_4k shape), the flash
+     kernels at GQA 7;
+ 22. card against CPU on it: one step of a 2-layer fp32 Qwen2-VL-7B at
+     full width (split 1 + 1), 2 clients x 128 positions (32 patch
+     embeddings, 96 tokens), as phase 14; 22a graph against eager on
+     the 2-layer cut in bf16 over GRAPH_SEQ's 2048 positions, as phase
+     14a;
+ 23. the tenth path: LM training of the full SeamlessM4T-medium, as phase
+     13: 4096 frames and 1024 decoder tokens a sequence (JAX's train_4k
+     shape), the flash kernels at hd 64 (the encoder non-causal, the
+     decoder's self-attention causal, its cross-attention 1024 rows over
+     4096 frames, non-causal), 3 launches a step per encoder layer and 6
+     per decoder layer (teacher, student, recompute), the backward once
+     and twice;
+ 24. card against CPU on it: one step of SeamlessM4T-medium cut to 2
+     encoder layers (split 1 + 1) and 1 decoder layer, 2 clients x 256
+     frames and 256 decoder tokens, as phase 14; 24a graph against eager
+     on that cut in bf16, as phase 14a;
+ 25. a ``kernels`` JSON line; last, the ``{"ok": true, ...}`` JSON line.
 Every profiled run's device records are read raw from the profiler
 (``_device_ops``), not through ``key_averages()``.
 
@@ -291,10 +338,18 @@ CLUSTER_EDGES = {"hole": (100, 1000, 30, 4), "tail": (100, 1000, 64, 4),
 # tokens; its prefill attention is q (4, 40, 2048, 128) over k, v
 # (4, 8, 2048, 128) in bf16, causal, once per layer
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
+# the tokens of a serving path's profiled run: its decode steps are alike,
+# and reading 31 steps' records (above 100k device ops on Qwen3-14B and
+# Zamba2-7B) took 16-22 s a path on a slow host
+PROFILE_TOKENS = 8
 
 # flash attention against its plain version, in fp32 and bf16:
 # (b, h, kvh, sq, skv, hd, causal, window).  The JAX kernel tests' shapes,
-# windows and non-causal case, ragged lengths, 5 query heads per KV head.
+# windows and non-causal case, ragged lengths, 5 query heads per KV head;
+# then Qwen2-VL-7B's group of 7 query heads per KV head at hd 128, and
+# SeamlessM4T's cross-attention at hd 64, non-causal: a training step's
+# 1024 decoder rows over 4096 frames, and a decode step's one row over the
+# serving path's 2080-row cross cache (SERVE_PROMPT + SERVE_TOKENS)
 FLASH_CASES = [
     (1, 2, 1, 128, 128, 64, True, 0), (2, 4, 2, 256, 256, 64, True, 0),
     (1, 8, 8, 256, 256, 128, True, 0), (2, 8, 2, 384, 384, 80, True, 0),
@@ -302,7 +357,8 @@ FLASH_CASES = [
     (1, 2, 2, 256, 256, 64, True, 128), (1, 2, 2, 256, 256, 64, True, 4096),
     (2, 2, 2, 128, 256, 64, False, 0), (1, 10, 2, 200, 200, 128, True, 0),
     (2, 10, 2, 1000, 1000, 128, True, 0), (1, 5, 1, 77, 300, 96, False, 0),
-    (1, 4, 2, 33, 33, 32, True, 16)]
+    (1, 4, 2, 33, 33, 32, True, 16), (1, 14, 2, 300, 300, 128, True, 0),
+    (1, 16, 16, 1024, 4096, 64, False, 0), (4, 16, 16, 1, 2080, 64, False, 0)]
 # bf16 only, for what the wgmma kernel can get wrong: (b, h, kvh, sq, skv,
 # hd, causal, window, q scale).  Sq and Skv off the 128-row tiles (1000,
 # 129, 77 over 300 non-causal, 300 over 77 causal), a window of 200 across
@@ -321,6 +377,9 @@ FLASH_BF16_CASES = [
     (1, 4, 1, 700, 700, 112, True, 0, 8.0)]
 # Zamba2-7B's shared attention block: 32 heads of 112, no GQA
 ZAMBA_HEADS, ZAMBA_HD = 32, 112
+# Qwen2-VL-7B: 28 query heads over 4 KV heads of 128; SeamlessM4T-medium:
+# 16 heads of 64, no GQA
+QWEN2VL_HEADS, QWEN2VL_KV_HEADS, SEAMLESS_HEADS = 28, 4, 16
 # MLA's head-dim pair (q and k 128 nope + 64 rope, v 128), fp32 and bf16:
 # (b, h, kvh, sq, skv, causal, window, q scale).  Ragged Sq off the
 # 128-row tiles (300, 129), non-causal with Skv != Sq (77 over 300, 300
@@ -1078,10 +1137,12 @@ def _sdpa_backend(kernels: dict) -> str:
 
 
 def _time_flash(card: str, model: str, h: int, kvh: int, hd: int,
-                check, hd_v: int = 0) -> dict:
+                check, hd_v: int = 0, causal: bool = True,
+                sq: int = SERVE_PROMPT, skv: int = SERVE_PROMPT) -> dict:
     """Check, then time, the bf16 kernel at ``model``'s prefill shape in the
     model's layout: (B, S, heads, hd) projections handed over as (B, heads,
-    S, hd) views (v's head dim ``hd_v``, if given), causal.  Kernel, plain
+    S, hd) views (v's head dim ``hd_v``, if given), causal unless
+    ``causal`` is False, Sq ``sq`` over Skv ``skv``.  Kernel, plain
     version, one ``scaled_dot_product_attention`` call (with the backend
     PyTorch picks for it named) and the bound; printed, never a reason to
     fail."""
@@ -1092,26 +1153,28 @@ def _time_flash(card: str, model: str, h: int, kvh: int, hd: int,
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     hd_v = hd_v or hd
     gen = torch.Generator(device="cuda").manual_seed(hd)
-    b, s, bf = SERVE_BATCH, SERVE_PROMPT, torch.bfloat16
-    view = lambda n, d=hd: torch.randn(b, s, n, d, generator=gen,
-                                       device="cuda").to(bf).transpose(1, 2)
-    q, k, v = view(h), view(kvh), view(kvh, hd_v)
+    b, bf = SERVE_BATCH, torch.bfloat16
+    view = lambda n, s, d=hd: torch.randn(b, s, n, d, generator=gen,
+                                          device="cuda").to(bf).transpose(1, 2)
+    q, k, v = view(h, sq), view(kvh, skv), view(kvh, skv, hd_v)
+    kind = "causal" if causal else "non-causal"
     err = check(q, k, v, f"{model} prefill shape bf16 q {tuple(q.shape)} kv "
                 f"{tuple(k.shape)}"
                 + (f" v {tuple(v.shape)}" if hd_v != hd else "")
-                + " (strided views)", FLASH_TOLS["bfloat16"])[1]
-    # q, k and v read once, the (B, H, S, hd_v) output written once
+                + f" {kind} (strided views)", FLASH_TOLS["bfloat16"],
+                causal=causal)[1]
+    # q, k and v read once, the (B, H, Sq, hd_v) output written once
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v)) \
-        + b * h * s * hd_v * 2
-    n_flops = 2 * b * h * (hd + hd_v) * _attn_pairs(s, s, True, 0)
+        + b * h * sq * hd_v * 2
+    n_flops = 2 * b * h * (hd + hd_v) * _attn_pairs(sq, skv, causal, 0)
     lib_kernels: dict = {}
     t = dict(
-        ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v), iters=20,
-                   warmup=3),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5,
-                         warmup=1),
+        ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
+                   iters=20, warmup=3),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal), iters=5, warmup=1),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters=20, warmup=3,
+            q, k, v, is_causal=causal, enable_gqa=True), iters=20, warmup=3,
             by_kernel=lib_kernels),
         bound=bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS))
     print(f"[timing] flash_attention at {model}'s prefill: the library call "
@@ -1120,7 +1183,7 @@ def _time_flash(card: str, model: str, h: int, kvh: int, hd: int,
                       lib_kernels.items()))
     print(f"[timing] flash_attention at {model}'s prefill, q "
           f"{tuple(q.shape)} kv {tuple(k.shape)}"
-          + (f" v {tuple(v.shape)}" if hd_v != hd else "") + " bf16 causal "
+          + (f" v {tuple(v.shape)}" if hd_v != hd else "") + f" bf16 {kind} "
           f"({n_flops:.4g} operations, {n_bytes / 1e6:.1f} MB): kernel "
           f"{t['ms'][0]:.4f} ms (events {t['ms'][1]:.4f}), plain "
           f"{t['plain_ms'][0]:.4f} ms (events {t['plain_ms'][1]:.4f}), "
@@ -1227,7 +1290,31 @@ def phase_flash(card: str) -> dict:
                         ZAMBA_HD, check)
     deepseek = _time_flash(card, "DeepSeek-V2", DEEPSEEK_HEADS,
                            DEEPSEEK_HEADS, MLA_HD, check, hd_v=MLA_HD_V)
-    return {"err": max(err, qwen["err"], zamba["err"], deepseek["err"]),
+    # Qwen2-VL-7B's prefill (28 query heads over 4 KV heads of 128; the
+    # prompt's 2048 positions, its 8 patch embeddings left out), and
+    # SeamlessM4T-medium's: the encoder's non-causal self-attention over the
+    # 2048 frames, a decode step's cross-attention (one row over the
+    # 2080-row cross cache)
+    vl = _time_flash(card, "Qwen2-VL-7B", QWEN2VL_HEADS, QWEN2VL_KV_HEADS,
+                     128, check)
+    enc = _time_flash(card, "SeamlessM4T-medium's encoder", SEAMLESS_HEADS,
+                      SEAMLESS_HEADS, 64, check, causal=False)
+    cross = _time_flash(card, "SeamlessM4T-medium's decode step (cross)",
+                        SEAMLESS_HEADS, SEAMLESS_HEADS, 64, check,
+                        causal=False, sq=1,
+                        skv=SERVE_PROMPT + SERVE_TOKENS)
+    # a cross-attention decode step as the model hands it over: one query
+    # row of the (B, 1, H, hd) projection over a layer's K/V slice of the
+    # (L, B, max_len, KVH, hd) cross cache
+    cache = randn(2, SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS,
+                  SEAMLESS_HEADS, 64).to(bf)
+    q1 = randn(SERVE_BATCH, 1, SEAMLESS_HEADS, 64).to(bf).transpose(1, 2)
+    _, e = check(q1, cache[0].transpose(1, 2), cache[1].transpose(1, 2), "bf16 cross-attention decode "
+                 "views q (4, 16, 1, 64) over a layer's slice of the cross "
+                 "cache (L, 4, 2080, 16, 64)", FLASH_TOLS["bfloat16"],
+                 causal=False)
+    return {"err": max(err, e, qwen["err"], zamba["err"], deepseek["err"],
+                       vl["err"], enc["err"], cross["err"]),
             "timing": qwen["timing"]}
 
 
@@ -2388,7 +2475,7 @@ def phase_baselines(card: str, trained) -> dict:
     the full-model baselines no ported kernel; every method but
     Supervised-only must have a live local loss in its first round (later
     ones are counted: a method may drift to where no pseudo-label clears
-    tau).  Returns {method: (state, system)}."""
+    tau).  Returns {method: (final state, system, first state)}."""
     import torch
 
     from repro_torch.core.baselines import BASELINES
@@ -2397,12 +2484,12 @@ def phase_baselines(card: str, trained) -> dict:
     runs = {}
     for method in list(BASELINES) + list(SPLIT_RUNS):
         wire = SPLIT_RUNS.get(method)
+        start = _trained_start(method, trained)
         reset_launch_counts()
         t0 = time.time()
         state, history, system = run_training(
             "paper-cnn", rounds=BASELINE_ROUNDS, baseline=method,
-            state=_trained_start(method, trained), wire_format=wire,
-            log=lambda _: None, **MAIN_PATH)
+            state=start, wire_format=wire, log=lambda _: None, **MAIN_PATH)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = launch_counts()
@@ -2438,7 +2525,7 @@ def phase_baselines(card: str, trained) -> dict:
                      f"clustering kernel, launched {launched}")
         elif launched:
             fail(f"the full-model baseline {method} launched {launched}")
-        runs[method] = (state, system)
+        runs[method] = (state, system, start)
     return runs
 
 
@@ -2474,6 +2561,12 @@ LABELLER_FACTORS = (1.0, 2.5, 5.0, 10.0, 20.0, 40.0, 80.0, 160.0, 320.0)
 # convolution algorithm, moves the result by up to 2e-3.  That input is
 # read (``_scaled_student_readout``), not held to 1e-3
 STUDENT_FACTOR = 40.0
+# FedMatch's psi can drift within its 5 rounds to where no pseudo-label
+# clears tau at any classifier scale (whether the JAX package drifts alike
+# is open, ROADMAP Queue 3), so its local step is also checked from the
+# run's first state, which phase 6a requires live in its first round: that
+# check is held, the final state's where some scale makes it live
+DRIFTING = ("fedmatch",)
 
 
 def _scaled(method: str, state, factor: float, student: bool = False):
@@ -2540,6 +2633,26 @@ def _scaled_student_readout() -> None:
         fail("non-finite SemiFL local step at a scaled student")
 
 
+def _cross_local(method: str, state, system, cpu, xu, loc,
+                 where: str) -> bool:
+    """``method``'s local step from ``state`` and the draws ``loc`` on the
+    card and on the CPU, at the first of LABELLER_FACTORS that gives a live
+    local loss on the card, held to 1e-3; False, and nothing compared, where
+    none does."""
+    for factor in LABELLER_FACTORS:
+        args = _scaled(method, state, factor)
+        new_g, loss_g = system.local_step(*args, xu.to(system.device), loc)
+        if method == "supervised-only" or float(loss_g) > LIVE_LOSS:
+            break
+    else:
+        return False
+    new_c, loss_c, shift = _cpu_local(cpu, args, xu, loc)
+    _check_pair(f"{method} local step from its {where} (labeller's "
+                f"classifier x{factor:g}; 1 ulp in the student moves the "
+                f"CPU's result {shift:.3g})", new_g, new_c, loss_g, loss_c)
+    return True
+
+
 def phase_baseline_cross_check(runs: dict) -> None:
     """For each full-model baseline, one supervised step and one local step
     from its trained state and the same draws on the card and through the
@@ -2550,7 +2663,7 @@ def phase_baseline_cross_check(runs: dict) -> None:
 
     from repro_torch.core.baselines import BASELINES
     from repro_torch.tree import tree_leaves
-    for method, (state, system) in runs.items():
+    for method, (state, system, start) in runs.items():
         hw = system.cfg.image_size
         xu, _ = _images(5, N_ACTIVE, CLIENT_BATCH, hw)
         xl, yl = _images(6, 1, MAIN_PATH["labeled_batch"], hw)
@@ -2566,19 +2679,17 @@ def phase_baseline_cross_check(runs: dict) -> None:
                            device="cpu")
         sup = system.sampler.supervised(len(yl))
         loc = system.sampler.local(N_ACTIVE, CLIENT_BATCH)
-        for factor in LABELLER_FACTORS:
-            args = _scaled(method, state, factor)
-            new_g, loss_g = system.local_step(*args, xu.to(system.device),
-                                              loc)
-            if method == "supervised-only" or float(loss_g) > 1e-3:
-                break
-        else:
+        live = _cross_local(method, state, system, cpu, xu, loc,
+                            "final state")
+        if method in DRIFTING:
+            if not live:
+                print(f"[cross] {method}: its final state has drifted to "
+                      f"where no classifier scale of {LABELLER_FACTORS} "
+                      f"gives a live local loss (ROADMAP Queue 3)")
+            live = _cross_local(method, start, system, cpu, xu, loc,
+                                "first state")
+        if not live:
             fail(f"{method}: no classifier scale gives a live local loss")
-        new_c, loss_c, shift = _cpu_local(cpu, args, xu, loc)
-        _check_pair(f"{method} local step (labeller's classifier "
-                    f"x{factor:g}; 1 ulp in the student moves the CPU's "
-                    f"result {shift:.3g})", new_g, new_c, loss_g,
-                    loss_c)
         sg, lg = system.supervised_step(
             state, (xl.to(system.device), yl.to(system.device)), sup)
         sc, lc = cpu.supervised_step(_to_cpu(state), (xl, yl), _to_cpu(sup))
@@ -2655,7 +2766,8 @@ def phase_models(card: str) -> dict:
     algorithms, as the trainer runs them, each with its launch counts set
     to 0 just before and read just after, its route checked, its peak
     device memory and one profiled round, then its peak device memory
-    through the eager executor (``scan_rounds=False``).  Then the same
+    through the eager executor (``scan_rounds=False``) over one round.
+    Then the same
     rounds again through the eager executor on
     cuDNN's deterministic algorithms, and from that state a card-against-CPU
     semi step at full widths and image size with 2 clients of 8 samples,
@@ -2688,8 +2800,10 @@ def phase_models(card: str) -> dict:
         del state, system
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        state, system, _ = _train(card, arch, wire, rounds,
-                                  note="the eager executor", lr=lr,
+        # one round: each round of the eager executor allocates alike, so
+        # its first holds the peak
+        state, system, _ = _train(card, arch, wire, 1,
+                                  note="the eager executor, its peak", lr=lr,
                                   scan_rounds=False)
         print(f"[main] {arch} peak device memory through the eager "
               f"executor {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
@@ -2936,6 +3050,17 @@ SERVE_PATHS = {
                           "flash_attention_wgmma": "flash_kernel_wgmma"},
                          lambda cfg: replace(cfg, num_layers=2),
                          "serve-deepseek"),
+    # 2 layers, split 1 + 1; its card-vs-CPU check takes M-RoPE positions
+    # whose planes differ (_grid_serve)
+    "qwen2-vl-7b": ({"flash_attention": "flash_kernel",
+                     "flash_attention_wgmma": "flash_kernel_wgmma"},
+                    lambda cfg: replace(cfg, num_layers=2), "serve-qwen2vl"),
+    # 2 encoder layers split 1 + 1, 1 decoder layer
+    "seamless-m4t-medium": ({"flash_attention": "flash_kernel",
+                             "flash_attention_wgmma": "flash_kernel_wgmma"},
+                            lambda cfg: replace(cfg, num_layers=1,
+                                                num_encoder_layers=2),
+                            "serve-seamless"),
 }
 # the paths served cut in depth, for one card's 80 GB: DeepSeek-V2 at 9 of
 # its 60 layers (the dense prefix layer and 8 MLA + MoE layers of 160
@@ -2946,14 +3071,18 @@ SERVE_DEPTH = {"deepseek-v2-236b": 9}
 
 def _launches_per_prefill(cfg) -> dict:
     """Each ported kernel's launches in a prefill: flash attention once per
-    attention layer (Qwen3) or application of the shared block (Zamba2:
-    after every period-th Mamba2 layer, on each side of the split), the
-    sLSTM scan once per sLSTM block, the Mamba2 scan once per Mamba2
-    layer; in bf16 every flash launch is the wgmma kernel's and every
-    Mamba2 launch the mma kernel's, in fp32 none."""
+    attention layer (Qwen3, Qwen2-VL, DeepSeek-V2), per application of the
+    shared block (Zamba2: after every period-th Mamba2 layer, on each side
+    of the split), or once per encoder layer and twice per decoder layer
+    (SeamlessM4T: self-attention and cross-attention), the sLSTM scan once
+    per sLSTM block, the Mamba2 scan once per Mamba2 layer; in bf16 every
+    flash launch is the wgmma kernel's and every Mamba2 launch the mma
+    kernel's, in fp32 none."""
     if cfg.xlstm:
         return {"slstm_scan": cfg.num_layers // cfg.xlstm.slstm_period}
-    want = {"flash_attention": cfg.num_layers}
+    want = {"flash_attention": cfg.num_layers
+            + (cfg.num_layers + cfg.num_encoder_layers
+               if cfg.is_encoder_decoder else 0)}
     if cfg.ssm:
         from repro_torch.models.transformer import build_model
         split, per = build_model(cfg).split, cfg.shared_attn_period
@@ -2967,6 +3096,20 @@ def _launches_per_prefill(cfg) -> dict:
     return want
 
 
+def _launches_per_decode_step(cfg) -> dict:
+    """Each of a serving path's kernels' launches in a decode step: flash
+    attention once per decoder layer for an encoder-decoder model (its
+    cross-attention over the cross cache, one query row; self-attention
+    decode is plain PyTorch), all the wgmma kernel's in bf16; none of any
+    kernel on the other paths."""
+    want = dict.fromkeys(_launches_per_prefill(cfg), 0)
+    if cfg.is_encoder_decoder:
+        want["flash_attention"] = cfg.num_layers
+        want["flash_attention_wgmma"] = (cfg.num_layers
+                                         if cfg.dtype == "bfloat16" else 0)
+    return want
+
+
 def _serve_cfg(arch: str):
     """The config a serving path runs at full width: the published one, cut
     in depth where ``SERVE_DEPTH`` says."""
@@ -2977,10 +3120,10 @@ def _serve_cfg(arch: str):
     return cfg
 
 
-def _serve_full(arch: str, log):
+def _serve_full(arch: str, log, tokens: int = SERVE_TOKENS):
     from repro_torch.launch.serve import serve_config
     return serve_config(_serve_cfg(arch), SERVE_BATCH, SERVE_PROMPT,
-                        SERVE_TOKENS, seed=0, device="cuda", log=log)
+                        tokens, seed=0, device="cuda", log=log)
 
 
 def _with_routing(cfg, fn):
@@ -3076,21 +3219,24 @@ def phase_serve(card: str, arch: str) -> dict:
         fail(f"serving {arch} gave tokens of shape {toks.shape} in "
              f"[{toks.min()}, {toks.max()}]")
     want = _launches_per_prefill(cfg)
+    want_decode = {k: (SERVE_TOKENS - 1) * n
+                   for k, n in _launches_per_decode_step(cfg).items()}
     for kernel in kernels:
         prefill_n = after_log[0][0][kernel]
         decode_n = launches[kernel] - prefill_n
         print(f"[{tag}] {kernel} launches in the prefill {prefill_n} (want "
               f"{want[kernel]}), in the {SERVE_TOKENS - 1} decode steps "
-              f"{decode_n} (want 0)")
-        if prefill_n != want[kernel] or decode_n != 0:
+              f"{decode_n} (want {want_decode[kernel]})")
+        if prefill_n != want[kernel] or decode_n != want_decode[kernel]:
             fail(f"serving {arch} launched {kernel} {prefill_n} times in "
                  f"the prefill and {decode_n} in decode, want "
-                 f"{want[kernel]} and 0")
+                 f"{want[kernel]} and {want_decode[kernel]}")
     return launches
 
 
 def phase_serve_profile(card: str, arch: str) -> None:
-    """The same serving run under ``torch.profiler``: device busy time,
+    """The same serving run, to PROFILE_TOKENS tokens, under
+    ``torch.profiler``: device busy time,
     idle share and device time by kernel, for the whole run and for each
     of its two spans (``serve.prefill``, ``serve.decode``: device ops are
     assigned to the span in which they start), with the share of each
@@ -3104,7 +3250,7 @@ def phase_serve_profile(card: str, arch: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = _serve_full(arch, lambda _: None)
+        res = _serve_full(arch, lambda _: None, PROFILE_TOKENS)
         wall = time.perf_counter() - t0
     device = [op for op in _device_ops(prof)
               if not op[0].startswith("serve.")]
@@ -3144,18 +3290,63 @@ def phase_serve_profile(card: str, arch: str) -> None:
           f"{time.perf_counter() - t_all:.1f} s")
 
 
+def _grid_serve(cfg, params, device: str, batch: int, prompt_len: int,
+                gen_tokens: int):
+    """A vision model's prefill and greedy decode through the port's steps,
+    with M-RoPE positions whose planes differ: PATCHES patch embeddings
+    (``randn``, seed 0) ahead of ``prompt_len`` tokens, at the positions
+    of :func:`_grid_positions`, and the decode steps going on from the
+    largest.  Returns what ``serve_config`` returns, with no times."""
+    import torch
+
+    from repro_torch.launch.serve import PATCHES, ServeResult
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import build_model
+    rng = np.random.RandomState(0)
+    pos = _grid_positions(PATCHES, prompt_len)
+    dev = torch.device(device)
+    host = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    batch_in = {"tokens": host(rng.randint(0, cfg.vocab_size,
+                                           (batch, prompt_len))),
+                "patch_embeds": host(rng.randn(batch, PATCHES, cfg.d_model)
+                                     .astype(np.float32)),
+                "mrope_positions": host(np.broadcast_to(
+                    pos[:, None], (3, batch, pos.shape[1])))}
+    cache = build_model(cfg).init_cache(batch, PATCHES + prompt_len
+                                        + gen_tokens, dev)
+    logits, cache = make_prefill_step(cfg)(params, batch_in, cache)
+    tok = logits.argmax(-1)
+    toks, decode = [tok], make_decode_step(cfg)
+    for i in range(gen_tokens - 1):
+        p = int(pos.max()) + 1 + i
+        tok, cache = decode(params, {
+            "tokens": tok[:, None],
+            "pos": torch.full((batch,), p, dtype=torch.int64, device=dev),
+            "mrope_positions": torch.full((3, batch, 1), p,
+                                          dtype=torch.int64, device=dev)},
+            cache)
+        toks.append(tok)
+    return ServeResult(torch.stack(toks, 1).cpu().numpy(), logits, 0.0, 0.0)
+
+
 def phase_serve_cross_check(arch: str) -> None:
     """One prefill of 256 tokens and 4 decode steps of the model cut in
     depth (Qwen3-14B to 2 layers; xLSTM-1.3B to 4 blocks with an sLSTM
     block every 2, so 2 groups split 1 + 1; Zamba2-7B to 4 Mamba2 layers
     with the shared block every 2, split 2 + 2; DeepSeek-V2 to its prefix
-    layer and one MLA + MoE layer, split 1 + 1) at full width, in fp32
-    with TF32 off, on the card and on the CPU from the same weights (drawn
-    on the card, copied to the CPU).  cuBLAS and the CPU sum in other
-    orders and the path's kernels against their plain versions too, so the
-    logits are held to 1e-3 (phase 5's tolerance); the greedy tokens must
-    be equal, and the card's prefill must run each of the path's kernels
-    as often as :func:`_launches_per_prefill` says."""
+    layer and one MLA + MoE layer, split 1 + 1; Qwen2-VL-7B to 2 layers,
+    split 1 + 1, the prompt behind 8 patch embeddings with M-RoPE
+    positions whose planes differ, :func:`_grid_serve`, where
+    ``serve_config``'s text-only positions would reduce M-RoPE to RoPE;
+    SeamlessM4T-medium to 2 encoder layers, split 1 + 1, and 1 decoder
+    layer, 256 frames) at full width, in fp32 with TF32 off, on the card
+    and on the CPU from the same weights (drawn on the card, copied to the
+    CPU).  cuBLAS and the CPU sum in other orders and the path's kernels
+    against their plain versions too, so the logits are held to 1e-3
+    (phase 5's tolerance); the greedy tokens must be equal, and the card's
+    run must launch each of the path's kernels as often as
+    :func:`_launches_per_prefill` and, for each decode step,
+    :func:`_launches_per_decode_step` say."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3168,15 +3359,18 @@ def phase_serve_cross_check(arch: str) -> None:
     params = build_model(cfg).init(torch.Generator("cuda").manual_seed(1),
                                    "cuda")
     n_params = sum(t.numel() for t in tree_leaves(params))
-    kw = dict(batch=2, prompt_len=256, gen_tokens=5, seed=0,
-              log=lambda _: None)
+    kw = dict(batch=2, prompt_len=256, gen_tokens=5)
+    if cfg.modality == "vision":
+        run = lambda p, dev: _grid_serve(cfg, p, dev, **kw)
+    else:
+        run = lambda p, dev: serve_config(cfg, params=p, device=dev, seed=0,
+                                          log=lambda _: None, **kw)
     t0 = time.perf_counter()
     reset_launch_counts()
-    gpu, gpu_routing = _with_routing(cfg, lambda: serve_config(
-        cfg, params=params, device="cuda", **kw))
+    gpu, gpu_routing = _with_routing(cfg, lambda: run(params, "cuda"))
     counts = {k: launch_counts()[k] for k in kernels}
-    cpu, cpu_routing = _with_routing(cfg, lambda: serve_config(
-        cfg, params=tree_map(lambda t: t.cpu(), params), device="cpu", **kw))
+    cpu, cpu_routing = _with_routing(cfg, lambda: run(
+        tree_map(lambda t: t.cpu(), params), "cpu"))
     del params
     if cpu_routing:
         # the CPU's routing is the reference's; a flip between the two
@@ -3195,9 +3389,12 @@ def phase_serve_cross_check(arch: str) -> None:
           f"{float(cpu.logits.abs().max()):.3g}); greedy tokens equal: "
           f"{same} {gpu.tokens.tolist()}; launches on the card {counts}; "
           f"{time.perf_counter() - t0:.1f} s")
-    want = _launches_per_prefill(cfg)
+    per_step = _launches_per_decode_step(cfg)
+    want = {k: n + (kw["gen_tokens"] - 1) * per_step[k]
+            for k, n in _launches_per_prefill(cfg).items()}
     if counts != want:
-        fail(f"the card's {arch} prefill launched {counts}, want {want}")
+        fail(f"the card's {arch} serving run launched {counts}, want "
+             f"{want}")
     if not (torch.allclose(gpu.logits.cpu(), cpu.logits, atol=1e-3,
                            rtol=1e-3) and same):
         fail(f"the card and the CPU disagree on the {arch} serving path")
@@ -3208,14 +3405,17 @@ def phase_serve_cross_check(arch: str) -> None:
 # ---------------------------------------------------------------------------
 
 # the backward against its plain version at small shapes, fp32 and bf16:
-# (b, h, kvh, sq, skv, hd, causal, window).  GQA groups 1, 4 and 5, ragged
-# tiles, windows across tile edges, non-causal with Skv != Sq; phase 3b adds
-# every head dim in bf16, rows that see no key, and H2O-Danube-1.8B's shape
+# (b, h, kvh, sq, skv, hd, causal, window).  GQA groups 1, 4, 5 and 7 (hd
+# 128, Qwen2-VL-7B's), ragged tiles, windows across tile edges, non-causal
+# with Skv != Sq (SeamlessM4T's training cross-attention, 1024 rows over
+# 4096 at hd 64, the last); phase 3b adds every head dim in bf16, rows that
+# see no key, and the training paths' shapes
 FLASH_BWD_CASES = [
     (1, 2, 1, 128, 128, 64, True, 0), (2, 8, 2, 384, 384, 80, True, 0),
     (1, 4, 4, 256, 256, 128, True, 64), (2, 2, 2, 128, 256, 64, False, 0),
     (1, 10, 2, 200, 200, 128, True, 0), (1, 5, 1, 77, 300, 96, False, 0),
-    (1, 4, 2, 33, 33, 32, True, 16), (1, 4, 1, 300, 300, 112, True, 100)]
+    (1, 4, 2, 33, 33, 32, True, 16), (1, 4, 1, 300, 300, 112, True, 100),
+    (1, 14, 2, 300, 300, 128, True, 0), (1, 16, 16, 1024, 4096, 64, False, 0)]
 # (atol, rtol).  fp32: the forward's tolerance.  bf16: both sides compute
 # in fp32 from the same bf16 inputs (and the same forward output and lse)
 # and round each gradient once to bf16.  Where the two fp32 results x, y
@@ -3478,6 +3678,38 @@ def phase_flash_bwd(card: str, ptxas: str = "") -> dict:
     _time_flash_train(card, "zamba2-7b's training shape", q, k, v, g)
     del q, k, v, g
     torch.cuda.empty_cache()
+    # Qwen2-VL-7B's top on the training path (GQA 7 at hd 128), causal,
+    # and SeamlessM4T-medium's cross-attention (1024 decoder rows over 4096
+    # frames at hd 64, non-causal): two bf16 launches bit for bit, timed
+    gqa7 = _model_views(gen, torch.bfloat16, b, s, QWEN2VL_HEADS,
+                        QWEN2VL_KV_HEADS, 128, extra=(1,))
+    t_new = time.perf_counter()
+    view = lambda n, s_: torch.randn(b, s_, n, 64, generator=gen,
+                                     device="cuda").bfloat16().transpose(1, 2)
+    cross = (view(SEAMLESS_HEADS, 1024), view(SEAMLESS_HEADS, s),
+             view(SEAMLESS_HEADS, s), view(SEAMLESS_HEADS, 1024))
+    for where, (q, k, v, g), causal in (
+            ("qwen2-vl-7b's training shape", gqa7, True),
+            ("seamless-m4t-medium's training cross-attention", cross,
+             False)):
+        err = max(err, _check_bwd(
+            q, k, v, g, f"bf16 at {where} q {tuple(q.shape)} kv "
+            f"{tuple(k.shape)}", FLASH_BWD_TOLS["bfloat16"], causal=causal))
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                         with_lse=True)
+        first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g,
+                                            causal=causal)
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g,
+                                            causal=causal)
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            fail(f"flash backward at {where}: two launches differ")
+        del o, lse, first, again
+        _time_flash_train(card, where, q, k, v, g, causal=causal)
+    del gqa7, cross, q, k, v, g
+    torch.cuda.empty_cache()
+    print(f"[kernels] flash backward at qwen2-vl-7b's and "
+          f"seamless-m4t-medium's training shapes: checked and timed in "
+          f"{time.perf_counter() - t_new:.1f} s")
     # DeepSeek-V2's MLA on the training path: q, k (B, 128, 4096, 192) and
     # v (B, 128, 4096, 128), views of the model's (B, S, H, d) tensors, at
     # the top's B 4 (bf16) and a client bottom's B 1 (bf16 and fp32)
@@ -3507,8 +3739,10 @@ def phase_flash_bwd(card: str, ptxas: str = "") -> dict:
     return {"err": err, "timing": timing}
 
 
-def _time_flash_train(card: str, where: str, q, k, v, g) -> dict:
-    """Flash attention at one bf16 causal training shape: the forward (with
+def _time_flash_train(card: str, where: str, q, k, v, g,
+                      causal: bool = True) -> dict:
+    """Flash attention at one bf16 training shape, causal unless
+    ``causal`` is False (Sq may then differ from Skv): the forward (with
     its lse) and the backward, each timed against the library
     (``scaled_dot_product_attention``: its forward, and its forward and
     backward less its forward, with the backend it took named) and its
@@ -3523,10 +3757,10 @@ def _time_flash_train(card: str, where: str, q, k, v, g) -> dict:
     import torch.nn.functional as F
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    b, h, s, hd = q.shape
+    b, h, sq, hd = q.shape
     hd_v = v.shape[-1]
-    o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
-    pairs = _attn_pairs(s, s, True, 0)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+    pairs = _attn_pairs(sq, k.shape[2], causal, 0)
     size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     # operations a visible pair in the products the bf16 kernels issue: S
     # twice (three times at a pair, dV and dK in two passes), dP twice, P
@@ -3536,14 +3770,14 @@ def _time_flash_train(card: str, where: str, q, k, v, g) -> dict:
                   + fa.BWD_DQ_TERMS * hd)
     lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(
-        lq, lk, lv, is_causal=True, enable_gqa=k.shape[1] != h)
+        lq, lk, lv, is_causal=causal, enable_gqa=k.shape[1] != h)
     t = dict(
-        fwd=time_ms(lambda: fa.flash_attention_cuda(q, k, v, with_lse=True),
-                    iters=5, warmup=1),
-        bwd=time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, g),
-                    iters=5, warmup=1),
-        plain=time_ms(lambda: _bwd_ref(q, k, v, o, lse, g), iters=3,
-                      warmup=1))
+        fwd=time_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, causal=causal, with_lse=True), iters=5, warmup=1),
+        bwd=time_ms(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, o, lse, g, causal=causal), iters=5, warmup=1),
+        plain=time_ms(lambda: _bwd_ref(q, k, v, o, lse, g, causal=causal),
+                      iters=3, warmup=1))
     lib_kernels: dict = {}
     try:
         t["lib_fwd"] = time_ms(lambda: sdpa().detach(), iters=10, warmup=2)
@@ -3564,7 +3798,7 @@ def _time_flash_train(card: str, where: str, q, k, v, g) -> dict:
         torch.cuda.empty_cache()
     shape = (f"q {tuple(q.shape)} kv {tuple(k.shape)}"
              + (f" v {tuple(v.shape)}" if hd_v != hd else "")
-             + " bf16 causal")
+             + (" bf16 causal" if causal else " bf16 non-causal"))
     lib_text = lambda lib: ("no library time" if lib is None else
                             f"{lib[0]:.4f} ms (events {lib[1]:.4f})")
     out = {}
@@ -3619,18 +3853,52 @@ def _lm_plan(cfg, n: int, seq: int):
                                   global_batch=n), n_clients=n)
 
 
-def _lm_tokens(cfg, k: int, n: int, seq: int, seed: int) -> dict:
-    """K steps of token batches (K, N, 1, S) drawn on the card from
-    ``seed``: fresh strong views every step, and the same N weak-view
-    sequences in each (each client revisits its unlabeled data), so that
-    from the second step on the teacher's sequence pseudo-labels find
-    their own earlier entries in the queue and Eq. (5) has positives."""
+def _grid_positions(p: int, s_text: int) -> np.ndarray:
+    """(3, p + s_text) M-RoPE positions whose planes differ: one image grid
+    of ``p`` patches, rows x columns as square as ``p`` allows (temporal
+    0, height the patch's row, width its column), ahead of ``s_text``
+    tokens at the grid's largest position + 1 on, on all three planes."""
+    rows = max(r for r in range(1, int(p ** 0.5) + 1) if p % r == 0)
+    cols = p // rows
+    r, c = np.divmod(np.arange(p), cols)
+    start = max(rows, cols)
+    text = np.arange(start, start + s_text)
+    return np.concatenate([np.stack([np.zeros_like(r), r, c]),
+                           np.broadcast_to(text, (3, s_text))], axis=1)
+
+
+def _lm_batches(cfg, k: int, n: int, seq: int, seed: int) -> dict:
+    """K steps of train batches for N clients x 1 sequence of ``seq``
+    positions, in ``train_batch_shapes``' shapes with a leading K, drawn on
+    the card from ``seed``: fresh strong views every step, and the same N
+    weak views in each (each client revisits its unlabeled data), so that
+    from the second step on the teacher's sequence pseudo-labels find their
+    own earlier entries in the queue and Eq. (5) has positives.  Token ids
+    uniform over the vocabulary; a vision model's patch embeddings
+    (``randn``, in the config's dtype) the same in every step and view,
+    and its M-RoPE positions :func:`_grid_positions`; an encoder-decoder
+    model's frames
+    ``randn`` and its decoder tokens the same every step."""
     import torch
+
+    from repro_torch.launch.steps import train_batch_shapes
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    draw = lambda k_: torch.randint(0, cfg.vocab_size, (k_, n, 1, seq),
-                                    generator=gen, device="cuda")
-    return {"tokens_weak": draw(1).expand(k, n, 1, seq),
-            "tokens_strong": draw(k)}
+    shapes = train_batch_shapes(_lm_plan(cfg, n, seq))
+    out = {}
+    for key, (shape, dt) in shapes.items():
+        k_ = k if key.endswith("_strong") else 1
+        if key == "mrope_positions":
+            p = shapes["patch_embeds"][0][-2]
+            pos = _grid_positions(p, shape[-1] - p)
+            x = torch.from_numpy(pos).cuda()[:, None].expand(shape)[None]
+        elif dt == torch.int64:
+            x = torch.randint(0, cfg.vocab_size, (k_,) + shape,
+                              generator=gen, device="cuda")
+        else:
+            x = torch.randn((k_,) + shape, generator=gen,
+                            device="cuda").to(dt)
+        out[key] = x.expand((k,) + shape)
+    return out
 
 
 def _lm_launches(cfg, n: int, wire) -> dict:
@@ -3645,7 +3913,10 @@ def _lm_launches(cfg, n: int, wire) -> dict:
     the mma kernel's in bf16), its backward once per layer, and flash
     attention once per application of the shared block a pass (one after
     every ``shared_attn_period`` layers of each side), its backward once
-    per application.  All: the clustering pair once; the int8 wire's
+    per application.  The vision decoder as the dense one.  The
+    encoder-decoder model: flash attention once per encoder layer and
+    twice per decoder layer (self and cross) a pass, its backward as
+    often.  All: the clustering pair once; the int8 wire's
     two-pass quantizer (a
     client slice of S x d_model floats is past what a cluster holds) three
     times: teacher and student features, and the cut's gradient, where the
@@ -3661,6 +3932,9 @@ def _lm_launches(cfg, n: int, wire) -> dict:
         return dict(want, slstm_scan=3 * blocks, slstm_scan_bwd=blocks,
                     flash_attention=0, flash_attention_bwd=0)
     layers = n * model.split + cfg.num_layers - model.split
+    if cfg.is_encoder_decoder:
+        layers = (n * model.split + cfg.num_encoder_layers - model.split
+                  + 2 * cfg.num_layers)
     bf16 = cfg.dtype == "bfloat16"
     if cfg.ssm:
         per = cfg.shared_attn_period
@@ -3716,9 +3990,28 @@ def _lm_launches(cfg, n: int, wire) -> dict:
 # Its card-vs-CPU step and graph check cannot hold two full-width states:
 # they take d_model 1024 with 16 heads and 16 experts (top 6 of 1536, 2
 # shared), the published MLA ranks and head dims (q/k 192 over v 128),
-# d_ff and vocabulary, 2 layers split 1 + 1, over 256 tokens a client
+# d_ff and vocabulary, 2 layers split 1 + 1, over 256 tokens a client.
+# Qwen2-VL-7B trains at full width cut to QWEN2VL_TRAIN_LAYERS (the split
+# a quarter of them): its step holds fp32 tensors over the 152,064-word
+# vocabulary for 4 x 4096 positions, 9.28 GiB each (the teacher's softmax,
+# the student's log-softmax and its gradient), beside the state (1.63 GB a
+# layer across 8 bottoms and 2 tops) and the gradients (python3
+# scripts/lm_depth_probe.py --arch qwen2-vl-7b --graph); its card-vs-CPU
+# step takes 2 layers over 128 positions a client (32 patch embeddings).
+# SeamlessM4T-medium trains at full depth; its card-vs-CPU step and graph
+# check take 2 encoder layers (split 1 + 1) and 1 decoder layer
 ZAMBA_TRAIN_LAYERS = 66
 DEEPSEEK_TRAIN_LAYERS = 2
+QWEN2VL_TRAIN_LAYERS = 14
+# the graph-against-eager check's positions a client where LM_SEQ's do not
+# fit: the eager K=3 call holds three states of the 2-layer Qwen2-VL-7B
+# (14.5 GiB each) beside the step's fp32 vocabulary tensors
+GRAPH_SEQ = {"qwen2-vl-7b": 2048}
+# the flash kernels a path's profiled bf16 step must show, and the fp32
+# backward kernels it must not
+FLASH_TRAIN_NAMES = ("flash_kernel_wgmma", "flash_bwd_delta",
+                     "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma")
+FLASH_REFUSED = ("flash_bwd_dkdv<", "flash_bwd_dq<")
 LM_TRAIN_PATHS = {
     "h2o-danube-1.8b": (
         "lm-train", None, 0.02,
@@ -3754,6 +4047,17 @@ LM_TRAIN_PATHS = {
         ("flash_kernel_wgmma", "flash_bwd_delta", "flash_bwd_dkdv_wgmma",
          "flash_bwd_dq_wgmma", "clustering_", "amax_kernel", "qdq_kernel"),
         ("flash_bwd_dkdv<", "flash_bwd_dq<")),
+    "qwen2-vl-7b": (
+        "lm-train-qwen2vl", QWEN2VL_TRAIN_LAYERS, 0.02,
+        lambda cfg: replace(cfg, num_layers=2, semisfl=replace(
+            cfg.semisfl, split_layer=1)), 128,
+        FLASH_TRAIN_NAMES + ("clustering_", "amax_kernel", "qdq_kernel"),
+        FLASH_REFUSED),
+    "seamless-m4t-medium": (
+        "lm-train-seamless", None, 0.02,
+        lambda cfg: replace(cfg, num_layers=1, num_encoder_layers=2), 256,
+        FLASH_TRAIN_NAMES + ("clustering_", "amax_kernel", "qdq_kernel"),
+        FLASH_REFUSED),
 }
 
 
@@ -3813,7 +4117,7 @@ def phase_lm_train(card: str, arch: str) -> dict:
     graph, the state donated) with the ``int8`` wire and tau 0: 4 clients x
     1 sequence x 4096 tokens (train_4k's sequence; the global batch cut
     from 256 to 4 for one card's memory), weights and tokens from seed 0
-    (the weak views the same sequences each step, see :func:`_lm_tokens`).
+    (the weak views the same sequences each step, see :func:`_lm_batches`).
     A first call of one step (the graph's warm-up steps, its capture and
     one replay), then 3 timed steps in one call (host clock ending in a
     synchronize), every kernel's count set to 0 just before the first call
@@ -3869,7 +4173,7 @@ def phase_lm_train(card: str, arch: str) -> dict:
         st["top"], st["client_bottoms"][0], st["teacher_bottoms"][0])] + [
         int(st["queue"].ptr)]
     before = snap(state)
-    tokens = _lm_tokens(cfg, 5, LM_CLIENTS, LM_SEQ, seed=0)
+    tokens = _lm_batches(cfg, 5, LM_CLIENTS, LM_SEQ, seed=0)
     phase = make_scanned_train_phase(plan, lr=lr, wire="int8")
     part = lambda a, b: {k: v[a:b] for k, v in tokens.items()}
 
@@ -3995,8 +4299,8 @@ def phase_lm_cross_check(arch: str) -> None:
     and prints the smallest routing gap."""
     import torch
 
+    from repro_torch import convert
     from repro_torch.configs import get_config
-    from repro_torch.convert import lm_train_state_to_numpy
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import init_train_state, make_train_step
     tag, _, _, cut, seq, _, _ = LM_TRAIN_PATHS[arch]
@@ -4005,20 +4309,23 @@ def phase_lm_cross_check(arch: str) -> None:
         base.semisfl, confidence_threshold=0.0))
     n = 2
     plan = _lm_plan(cfg, n, seq)
-    batch = {k: v[0] for k, v in _lm_tokens(cfg, 1, n, seq, seed=2).items()}
+    batch = {k: v[0] for k, v in _lm_batches(cfg, 1, n, seq, seed=2).items()}
     step = make_train_step(plan, lr=0.02)
     # one step on the card first, so that the queue holds these sequences'
     # pseudo-labels and Eq. (5) has positives in the step compared
+    t0 = time.perf_counter()
     state, _ = step(init_train_state(plan, seed=1, device="cuda"), batch)
     state_cpu, batch_cpu = _to_cpu(state), _to_cpu(batch)
-    t0 = time.perf_counter()
+    t_cpu = time.perf_counter()
     reset_launch_counts()
     (new_gpu, m_gpu), r_gpu = _with_routing(cfg, lambda: step(state, batch))
     torch.cuda.synchronize()
     counts = launch_counts()
     del state
+    t_step = time.perf_counter()
     (new_cpu, m_cpu), r_cpu = _with_routing(
         cfg, lambda: step(state_cpu, batch_cpu))
+    t_cmp = time.perf_counter()
     if r_cpu:
         same = [r["counts"] for r in r_gpu] == [r["counts"] for r in r_cpu]
         print(f"[cross-{tag}] routing on the CPU: {_routing_line(r_cpu)}; "
@@ -4027,21 +4334,30 @@ def phase_lm_cross_check(arch: str) -> None:
         if not same:
             fail(f"{arch} LM cross-check: the card routed tokens to other "
                  f"experts than the CPU")
-    got, want = (lm_train_state_to_numpy(x) for x in (new_gpu, new_cpu))
-    q_gpu, q_cpu = got.pop("queue"), want.pop("queue")
-    leaves = list(zip(_paths(got), _paths(want)))
+    q_gpu, q_cpu = new_gpu.pop("queue"), new_cpu.pop("queue")
     errs = {k: abs(float(m_gpu[k]) - float(m_cpu[k])) for k in m_gpu}
-    errs["queue.z"] = float(np.abs(q_gpu["z"] - q_cpu["z"]).max())
+    errs["queue.z"] = float((q_gpu.z.cpu() - q_cpu.z).abs().max())
+    # each leaf compared on the card, the CPU's copied over (np.allclose's
+    # test, |a - b| <= atol + rtol |b|)
+    leaves = list(zip(_tensor_paths(new_gpu), _tensor_paths(new_cpu)))
     worst, worst_at = 0.0, ""
     for (path, a), (path_w, b) in leaves:
         if path != path_w or a.shape != b.shape:
-            fail(f"{arch} LM cross-check: state leaves {path} {a.shape} and "
-                 f"{path_w} {b.shape} do not pair up")
-        e = float(np.abs(a.astype(np.float32) - b.astype(np.float32)).max())
+            fail(f"{arch} LM cross-check: state leaves {path} "
+                 f"{tuple(a.shape)} and {path_w} {tuple(b.shape)} do not "
+                 "pair up")
+        a, b = a.float(), b.to(a.device).float()
+        e = float((a - b).abs().max())
         if e > worst:
             worst, worst_at = e, path
-        if not np.allclose(a, b, atol=1e-3, rtol=1e-3):
+        if not torch.allclose(a, b, atol=1e-3, rtol=1e-3):
             fail(f"{arch} LM cross-check: {path} differs card vs CPU by {e}")
+    del a, b
+    q_gpu, q_cpu = (convert.queue_to_numpy(q) for q in (q_gpu, q_cpu))
+    print(f"[cross-{tag}] seconds: state and the queue-filling step on the "
+          f"card, copy to the CPU {t_cpu - t0:.1f}; the step on the card "
+          f"{t_step - t_cpu:.1f}; on the CPU {t_cmp - t_step:.1f}; the "
+          f"comparison {time.perf_counter() - t_cmp:.1f}")
     print(f"[cross-{tag}] {arch} width {cfg.d_model}, {cfg.num_layers} "
           f"layers, fp32, {n} clients x 1 x {seq} tokens, one step: card vs "
           f"CPU metrics {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
@@ -4099,8 +4415,10 @@ def phase_lm_graph(card: str, arch: str) -> None:
     """The captured, donated LM phase against the eager loop on the card:
     ``arch`` at full width, bf16, cut in depth as LM_TRAIN_PATHS cuts it
     for the card-vs-CPU step (danube 2 layers, xLSTM 4 blocks, Zamba2 4
-    layers), the ``int8`` wire, tau 0, the path's rate, 4 clients x 4096
-    tokens, from one state (seed 1) and one token draw (seed 3): K=3
+    layers, Qwen2-VL 2 layers, Seamless 2 encoder layers and 1 decoder
+    layer), the ``int8`` wire, tau 0, the path's rate, 4 clients x 4096
+    positions (GRAPH_SEQ's where given), from one state (seed 1) and one
+    batch draw (seed 3): K=3
     through ``make_train_phase`` (eager) from a clone, and through
     ``make_scanned_train_phase`` (graph, state donated), then 3 more steps
     each way from what came back.  Fails unless every state leaf and
@@ -4131,8 +4449,9 @@ def phase_lm_graph(card: str, arch: str) -> None:
     base = cut(get_config(arch))
     cfg = replace(base, semisfl=replace(base.semisfl,
                                         confidence_threshold=0.0))
-    plan = _lm_plan(cfg, LM_CLIENTS, LM_SEQ)
-    tokens = _lm_tokens(cfg, 6, LM_CLIENTS, LM_SEQ, seed=3)
+    seq = GRAPH_SEQ.get(arch, LM_SEQ)
+    plan = _lm_plan(cfg, LM_CLIENTS, seq)
+    tokens = _lm_batches(cfg, 6, LM_CLIENTS, seq, seed=3)
     part = lambda a, b: {k: v[a:b] for k, v in tokens.items()}
     clone = lambda st: tree_map(
         lambda t: t.clone() if isinstance(t, torch.Tensor) else t, st)
@@ -4166,7 +4485,7 @@ def phase_lm_graph(card: str, arch: str) -> None:
     per_step = {k: v / 3 for k, v in e_counts.items()}
     captured = {k: v for k, v in graph.launches.items() if v}
     print(f"[{tag}-graph] {arch} width {cfg.d_model}, {cfg.num_layers} "
-          f"layers, bf16, int8, {LM_CLIENTS} x {LM_SEQ} tokens, 2 calls of "
+          f"layers, bf16, int8, {LM_CLIENTS} x {seq} tokens, 2 calls of "
           f"K=3: graph against eager, leaves and metrics differing "
           f"{[len(d) for d in diffs]} (state, metrics; each call) of "
           f"{len(tensors(g_state))} state leaves; launches a step eager "
@@ -4220,6 +4539,19 @@ def phase_lm_graph(card: str, arch: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[{tag}-graph] {time.perf_counter() - t_phase:.1f} s")
+
+
+def _tensor_paths(tree, prefix: str = "") -> list:
+    """(path, tensor) of a port tree's tensor leaves, in order."""
+    import torch
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _tensor_paths(tree[k],
+                                                       f"{prefix}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in _tensor_paths(t, f"{prefix}[{i}]")]
+    return ([(prefix.lstrip("."), tree)] if isinstance(tree, torch.Tensor)
+            else [])
 
 
 def _paths(tree, prefix: str = "") -> list:

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Probe how deep the port's LMs train on one NVIDIA GPU.
 
-  python3 scripts/lm_depth_probe.py [--arch ARCH] [layers:rate ...]
+  python3 scripts/lm_depth_probe.py [--arch ARCH] [--graph] [layers:rate ...]
 
 For each depth and rate (for xlstm-1.3b, the default arch, by default
 48:2e-4 24:2e-4 16:2e-4 48:2e-5; for zamba2-7b 66:0.02 60:0.02 54:0.02; for
-deepseek-v2-236b 3:0.02 2:0.02) it
+deepseek-v2-236b 3:0.02 2:0.02; for qwen2-vl-7b 16:0.02 14:0.02 12:0.02) it
 draws the full-width train state of ARCH cut to that many blocks or layers
 (bf16, seed 0), then runs 3 SemiSFL steps of chip_smoke.py's LM path
 (4 clients x 1 x 4096 tokens, the ``int8`` wire, tau 0) and prints, a step,
@@ -18,11 +18,15 @@ change over the 3 steps of client 0's bottom, its teacher and the top, and
 the peak device memory.  It is the witness for chip_smoke.py's
 LM_TRAIN_PATHS cuts: xLSTM-1.3B's 16 blocks at rate 2e-4 (``python
 tests/test_torch_xlstm_train.py`` runs the same reading on the CPU at the
-smoke width through both packages) and Zamba2-7B's and DeepSeek-V2's
-depths, where memory sets them.  Each step is a call of the step function that drops the state
-it started from, so the peak is one state, the gradients and the update's
-new trees.  It reuses chip_smoke.py's plan and token helpers.  Needs a
-card and ``nvcc``; imports nothing of JAX."""
+smoke width through both packages) and Zamba2-7B's, DeepSeek-V2's and
+Qwen2-VL-7B's depths, where memory sets them.  Each step is a call of the
+step function that drops the state it started from, so the peak is one
+state, the gradients and the update's new trees.  With ``--graph`` the
+steps go through ``make_scanned_train_phase`` as chip_smoke.py's training
+phases do (a first call of one step: the eager warm-up steps, the
+capture and a replay; then the other steps as one call), whose peak is
+the warm-up's or the captured graph's.  It reuses chip_smoke.py's plan and
+batch helpers.  Needs a card and ``nvcc``; imports nothing of JAX."""
 import gc
 import sys
 import time
@@ -36,10 +40,11 @@ STEPS = 3
 
 DEFAULTS = {"xlstm-1.3b": ["48:2e-4", "24:2e-4", "16:2e-4", "48:2e-5"],
             "zamba2-7b": ["66:0.02", "60:0.02", "54:0.02"],
-            "deepseek-v2-236b": ["3:0.02", "2:0.02"]}
+            "deepseek-v2-236b": ["3:0.02", "2:0.02"],
+            "qwen2-vl-7b": ["16:0.02", "14:0.02", "12:0.02"]}
 
 
-def main(arch: str, cases) -> None:
+def main(arch: str, cases, graph: bool = False) -> None:
     import torch
 
     import chip_smoke as cs
@@ -50,7 +55,7 @@ def main(arch: str, cases) -> None:
     base = get_config(arch)
     for layers, lr in cases:
         try:
-            _probe(cs, card, base, layers, lr)
+            _probe(cs, card, base, layers, lr, graph)
         except torch.cuda.OutOfMemoryError as e:
             print(f"[probe] {arch} at {layers} layers, rate {lr}: out of "
                   f"device memory ({str(e).splitlines()[0]}); peak "
@@ -60,7 +65,8 @@ def main(arch: str, cases) -> None:
         torch.cuda.empty_cache()
 
 
-def _probe(cs, card: str, base, layers: int, lr: float) -> None:
+def _probe(cs, card: str, base, layers: int, lr: float,
+           graph: bool = False) -> None:
     """One depth and rate: STEPS steps, as the module's docstring says."""
     import torch
 
@@ -79,22 +85,31 @@ def _probe(cs, card: str, base, layers: int, lr: float) -> None:
     snap = lambda st: [[t.cpu() for t in tree_leaves(x)]
                        for x in trees(st)]
     start = snap(state)
-    tokens = cs._lm_tokens(cfg, STEPS, cs.LM_CLIENTS, cs.LM_SEQ, seed=0)
-    step = steps.make_train_step(plan, lr=lr, wire="int8")
-    tag = f"[probe] {arch} at {layers} layers, rate {lr}"
+    tokens = cs._lm_batches(cfg, STEPS, cs.LM_CLIENTS, cs.LM_SEQ, seed=0)
+    if graph:
+        phase = steps.make_scanned_train_phase(plan, lr=lr, wire="int8")
+        calls = [(0, 1), (1, STEPS)]
+    else:
+        one = steps.make_train_step(plan, lr=lr, wire="int8")
+        phase = lambda st, b: one(st, {k: v[0] for k, v in b.items()})
+        calls = [(i, i + 1) for i in range(STEPS)]
+    tag = (f"[probe] {arch} at {layers} layers, rate {lr}"
+           + (", through the graph" if graph else ""))
     n_bytes = sum(t.numel() * t.element_size()
                   for t in tree_leaves(state) if torch.is_tensor(t))
     print(f"{tag}: the state {n_bytes / 2**30:.3f} GiB", flush=True)
-    for i in range(STEPS):
+    for i, (a, b) in enumerate(calls):
         t0 = time.perf_counter()
-        state, m = step(state, {k: v[i] for k, v in tokens.items()})
+        state, m = phase(state, {k: v[a:b] for k, v in tokens.items()})
         torch.cuda.synchronize()
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in tree_leaves(state["client_bottoms"]))
-        print(f"{tag}, step {i}: "
-              + ", ".join(f"{k} {float(v):.6g}" for k, v in m.items())
+        print(f"{tag}, steps {a}-{b - 1}: "
+              + ", ".join(f"{k} {m[k].flatten().tolist()}" for k in m)
               + f"; client bottoms finite {finite}; "
-              f"{time.perf_counter() - t0:.3f} s", flush=True)
+              f"{time.perf_counter() - t0:.3f} s; peak so far "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+              flush=True)
         if i == 0:
             grads = []
             for name, was, now in zip(
@@ -115,7 +130,7 @@ def _probe(cs, card: str, base, layers: int, lr: float) -> None:
           f"{moved[1]:.4g}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on "
           f"{card}", flush=True)
-    del state, step, tokens, start
+    del state, phase, tokens, start
 
 
 if __name__ == "__main__":
@@ -123,5 +138,7 @@ if __name__ == "__main__":
     arch = "xlstm-1.3b"
     if args[:1] == ["--arch"]:
         arch, args = args[1], args[2:]
+    graph = "--graph" in args
+    args = [a for a in args if a != "--graph"]
     main(arch, [(int(a.split(":")[0]), float(a.split(":")[1]))
-                for a in args or DEFAULTS[arch]])
+                for a in args or DEFAULTS[arch]], graph)

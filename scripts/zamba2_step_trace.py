@@ -177,7 +177,7 @@ def main(routes) -> int:
                   semisfl=replace(base.semisfl, confidence_threshold=0.0))
     plan = cs._lm_plan(cfg, cs.LM_CLIENTS, cs.LM_SEQ)
     state = init_train_state(plan, seed=0, device="cuda")
-    tokens = cs._lm_tokens(cfg, 2 + len(routes), cs.LM_CLIENTS, cs.LM_SEQ,
+    tokens = cs._lm_batches(cfg, 2 + len(routes), cs.LM_CLIENTS, cs.LM_SEQ,
                            seed=0)
     phase = make_train_phase(plan, lr=lr, wire="int8")
     part = lambda a: {k: v[a:a + 1] for k, v in tokens.items()}

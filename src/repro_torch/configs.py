@@ -1,17 +1,19 @@
 """Configurations of the paper's CNN family, the dense and MoE decoder LMs,
-xLSTM and the Zamba2 hybrid, for the PyTorch port.
+xLSTM, the Zamba2 hybrid, the vision decoder (Qwen2-VL) and the
+encoder-decoder model (SeamlessM4T), for the PyTorch port.
 
-A copy of what the CNN classification rig and the LM serving paths read
-from the JAX package's ``configs/base.py`` (``SemiSFLConfig``,
-``MoEConfig``, ``XLSTMConfig``, ``SSMConfig``, the CNN, dense-LM, MoE,
-MLA, xLSTM and hybrid fields of ``ArchConfig``, ``get_config`` and the
-CNN, dense-LM, MoE, MLA, xLSTM and SSM branches of ``smoke_config``), of
-``configs/paper_models.py``, ``configs/qwen3_14b.py``,
-``configs/h2o_danube_1_8b.py``, ``configs/stablelm_1_6b.py``,
-``configs/qwen2_5_14b.py``, ``configs/xlstm_1_3b.py``,
-``configs/zamba2_7b.py``, ``configs/deepseek_v2_236b.py`` and
-``configs/arctic_480b.py``, and of the ``train_4k`` input shape.  The
-port keeps its own copy so that it imports nothing of the JAX package."""
+A copy of what the CNN classification rig and the LM paths read from the
+JAX package's ``configs/base.py`` (``SemiSFLConfig``, ``MoEConfig``,
+``XLSTMConfig``, ``SSMConfig``, the CNN, dense-LM, MoE, MLA, xLSTM,
+hybrid, M-RoPE, frontend and encoder-decoder fields of ``ArchConfig``,
+``get_config`` and ``smoke_config``), of ``configs/paper_models.py``,
+``configs/qwen3_14b.py``, ``configs/h2o_danube_1_8b.py``,
+``configs/stablelm_1_6b.py``, ``configs/qwen2_5_14b.py``,
+``configs/xlstm_1_3b.py``, ``configs/zamba2_7b.py``,
+``configs/deepseek_v2_236b.py``, ``configs/arctic_480b.py``,
+``configs/qwen2_vl_7b.py`` and ``configs/seamless_m4t_medium.py``, and of
+the ``train_4k`` input shape.  The port keeps its own copy so that it
+imports nothing of the JAX package."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
@@ -88,12 +90,13 @@ class SemiSFLConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """The CNN, dense-LM, MoE, MLA, xLSTM and hybrid fields of the JAX
-    package's ``ArchConfig``."""
+    """The CNN, dense-LM, MoE, MLA, xLSTM, hybrid, M-RoPE, frontend and
+    encoder-decoder fields of the JAX package's ``ArchConfig``."""
 
     name: str
-    num_layers: int
-    arch_type: str = "cnn"              # cnn | dense | moe | ssm | hybrid
+    num_layers: int                     # the decoder's, for enc-dec
+    # cnn | dense | moe | ssm | hybrid | vlm | audio
+    arch_type: str = "cnn"
     # --- dense decoder LM ----------------------------------------------------
     d_model: int = 0
     num_heads: int = 0
@@ -103,9 +106,12 @@ class ArchConfig:
     head_dim: int = 0                   # 0 -> d_model // num_heads
     attn_bias: bool = False             # qwen2-style QKV bias
     qk_norm: bool = False               # qwen3-style per-head RMSNorm on q,k
-    rope_kind: str = "rope"             # rope | none
+    rope_kind: str = "rope"             # rope | mrope | none
     rope_theta: float = 1_000_000.0
     rope_pct: float = 1.0               # partial rotary
+    # M-RoPE: the (temporal, height, width) planes' shares of the head_dim
+    # // 2 frequency slots
+    mrope_sections: Tuple[int, ...] = ()
     sliding_window: int = 0             # 0 -> full attention
     norm: str = "rmsnorm"               # rmsnorm | layernorm
     act: str = "silu"                   # silu | gelu | relu
@@ -126,8 +132,11 @@ class ArchConfig:
     ssm: Optional[SSMConfig] = None
     xlstm: Optional[XLSTMConfig] = None
     dtype: str = "bfloat16"
-    modality: str = "text"
+    modality: str = "text"              # text | vision | audio
+    # patch embeddings a sample puts ahead of its text (vision)
+    frontend_tokens: int = 0
     is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
     # --- CNN family (the paper's own models) ----------------------------------
     cnn_channels: Tuple[int, ...] = ()
     cnn_fc: Tuple[int, ...] = ()
@@ -203,7 +212,7 @@ class ArchConfig:
             return p
 
         total = V * d * 2
-        for i in range(L):
+        for i in range(L + self.num_encoder_layers):
             if self.block_kind == "mamba2":
                 total += ssm_params()
             elif self.block_kind == "xlstm":
@@ -316,6 +325,24 @@ _REGISTRY = {c.name: c for c in (
                              d_ff_dense_residual=4864, first_moe_layer=0,
                              period=1, capacity_factor=1.25),
                rope_theta=10_000.0),
+    # Qwen2-VL-7B (arXiv:2409.12191), the language backbone: M-RoPE over
+    # (temporal, height, width) position planes, the vision encoder a stub
+    # (patch embeddings given as input, ahead of the text)
+    ArchConfig(name="qwen2-vl-7b", arch_type="vlm", num_layers=28,
+               d_model=3584, num_heads=28, num_kv_heads=4, head_dim=128,
+               d_ff=18944, vocab_size=152064, attn_bias=True,
+               rope_kind="mrope", mrope_sections=(16, 24, 24),
+               rope_theta=1_000_000.0, modality="vision",
+               frontend_tokens=1024),
+    # SeamlessM4T-medium (arXiv:2308.11596), the transformer backbone: a
+    # non-causal encoder over frame embeddings (the audio frontend a stub)
+    # and a causal decoder with cross-attention, 12 layers each
+    ArchConfig(name="seamless-m4t-medium", arch_type="audio", num_layers=12,
+               num_encoder_layers=12, is_encoder_decoder=True, d_model=1024,
+               num_heads=16, num_kv_heads=16, head_dim=64, d_ff=4096,
+               vocab_size=256206, norm="layernorm", act="relu",
+               mlp_gated=False, rope_theta=10_000.0, modality="audio",
+               frontend_tokens=0),
 )}
 
 
@@ -340,11 +367,12 @@ def get_config(name: str) -> ArchConfig:
 
 
 def smoke_config(name: str) -> ArchConfig:
-    """Reduced same-family variant for CPU tests (the CNN, dense-LM, MoE,
-    MLA, xLSTM and SSM branches of the JAX package's ``smoke_config``: 2
-    layers, or one mLSTM/sLSTM group of 4 for xLSTM, or 4 Mamba2 layers
-    with the shared block every 2 for Zamba2, d_model <= 256, vocab <= 512,
-    4 experts, top-k <= 2, MLA ranks 32/48 and head dims 32/16/32)."""
+    """Reduced same-family variant for CPU tests (the JAX package's
+    ``smoke_config``: 2 layers, or one mLSTM/sLSTM group of 4 for xLSTM,
+    or 4 Mamba2 layers with the shared block every 2 for Zamba2, d_model
+    <= 256, vocab <= 512, 4 experts, top-k <= 2, MLA ranks 32/48 and head
+    dims 32/16/32, at most 8 patch embeddings, 2 encoder layers, M-RoPE
+    sections of (hd / 4, hd / 8, hd / 8))."""
     cfg = get_config(name)
     if cfg.arch_type != "cnn":
         d_model = min(cfg.d_model, 256)
@@ -352,15 +380,17 @@ def smoke_config(name: str) -> ArchConfig:
         n_kv = max(1, min(cfg.num_kv_heads, n_heads))
         if n_heads % n_kv:
             n_kv = 1
+        head_dim = max(8, d_model // n_heads)
         kw = dict(
             name=cfg.name + "-smoke",
             num_layers=2,
             d_model=d_model,
             num_heads=n_heads,
             num_kv_heads=n_kv,
-            head_dim=max(8, d_model // n_heads),
+            head_dim=head_dim,
             d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
             vocab_size=min(cfg.vocab_size, 512),
+            frontend_tokens=min(cfg.frontend_tokens, 8),
             semisfl=replace(cfg.semisfl, split_layer=1, queue_len=64,
                             proj_dim=16, proj_hidden=32, k_s_init=2, k_u=2),
         )
@@ -383,6 +413,11 @@ def smoke_config(name: str) -> ArchConfig:
         if cfg.use_mla:
             kw.update(kv_lora_rank=32, q_lora_rank=48, qk_nope_head_dim=32,
                       qk_rope_head_dim=16, v_head_dim=32)
+        if cfg.is_encoder_decoder:
+            kw["num_encoder_layers"] = 2
+        if cfg.mrope_sections:
+            kw["mrope_sections"] = (head_dim // 4, head_dim // 8,
+                                    head_dim // 8)
         return replace(cfg, **kw)
     return replace(
         cfg,

@@ -14,6 +14,11 @@ mLSTM blocks, and so does its recurrent cache.  The Zamba2 hybrid's ``stack``
 is unstacked likewise and its ``shared_attn`` block is one tree on each side;
 its cache holds a segment's SSM caches on a leading layer axis and its
 shared-block KV caches on a leading application axis in JAX, lists in the port.
+The encoder-decoder model's ``stack`` (each side's encoder layers) and
+``dec_stack`` (the decoder's layers, each with its ``cross_norm`` and
+``cross`` block) unstack likewise; its cache's decoder self-attention
+caches (``dec_self``) become a list, its cross K/V stay (L, B, max_len,
+KVH, hd) tensors on both sides.
 The LM train state stacks the clients' bottoms on a leading client axis in JAX;
 the port keeps a list of client trees.  bf16 arrays (``ml_dtypes.bfloat16`` in
 numpy) come across bit for bit.
@@ -121,11 +126,11 @@ def _unstack(tree) -> list:
 
 
 def lm_params_from_numpy(tree, device: str | torch.device = "cpu") -> dict:
-    """The JAX ``DecoderLM.init``, ``HybridMamba.init`` or
-    ``XLSTMModel.init`` tree as numpy -> the port's tree on ``device``.  A
-    ``stack`` or ``prefix`` (leading layer axis) becomes a list of
-    per-layer trees (an MoE layer's router, experts and MLA weights as
-    they are);
+    """The JAX ``DecoderLM.init``, ``HybridMamba.init``,
+    ``XLSTMModel.init`` or ``EncDecModel.init`` tree as numpy -> the port's
+    tree on ``device``.  A ``stack``, ``prefix`` or ``dec_stack`` (leading
+    layer axis) becomes a list of per-layer trees (an MoE layer's router,
+    experts and MLA weights, a decoder layer's cross block, as they are);
     ``groups`` (leading group axis, and a second block axis on each
     group's ``mlstm``) a list of per-group ``{"mlstm": [per-block trees],
     "slstm": tree}``; any other subtree (``embed``, ``shared_attn``, ...)
@@ -135,12 +140,14 @@ def lm_params_from_numpy(tree, device: str | torch.device = "cpu") -> dict:
 
 
 # the subtrees that stack a segment's layers on a leading axis in JAX
-_LAYER_SEGMENTS = ("prefix", "stack")
+_LAYER_SEGMENTS = ("prefix", "stack", "dec_stack")
 
 
 def _lm_half_from_numpy(part: dict, device) -> dict:
     """One side of the split (a JAX ``bottom`` or ``top`` tree) -> the
     port's."""
+    if part is None:
+        return None
     to_t = lambda sub: tree_map(lambda a: _tensor(a, device), sub)
     out = {}
     for key, sub in part.items():
@@ -176,11 +183,13 @@ def _stack_trees(trees: list):
 
 def _lm_half_to_numpy(part: dict) -> dict:
     """The port's ``bottom`` or ``top`` tree -> numpy in the JAX layout
-    (the inverse of :func:`_lm_half_from_numpy`): ``stack`` and
-    ``prefix`` on a leading layer axis, an empty one None (a DeepSeek
-    bottom's ``stack`` where its prefix layers fill the split); xLSTM's
-    ``groups`` as ``{"mlstm": on (groups, blocks), "slstm": on
+    (the inverse of :func:`_lm_half_from_numpy`): ``stack``, ``prefix``
+    and ``dec_stack`` on a leading layer axis, an empty one None (a
+    DeepSeek bottom's ``stack`` where its prefix layers fill the split);
+    xLSTM's ``groups`` as ``{"mlstm": on (groups, blocks), "slstm": on
     (groups,)}``."""
+    if part is None:
+        return None
     out = {}
     for key, sub in part.items():
         leaves = tree_map(_array, sub)
@@ -251,7 +260,10 @@ def lm_cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
     ``{"ssm": [SSMCache], "shared_kv": [KVCache]}``.  ``XLSTMModel``: each
     segment's ``{"mlstm": (C, n, m) on (groups, blocks, ...), "slstm": (h,
     c, n, m) on (groups, ...)}`` -> ``{"groups": [{"mlstm": [MLSTMCache],
-    "slstm": SLSTMCache}]}``."""
+    "slstm": SLSTMCache}]}``.  ``EncDecModel``: the bottom's None and the
+    top's ``{"dec_self": (k, v, pos) on a layer axis, "cross_k",
+    "cross_v"}`` -> ``{"dec_self": [KVCache], "cross_k", "cross_v"}``, the
+    cross K/V as they are."""
     t = lambda a: _tensor(a, device)
     i64 = lambda a: t(np.asarray(a, np.int64))
 
@@ -278,6 +290,11 @@ def lm_cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
                         for i in range(len(conv))],
                 "shared_kv": segment(c["shared_kv"])}
 
+    if cache["bottom"] is None:
+        top = cache["top"]
+        return {"bottom": None, "top": {"dec_self": segment(top["dec_self"]),
+                                        "cross_k": t(top["cross_k"]),
+                                        "cross_v": t(top["cross_v"])}}
     if "ssm" in cache["bottom"]:
         return {seg: hybrid_segment(cache[seg]) for seg in ("bottom", "top")}
     if "stack" not in cache["bottom"]:
@@ -297,7 +314,8 @@ def lm_cache_to_numpy(cache: dict) -> dict:
     "shared_kv": (k, v, pos)}} with leading layer and application axes (as
     fp32 but pos); for ``XLSTMModel`` {segment: {"mlstm": (C, n, m),
     "slstm": (h, c, n, m)}} with leading (groups, blocks) and (groups,)
-    axes."""
+    axes; for ``EncDecModel`` {"bottom": None, "top": {"dec_self": (k, v,
+    pos), "cross_k", "cross_v"}} (as fp32 but pos)."""
     a = lambda t: t.float().cpu().numpy()
 
     def segment(c):
@@ -321,6 +339,11 @@ def lm_cache_to_numpy(cache: dict) -> dict:
                              for i in range(len(SSMCache._fields))),
                 "shared_kv": segment(c["shared_kv"])}
 
+    if cache["bottom"] is None:
+        top = cache["top"]
+        return {"bottom": None, "top": {"dec_self": segment(top["dec_self"]),
+                                        "cross_k": a(top["cross_k"]),
+                                        "cross_v": a(top["cross_v"])}}
     if "ssm" in cache["bottom"]:
         return {seg: hybrid_segment(cache[seg]) for seg in ("bottom", "top")}
     if "groups" in cache["bottom"]:

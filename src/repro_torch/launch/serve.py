@@ -1,9 +1,11 @@
 """Split-inference serving launcher for the PyTorch port: batched prefill
-then greedy decode through the bottom (client) / top (server) split of a
-decoder LM, dense (``qwen3-14b``), MoE with MLA and a dense prefix layer
-(``deepseek-v2-236b``), MoE with a dense residual (``arctic-480b``), xLSTM
-(``xlstm-1.3b``) or the Mamba2 hybrid (``zamba2-7b``) (the JAX package's
-``launch/serve.py``), on the card unless ``device="cpu"`` is asked for:
+then greedy decode through the bottom (client) / top (server) split of an
+LM, dense (``qwen3-14b``), MoE with MLA and a dense prefix layer
+(``deepseek-v2-236b``), MoE with a dense residual (``arctic-480b``),
+vision with M-RoPE (``qwen2-vl-7b``), xLSTM (``xlstm-1.3b``), the Mamba2
+hybrid (``zamba2-7b``) or encoder-decoder (``seamless-m4t-medium``) (the
+JAX package's ``launch/serve.py``), on the card unless ``device="cpu"`` is
+asked for:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
       --tokens 16
@@ -13,6 +15,10 @@ decoder LM, dense (``qwen3-14b``), MoE with MLA and a dense prefix layer
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-medium --device cpu
 
 ``serve`` keeps the JAX launcher's defaults (the smoke config of the
 arch); ``serve_config`` runs any ``ArchConfig``, the full one included."""
@@ -29,7 +35,13 @@ from torch.profiler import record_function
 from repro_torch.configs import ArchConfig, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models.rope import default_mrope_positions
 from repro_torch.models.transformer import build_model
+
+# the stub frontend's patch embeddings ahead of a vision prompt, and the
+# decoder tokens an encoder-decoder prefill starts from, as the JAX launcher
+# draws them
+PATCHES = DEC_TOKENS = 8
 
 
 class ServeResult(NamedTuple):
@@ -49,10 +61,18 @@ def serve_config(cfg: ArchConfig, batch: int = 4, prompt_len: int = 32,
                  params: Optional[dict] = None, device: str = "cuda",
                  log=print) -> ServeResult:
     """Prefill a batch of prompts, then decode ``gen_tokens - 1`` greedy
-    steps.  The prompt tokens come from ``np.random.RandomState(seed)`` as
-    the JAX launcher draws them; the weights are ``params`` or, when none
-    are given, drawn on ``device`` from ``torch.Generator`` seed ``seed``.
-    Raises if a generated token is NaN, as the JAX launcher asserts."""
+    steps.  The inputs come from ``np.random.RandomState(seed)`` as the
+    JAX launcher draws them: prompt tokens; for a vision model also
+    PATCHES ``randn`` patch embeddings ahead of them, with text-only M-RoPE
+    positions over all of them; for an encoder-decoder model ``randn``
+    frames of ``prompt_len`` and DEC_TOKENS zero decoder tokens instead.
+    The decode positions are JAX's too: from ``prompt_len`` (DEC_TOKENS
+    for an encoder-decoder model), so that a vision model's first decode
+    steps take the positions, and the cache slots, of its last prompt
+    tokens, as the JAX launcher does.  The weights are ``params`` or, when
+    none are given, drawn on ``device`` from ``torch.Generator`` seed
+    ``seed``.  Raises if a generated token is NaN, as the JAX launcher
+    asserts."""
     dev = resolve_device(device)
     model = build_model(cfg)
     if params is None:
@@ -62,13 +82,26 @@ def serve_config(cfg: ArchConfig, batch: int = 4, prompt_len: int = 32,
     decode = make_decode_step(cfg)
 
     rng = np.random.RandomState(seed)
-    tokens = torch.from_numpy(
-        rng.randint(0, cfg.vocab_size, (batch, prompt_len))).to(dev)
+    host = lambda a: torch.from_numpy(a).to(dev)
+    if cfg.is_encoder_decoder:
+        batch_in = {"frames": host(rng.randn(batch, prompt_len, cfg.d_model)
+                                   .astype(np.float32)),
+                    "dec_tokens": torch.zeros((batch, DEC_TOKENS),
+                                              dtype=torch.int64, device=dev)}
+    else:
+        batch_in = {"tokens": host(rng.randint(0, cfg.vocab_size,
+                                               (batch, prompt_len)))}
+        if cfg.modality == "vision":
+            batch_in["patch_embeds"] = host(rng.randn(
+                batch, PATCHES, cfg.d_model).astype(np.float32))
+            batch_in["mrope_positions"] = default_mrope_positions(
+                batch, prompt_len + PATCHES, 0, dev)
+    pos0 = DEC_TOKENS if cfg.is_encoder_decoder else prompt_len
 
     # the spans mark the two phases in a torch.profiler trace
     with record_function("serve.prefill"):
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens}, cache)
+        logits, cache = prefill(params, batch_in, cache)
         next_tok = logits.argmax(-1)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
@@ -79,8 +112,11 @@ def serve_config(cfg: ArchConfig, batch: int = 4, prompt_len: int = 32,
         t0 = time.perf_counter()
         for i in range(gen_tokens - 1):
             step_batch = {"tokens": next_tok[:, None],
-                          "pos": torch.full((batch,), prompt_len + i,
+                          "pos": torch.full((batch,), pos0 + i,
                                             dtype=torch.int64, device=dev)}
+            if cfg.rope_kind == "mrope":
+                step_batch["mrope_positions"] = torch.full(
+                    (3, batch, 1), pos0 + i, dtype=torch.int64, device=dev)
             next_tok, cache = decode(params, step_batch, cache)
             out_tokens.append(next_tok)
         toks = torch.stack(out_tokens, 1).cpu().numpy()

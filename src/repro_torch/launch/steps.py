@@ -1,21 +1,23 @@
-"""Step builders of the decoder LMs: the JAX package's ``launch/steps.py``
-without mesh or sharding.
+"""Step builders of the LMs: the JAX package's ``launch/steps.py`` without
+mesh or sharding.
 
   * ``make_train_step``: one SemiSFL cross-entity iteration on a decoder
     LM (dense or MoE layers, GQA attention or MLA: DeepSeek-V2's dense
     prefix layer and MLA + MoE layers, Arctic's MoE with a dense
-    residual), on xLSTM or on the Zamba2 hybrid (``make_train_step(plan,
-    dist, lr, wire=..., mesh=None)`` in JAX, its MoE on the dense path),
-    with ``StepPlan`` / ``make_plan``, the state's shapes (the train
-    branch of ``input_specs``) and a seeded initial state; other models
-    (vision, encoder-decoder) raise;
+    residual; the vision decoder, Qwen2-VL), on xLSTM, on the Zamba2
+    hybrid or on the encoder-decoder model (SeamlessM4T)
+    (``make_train_step(plan, dist, lr, wire=..., mesh=None)`` in JAX, its
+    MoE on the dense path), with ``StepPlan`` / ``make_plan``, the state's
+    and batch's shapes (the train branch of ``input_specs``) and a seeded
+    initial state;
   * ``make_scanned_train_phase`` / ``make_prefetched_train_phase``: K
     steps as one CUDA graph of the step replayed K times, the state
     donated (``core/scan.py``), and that phase fed by the prefetch
     worker, as JAX's; ``make_train_phase`` is the same K steps as an eager
     loop, what the graph is held to;
   * ``make_prefill_step`` / ``make_decode_step``: split-inference serving
-    of the dense, MoE/MLA (DeepSeek-V2, Arctic), xLSTM and Zamba2 models.
+    of the dense, MoE/MLA (DeepSeek-V2, Arctic), vision, xLSTM, Zamba2 and
+    encoder-decoder models.
 
 Training.  The state is a dict ``{"client_bottoms", "teacher_bottoms",
 "top", "t_top", "proj", "t_proj", "queue"}`` where JAX stacks the N clients'
@@ -24,9 +26,14 @@ are lists of N bottom trees, each with a list of layers (``stack``; the
 hybrid's Mamba2 layers, beside its ``shared_attn`` block) or of xLSTM groups
 (``groups``) where JAX stacks them on a leading axis
 (``convert.lm_train_state_from_numpy`` unstacks the JAX state).  A batch is
-``{"tokens_weak", "tokens_strong"}``, each (N, b, S).  The clients' bottoms
-run one after another, where JAX vmaps them, and each client's gradient is
-rescaled by N (Eq. (8)), as ``core/engine.py`` does for the CNNs.  On the
+``{"tokens_weak", "tokens_strong"}``, each (N, b, S); a vision model's
+also has ``patch_embeds`` (N, b, P, d_model) and ``mrope_positions`` (N,
+3, b, P + S), both views' (the tokens then fill S - P of train_4k's S); an
+encoder-decoder model's is ``{"frames_weak", "frames_strong"}`` (N, b, S,
+d_model) and ``dec_tokens`` (N, b, min(S, 1024)) (``train_batch_shapes``
+gives them all).  The clients' bottoms run one after another, where JAX
+vmaps them, and each client's gradient is rescaled by N (Eq. (8)), as
+``core/engine.py`` does for the CNNs.  On the
 card attention differentiates through the flash kernels
 (``kernels.FlashAttention``, MLA's at its (192, 128) head dims), the
 sLSTM through its scan kernels (``kernels.slstm_scan``'s ``SLSTMScan``)
@@ -40,11 +47,14 @@ losses, summed in layer order, enter the loss times 0.001.
 
 Serving.  Each step runs the bottom (client) half, hands its features to
 the top (server) half, and returns the cache of both halves.  KV caches
-(the dense model's, Zamba2's shared block's) and MLA's latent caches are
-written in place
+(the dense model's, Zamba2's shared block's, the encoder-decoder model's
+decoder and cross K/V) and MLA's latent caches are written in place
 (``models/attention.py``); the recurrent states of xLSTM and of Zamba2's
 Mamba2 layers are returned anew.  xLSTM takes no positions and ignores the
-decode step's."""
+decode step's.  A vision prefill takes ``patch_embeds`` and
+``mrope_positions`` beside its tokens, a decode step its ``mrope_positions``
+(3, B, 1); an encoder-decoder prefill takes ``frames`` and ``dec_tokens``,
+and its decode steps run the top alone."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -68,8 +78,9 @@ from repro_torch.core.wire import (WireFormatLike, fake_quantize,
 from repro_torch.data.prefetch import DevicePut, Prefetcher, ready
 from repro_torch.device import resolve_device
 from repro_torch.models.moe import expert_route
-from repro_torch.models.transformer import (DecoderLM, HybridMamba,
-                                            XLSTMModel, build_model)
+from repro_torch.models.transformer import (DecoderLM, EncDecModel,
+                                            HybridMamba, XLSTMModel,
+                                            build_model)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -94,12 +105,14 @@ def make_plan(cfg: ArchConfig, shape: InputShape, *,
                     per_client_batch=shape.global_batch // n)
 
 
-def _train_model(plan: StepPlan) -> DecoderLM | HybridMamba | XLSTMModel:
+def _train_model(plan: StepPlan):
     model = build_model(plan.cfg)
-    if not isinstance(model, (DecoderLM, HybridMamba, XLSTMModel)):
+    if not isinstance(model, (DecoderLM, HybridMamba, XLSTMModel,
+                              EncDecModel)):
         raise NotImplementedError(
-            f"{plan.cfg.name}: the port trains dense decoder LMs, the MoE "
-            "and MLA decoders, the Zamba2 hybrid and xLSTM only")
+            f"{plan.cfg.name}: the port trains dense decoder LMs, the MoE, "
+            "MLA and vision decoders, the Zamba2 hybrid, xLSTM and the "
+            "encoder-decoder model here (the CNNs through core/engine.py)")
     return model
 
 
@@ -130,16 +143,53 @@ def init_train_state(plan: StepPlan, seed: int = 0,
             "queue": init_queue(cfg.semisfl.queue_len, proj_dim(cfg), dev)}
 
 
+def train_batch_shapes(plan: StepPlan) -> dict:
+    """(shape, dtype) of each leaf of a train batch of N clients x b
+    sequences of train_4k's length S, as JAX's ``_client_batch_struct``:
+    token ids (int64 here); a vision model's P = min(frontend_tokens, S //
+    4) patch embeddings ahead of S - P text tokens and its (3, b, S) M-RoPE
+    positions a client; an encoder-decoder model's S frames a view and
+    min(S, 1024) decoder tokens."""
+    cfg = plan.cfg
+    n, b, s = plan.n_clients, plan.per_client_batch, plan.shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+    if cfg.is_encoder_decoder:
+        frames = ((n, b, s, cfg.d_model), dt)
+        return {"frames_weak": frames, "frames_strong": frames,
+                "dec_tokens": ((n, b, min(s, 1024)), torch.int64)}
+    out, s_text = {}, s
+    if cfg.modality == "vision":
+        p = min(cfg.frontend_tokens, s // 4)
+        s_text = s - p
+        out["patch_embeds"] = ((n, b, p, cfg.d_model), dt)
+        out["mrope_positions"] = ((n, 3, b, s), torch.int64)
+    tokens = ((n, b, s_text), torch.int64)
+    return dict(out, tokens_weak=tokens, tokens_strong=tokens)
+
+
 def train_state_shapes(plan: StepPlan) -> dict:
     """(shape, dtype) of every leaf of the train state, with the state's
     structure (the train branch of the JAX ``input_specs``, layers or
-    xLSTM groups in lists), and of the batch; nothing is allocated."""
+    xLSTM groups in lists), and of the batch (:func:`train_batch_shapes`);
+    nothing is allocated."""
     state = init_train_state(plan, device="meta")
     out = tree_map(lambda t: (tuple(t.shape), t.dtype), state)
-    n, b, s = plan.n_clients, plan.per_client_batch, plan.shape.seq_len
-    tokens = ((n, b, s), torch.int64)
-    return {"state": out, "batch": {"tokens_weak": tokens,
-                                    "tokens_strong": tokens}}
+    return {"state": out, "batch": train_batch_shapes(plan)}
+
+
+def _client_inputs(cfg: ArchConfig, batch: dict, which: str,
+                   i: int) -> dict:
+    """Client ``i``'s bottom inputs for the weak or strong view (JAX's
+    ``_lm_batch_inputs``, one client of the stack): its frames for an
+    encoder-decoder model, else its tokens, with a vision model's patch
+    embeddings and M-RoPE positions (the same for both views)."""
+    if cfg.is_encoder_decoder:
+        return {"frames": batch[f"frames_{which}"][i]}
+    out = {"tokens": batch[f"tokens_{which}"][i]}
+    if "patch_embeds" in batch:
+        out["patch_embeds"] = batch["patch_embeds"][i]
+        out["mrope_positions"] = batch["mrope_positions"][i]
+    return out
 
 
 # a leaf with more elements than this is updated in slices of its first
@@ -189,10 +239,16 @@ def make_train_step(plan: StepPlan, lr: float = 0.02, *,
     act_fmt = resolve_fmt(wf.activations)
     grad_fmt = resolve_fmt(wf.gradients)
 
-    def bottoms_forward(bottoms: list, tokens: torch.Tensor, student: bool):
-        """Each client's bottom on its (b, S) tokens -> stacked (N, b, S,
-        d) features on the wire and the flat-batch extras for the top."""
-        outs = [model.bottom_apply(bottoms[i], {"tokens": tokens[i]},
+    def bottoms_forward(bottoms: list, batch: dict, which: str):
+        """Each client's bottom on its inputs of the ``which`` view ->
+        stacked (N, b, S, d) features on the wire and the flat-batch extras
+        for the top (JAX's ``flatten_extras``: each client's (b, S)
+        positions concatenated to (N b, S), M-RoPE's (3, b, S) to (3, N b,
+        S); an encoder-decoder model's (N, b, T) ``dec_tokens`` as (N b,
+        T))."""
+        student = which == "strong"
+        outs = [model.bottom_apply(bottoms[i],
+                                   _client_inputs(cfg, batch, which, i),
                                    mode="train") for i in range(n)]
         feats = torch.stack([f for f, _, _ in outs])
         if act_fmt is not None:
@@ -201,10 +257,13 @@ def make_train_step(plan: StepPlan, lr: float = 0.02, *,
         if student and grad_fmt is not None:
             # downlink: the cotangent at the cut ships quantized
             feats = quantize_grad(feats, grad_fmt)
-        extras = {"positions": torch.cat([e["positions"]
-                                          for _, _, e in outs]),
+        pos = [e["positions"] for _, _, e in outs]
+        extras = {"positions": torch.cat(pos, dim=pos[0].dim() - 2),
                   "aux_loss": torch.stack([e["aux_loss"]
                                            for _, _, e in outs]).sum()}
+        if cfg.is_encoder_decoder:
+            dec = batch["dec_tokens"]
+            extras["dec_tokens"] = dec.reshape((-1,) + dec.shape[2:])
         return feats.reshape((-1,) + feats.shape[2:]), extras
 
     def top_forward(top: dict, feats: torch.Tensor, extras: dict) -> dict:
@@ -213,8 +272,8 @@ def make_train_step(plan: StepPlan, lr: float = 0.02, *,
     def step(state: dict, batch: dict):
         queue: FeatureQueue = state["queue"]
         with torch.no_grad():
-            t_feats, t_extras = bottoms_forward(
-                state["teacher_bottoms"], batch["tokens_weak"], False)
+            t_feats, t_extras = bottoms_forward(state["teacher_bottoms"],
+                                                batch, "weak")
             t_logits = top_forward(state["t_top"], t_feats,
                                    t_extras)["logits"]
             # the teacher's fp32 softmax once (``losses.pseudo_labels``'
@@ -235,8 +294,7 @@ def make_train_step(plan: StepPlan, lr: float = 0.02, *,
 
         live = requires_grad({"bottoms": state["client_bottoms"],
                               "top": state["top"], "proj": state["proj"]})
-        feats, extras = bottoms_forward(live["bottoms"],
-                                        batch["tokens_strong"], True)
+        feats, extras = bottoms_forward(live["bottoms"], batch, "strong")
         out = top_forward(live["top"], feats, extras)
         nll_sum, m_cnt = losses.cross_entropy_sum(out["logits"], pseudo_tok,
                                                   ok_tok)
@@ -344,7 +402,9 @@ def make_prefetched_train_phase(plan: StepPlan, lr: float = 0.02, *,
     JAX's ``make_prefetched_train_phase`` without a mesh:
     ``run(state, batch_thunks) -> (state, [stacked metrics per phase])``
     over zero-argument thunks, each building one phase's host batches
-    (numpy ``{"tokens_weak", "tokens_strong"}``, each (K, N, b, S)).  A
+    (numpy arrays under :func:`train_batch_shapes`' keys, each with a
+    leading K axis: ``{"tokens_weak", "tokens_strong"}`` (K, N, b, S) for
+    a text model).  A
     worker thread (two phases deep) builds phase k+1's batches and moves
     them to the state's device with the port's pinned ``DevicePut``
     (pinned host memory, a copy on a side stream that the phase's stream
@@ -389,7 +449,10 @@ def make_prefetched_train_phase(plan: StepPlan, lr: float = 0.02, *,
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     """``step(params, batch, cache) -> (last-position logits (B, V), cache)``
-    for a batch ``{"tokens": (B, S)}`` of prompts."""
+    for a batch ``{"tokens": (B, S)}`` of prompts (with ``patch_embeds``
+    and ``mrope_positions`` for a vision model), or ``{"frames": (B, S,
+    d_model), "dec_tokens": (B, T)}`` for an encoder-decoder model (the
+    logits then the decoder's last position's)."""
     model = build_model(cfg)
 
     @torch.inference_mode()
@@ -397,6 +460,8 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
         feats, cache_b, extras = model.bottom_apply(
             params["bottom"], dict(batch), mode="prefill",
             cache=cache.get("bottom"))
+        if cfg.is_encoder_decoder:
+            extras = dict(extras, dec_tokens=batch["dec_tokens"])
         out, cache_t = model.top_apply(params["top"], feats, extras=extras,
                                        mode="prefill", cache=cache.get("top"))
         return out["logits"][:, -1], {"bottom": cache_b, "top": cache_t}
@@ -407,16 +472,21 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 def make_decode_step(cfg: ArchConfig) -> Callable:
     """``step(params, batch, cache) -> (greedy next token (B,), cache)`` for
     a batch ``{"tokens": (B, 1), "pos": (B,)}`` of one token per sequence
-    at absolute position ``pos``."""
+    at absolute position ``pos`` (with ``mrope_positions`` (3, B, 1) for
+    M-RoPE; an encoder-decoder model's tokens are the decoder's)."""
     model = build_model(cfg)
 
     @torch.inference_mode()
     def step(params: dict, batch: dict, cache: dict):
-        binputs = {"tokens": batch["tokens"],
-                   "positions": batch["pos"][:, None]}
+        pos = batch["pos"][:, None]
+        binputs = {"tokens": batch["tokens"], "positions": pos}
+        if cfg.rope_kind == "mrope":
+            binputs["mrope_positions"] = batch["mrope_positions"]
         feats, cache_b, extras = model.bottom_apply(
             params["bottom"], binputs, mode="decode",
             cache=cache.get("bottom"))
+        if cfg.is_encoder_decoder:
+            extras = dict(extras, dec_tokens=batch["tokens"], positions=pos)
         out, cache_t = model.top_apply(params["top"], feats, extras=extras,
                                        mode="decode", cache=cache.get("top"))
         next_tok = out["logits"][:, -1].argmax(-1)

@@ -1,6 +1,6 @@
-"""GQA attention with RoPE, QKV bias, qk-norm, sliding window and KV-cache
-decode (a ring buffer for sliding-window attention): the JAX package's
-``models/attention.py`` for the dense decoder.
+"""GQA attention with RoPE or M-RoPE, QKV bias, qk-norm, sliding window,
+KV-cache decode (a ring buffer for sliding-window attention) and
+cross-attention over given K/V: the JAX package's ``models/attention.py``.
 
 Train and prefill attention go through the flash-attention wrapper
 (``repro_torch.kernels.flash_attention``: the CUDA kernels on the card,
@@ -8,8 +8,10 @@ forward and, where a gradient is recorded, backward; the plain version
 under autograd on the CPU), where the JAX model runs its jnp stand-in
 ``_chunked_attend``.  The wrapper reads the model's (B, S, H, hd)
 projections through (B, H, S, hd) views and gives its output back in the
-model's layout, so no transposed copy is made on the card.  Decode attention
-stays plain PyTorch, as the JAX package computes it outside any kernel.
+model's layout, so no transposed copy is made on the card.  Self-attention
+decode stays plain PyTorch, as the JAX package computes it outside any
+kernel; cross-attention decode (one query row over the given K/V) goes
+through the flash wrapper, as JAX runs it through ``_chunked_attend``.
 
 The cache is updated in place: ``cache_update`` and ``cache_prefill`` write
 into the given buffers and return them (JAX returns new arrays), which
@@ -24,7 +26,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import ArchConfig
 from repro_torch.models.common import dense_init, rms_norm_headwise
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.rope import apply_mrope, apply_rope
 
 
 class KVCache(NamedTuple):
@@ -150,44 +152,64 @@ def apply_attention(
     cfg: ArchConfig,
     x: torch.Tensor,
     *,
-    positions: torch.Tensor,           # (B, S)
+    positions: torch.Tensor,           # (B, S), or (3, B, S) for M-RoPE
     mode: str = "train",               # train | prefill | decode
     cache: Optional[KVCache] = None,
+    causal: bool = True,
+    kv_override: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
-    """Causal self-attention of x (B, S, d_model); in decode mode S is 1 and
-    the new token's k/v go into ``cache`` first."""
+    """Self-attention of x (B, S, d_model), causal unless ``causal`` is
+    False; in decode mode S is 1 and the new token's k/v go into ``cache``
+    first, at the position of the last plane of M-RoPE positions (JAX's
+    ``positions[-1]``).  With ``kv_override`` = (k, v), each (B, Skv, KVH,
+    hd), it is cross-attention: only q is projected (and q-normed), no
+    rotary embedding is applied, the cache is not touched, and decode
+    attends to all of the given K/V with no mask, as in JAX."""
     b, s, d = x.shape
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     window = cfg.sliding_window
 
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
     q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kvh, hd)
-    v = v.reshape(b, s, kvh, hd)
+    if kv_override is not None:
+        k, v = kv_override
+    else:
+        k = x @ p["wk"]
+        v = x @ p["wv"]
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        k = k.reshape(b, s, kvh, hd)
+        v = v.reshape(b, s, kvh, hd)
 
     if "q_norm" in p:
         q = rms_norm_headwise(p["q_norm"], q)
-        k = rms_norm_headwise(p["k_norm"], k)
+        if kv_override is None:
+            k = rms_norm_headwise(p["k_norm"], k)
 
-    if cfg.rope_kind != "none":
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+    if cfg.rope_kind != "none" and kv_override is None:
+        if cfg.rope_kind == "mrope":
+            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
 
     new_cache = cache
-    if mode == "decode":
+    if mode == "decode" and kv_override is None:
         if cache is None:
             raise ValueError("decode attention needs a cache")
-        cur_pos = positions.reshape(b, -1)[:, -1]
+        cur_pos = positions[-1] if positions.dim() == 3 else positions
+        cur_pos = cur_pos.reshape(b, -1)[:, -1]
         new_cache = cache_update(cache, k, v, cur_pos)
         out = _decode_attend(q, new_cache, cur_pos, window)
+    elif mode == "decode":          # cross-attention decode: the given K/V
+        out = _attend(q, k, v, causal=False, window=0)
     else:
-        out = _attend(q, k, v, causal=True, window=window)
-        if mode == "prefill" and cache is not None:
+        out = _attend(q, k, v, causal=causal, window=window)
+        if mode == "prefill" and cache is not None and kv_override is None:
             new_cache = cache_prefill(cache, k, v)
 
     y = out.reshape(b, s, h * hd) @ p["wo"]

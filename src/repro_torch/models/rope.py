@@ -1,5 +1,10 @@
-"""Rotary position embeddings, standard and partial (the JAX package's
-``models/rope.py`` without M-RoPE, which waits for the vision path)."""
+"""Rotary position embeddings: standard, partial (stablelm) and M-RoPE
+(qwen2-vl), the JAX package's ``models/rope.py``.
+
+M-RoPE splits the rotary frequency slots into (temporal, height, width)
+sections and takes each section's angles from its own position plane.
+Text-only tokens repeat one position in all three planes, which reduces
+exactly to standard RoPE."""
 from __future__ import annotations
 
 import torch
@@ -42,8 +47,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([_rotate(x_rot, cos, sin), x_pass], dim=-1)
 
 
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """M-RoPE. x: (B, S, H, hd); positions_3d: (3, B, S) int planes
+    (temporal, height, width); sections: each plane's count of frequency
+    slots, in order, summing to hd // 2.  Slot d's angle is its plane's
+    position times slot d's inverse frequency: the product JAX forms for
+    every plane before it selects one (by a one-hot contraction, exact),
+    so the angles are the same floats."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim // 2 = {hd // 2}")
+    dev = positions_3d.device
+    # each slot's plane, made on the device (no tensor from a host list,
+    # which a CUDA graph's capture refuses)
+    plane_of_slot = torch.cat([torch.full((n,), p, dtype=torch.long,
+                                          device=dev)
+                               for p, n in enumerate(sections)])
+    pos = positions_3d.float().index_select(0, plane_of_slot)  # (hd/2, B, S)
+    ang = pos.permute(1, 2, 0) * rope_freqs(hd, theta, dev)    # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    return _rotate(x, cos, sin)
+
+
 def default_positions(seq: int, offset: int = 0,
                       device: torch.device | str = "cpu") -> torch.Tensor:
     """(1, S) positions ``offset .. offset + S - 1``; the caller broadcasts
     them over the batch."""
     return torch.arange(seq, device=device)[None, :] + offset
+
+
+def default_mrope_positions(batch: int, seq: int, offset: int = 0,
+                            device: torch.device | str = "cpu"
+                            ) -> torch.Tensor:
+    """Text-only (3, B, S) M-RoPE positions: all three planes equal, which
+    reduces M-RoPE to RoPE."""
+    p = default_positions(seq, offset, device).expand(batch, seq)
+    return torch.stack([p, p, p])

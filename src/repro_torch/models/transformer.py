@@ -1,7 +1,8 @@
-"""The split decoder LMs (the JAX package's ``models/transformer.py``:
-``DecoderLM`` with dense or MoE layers, GQA attention or MLA, and
-DeepSeek-style unscanned prefix layers; ``HybridMamba`` and
-``XLSTMModel``) and the port's model builder.
+"""The split LMs (the JAX package's ``models/transformer.py``:
+``DecoderLM`` with dense or MoE layers, GQA attention or MLA,
+DeepSeek-style unscanned prefix layers, and vision inputs (patch
+embeddings ahead of the text, M-RoPE); ``HybridMamba``, ``XLSTMModel`` and
+the encoder-decoder ``EncDecModel``) and the port's model builder.
 
 Parameters are ``{"bottom": ..., "top": ...}`` from construction:
 
@@ -11,9 +12,8 @@ Parameters are ``{"bottom": ..., "top": ...}`` from construction:
 Where JAX stacks a segment's layers on a leading axis and scans over them,
 the port keeps a list of per-layer parameter dicts (``"stack"``, a
 DeepSeek bottom's ``"prefix"``, or ``"groups"`` for xLSTM) and loops in
-Python; ``convert.lm_params_from_numpy`` unstacks the JAX tree.  Vision
-inputs (M-RoPE, patch embeddings), the encoder-decoder model and the
-long-context window override are not ported yet."""
+Python; ``convert.lm_params_from_numpy`` unstacks the JAX tree.  The
+long-context window override is not ported."""
 from __future__ import annotations
 
 from typing import Optional
@@ -29,7 +29,8 @@ from repro_torch.models.common import (apply_mlp, apply_norm, dense_init,
                                        embed_init, init_mlp, init_norm)
 from repro_torch.models.mla import apply_mla, init_mla, init_mla_cache
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.models.rope import default_positions
+from repro_torch.models.rope import (default_mrope_positions,
+                                     default_positions)
 from repro_torch.models.ssm import apply_ssm, init_ssm, init_ssm_cache
 
 
@@ -41,13 +42,17 @@ def _lm_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"]
 
 
-def _positions(batch_inputs: dict, b: int, s: int,
-               device: torch.device) -> torch.Tensor:
-    """The batch's ``positions``, else (B, S) positions from its ``pos``
-    offset (0 by default)."""
-    if "positions" in batch_inputs:
-        return batch_inputs["positions"]
+def _positions(batch_inputs: dict, b: int, s: int, device: torch.device,
+               mrope: bool = False) -> torch.Tensor:
+    """The batch's ``positions`` (its ``mrope_positions`` for M-RoPE),
+    else (B, S) positions ((3, B, S) for M-RoPE) from its ``pos`` offset
+    (0 by default)."""
+    key = "mrope_positions" if mrope else "positions"
+    if key in batch_inputs:
+        return batch_inputs[key]
     off = batch_inputs.get("pos", 0)
+    if mrope:
+        return default_mrope_positions(b, s, off, device)
     return default_positions(s, off, device).expand(b, s)
 
 
@@ -68,19 +73,24 @@ def _remat(fn, *args):
 
 
 # ===========================================================================
-# Attention-family layer (GQA attention or MLA; dense MLP or MoE)
+# Attention-family layer (GQA attention or MLA, cross-attention for the
+# decoder of an encoder-decoder model; dense MLP or MoE)
 # ===========================================================================
 
 def _init_attn_layer(cfg: ArchConfig, idx: int, generator: torch.Generator,
-                     device: torch.device | str) -> dict:
+                     device: torch.device | str, cross: bool = False) -> dict:
     """Layer ``idx``'s parameters: MLA where the config uses it, else
-    attention; an MoE where ``cfg.moe`` makes layer ``idx`` one, else the
-    dense MLP."""
+    attention; with ``cross``, a cross-attention block and its pre-norm
+    (``cross_norm``, ``cross``); an MoE where ``cfg.moe`` makes layer
+    ``idx`` one, else the dense MLP."""
     dt = _dtype(cfg)
     p = {"attn_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
          "attn": (init_mla if cfg.use_mla else init_attention)(
-             cfg, generator, device, dt),
-         "mlp_norm": init_norm(cfg.d_model, cfg.norm, device, dt)}
+             cfg, generator, device, dt)}
+    if cross:
+        p["cross_norm"] = init_norm(cfg.d_model, cfg.norm, device, dt)
+        p["cross"] = init_attention(cfg, generator, device, dt)
+    p["mlp_norm"] = init_norm(cfg.d_model, cfg.norm, device, dt)
     if cfg.moe is not None and cfg.moe.is_moe_layer(idx):
         p["moe"] = init_moe(cfg, generator, device, dt)
     else:
@@ -90,14 +100,29 @@ def _init_attn_layer(cfg: ArchConfig, idx: int, generator: torch.Generator,
 
 
 def _apply_attn_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
-                      positions: torch.Tensor, mode: str, cache):
+                      positions: torch.Tensor, mode: str, cache,
+                      causal: bool = True, cross_kv=None):
     """(x after the layer, its new cache, its aux loss: the MoE's
-    load-balance loss, or None for a dense MLP, which has none)."""
+    load-balance loss, or None for a dense MLP, which has none).  Its
+    self-attention is causal unless ``causal`` is False (MLA's always
+    is); given ``cross_kv`` = (k, v), the layer then cross-attends to them
+    (non-causal, through its ``cross`` block) before its MLP."""
     h = apply_norm(p["attn_norm"], x, cfg.norm)
-    attend = apply_mla if cfg.use_mla else apply_attention
-    attn_out, new_cache = attend(p["attn"], cfg, h, positions=positions,
-                                 mode=mode, cache=cache)
+    if cfg.use_mla:
+        attn_out, new_cache = apply_mla(p["attn"], cfg, h,
+                                        positions=positions, mode=mode,
+                                        cache=cache)
+    else:
+        attn_out, new_cache = apply_attention(
+            p["attn"], cfg, h, positions=positions, mode=mode, cache=cache,
+            causal=causal)
     x = x + attn_out
+    if cross_kv is not None:
+        h = apply_norm(p["cross_norm"], x, cfg.norm)
+        c_out, _ = apply_attention(p["cross"], cfg, h, positions=positions,
+                                   mode=mode, cache=None, causal=False,
+                                   kv_override=cross_kv)
+        x = x + c_out
     h = apply_norm(p["mlp_norm"], x, cfg.norm)
     if "moe" in p:
         out, aux = apply_moe(p["moe"], cfg, h)
@@ -108,23 +133,30 @@ def _apply_attn_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
 
 def _run_attn_stack(stack: list, cfg: ArchConfig, x: torch.Tensor, *,
                     positions: torch.Tensor, mode: str,
-                    caches: Optional[list]):
+                    caches: Optional[list], causal: bool = True,
+                    cross_kv: Optional[list] = None):
     """Run x through a segment's layers in order; returns x, the new caches
     (None without caches) and the segment's aux loss, summed from a zero
-    fp32 scalar in layer order as JAX's scan carries it.  A train-mode pass
-    that records gradients keeps only each layer's input and recomputes
-    the layer in the backward pass, as the JAX model's ``jax.checkpoint``
-    over its layer scan does: memory changes, the numbers do not."""
+    fp32 scalar in layer order as JAX's scan carries it.  ``cross_kv`` is
+    each layer's (k, v) to cross-attend to (an encoder-decoder model's
+    decoder), or None.  A train-mode pass that records gradients keeps
+    only each layer's input (and its cross K/V) and recomputes the layer
+    in the backward pass, as the JAX model's ``jax.checkpoint`` over its
+    layer scan does (JAX's decoder scan keeps its activations): memory
+    changes, the numbers do not."""
     new_caches = [] if caches is not None else None
     remat = mode == "train" and torch.is_grad_enabled()
     aux = _no_aux(x)
     for i, p_i in enumerate(stack):
+        kv = (None, None) if cross_kv is None else cross_kv[i]
         if remat:
-            x, aux_i = _remat(_train_layer, p_i, cfg, x, positions)
+            x, aux_i = _remat(_train_layer, p_i, cfg, x, positions, causal,
+                              *kv)
         else:
             x, c, aux_i = _apply_attn_layer(
                 p_i, cfg, x, positions=positions, mode=mode,
-                cache=None if caches is None else caches[i])
+                cache=None if caches is None else caches[i], causal=causal,
+                cross_kv=None if cross_kv is None else kv)
             if new_caches is not None:
                 new_caches.append(c)
         if aux_i is not None:
@@ -133,10 +165,14 @@ def _run_attn_stack(stack: list, cfg: ArchConfig, x: torch.Tensor, *,
 
 
 def _train_layer(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, causal: bool = True,
+                 cross_k: Optional[torch.Tensor] = None,
+                 cross_v: Optional[torch.Tensor] = None):
     """A layer in train mode: (x, aux loss or None)."""
-    x, _, aux = _apply_attn_layer(p, cfg, x, positions=positions,
-                                  mode="train", cache=None)
+    x, _, aux = _apply_attn_layer(
+        p, cfg, x, positions=positions, mode="train", cache=None,
+        causal=causal, cross_kv=None if cross_k is None else (cross_k,
+                                                              cross_v))
     return x, aux
 
 
@@ -165,14 +201,12 @@ class DecoderLM:
     (``cfg.moe.first_moe_layer`` > 0) keeps its first layers, with the
     dense MLP, as a bottom ``"prefix"`` segment apart from the ``"stack"``
     (JAX's unscanned prefix layers); a segment's layers are all built as
-    its first layer's index says, as JAX's stacked segments are."""
+    its first layer's index says, as JAX's stacked segments are.  A vision
+    model (``cfg.modality == "vision"``: Qwen2-VL) puts a batch's
+    ``patch_embeds`` (B, P, d_model) ahead of its token embeddings and
+    takes its ``mrope_positions`` (3, B, P + S) for M-RoPE."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.arch_type not in ("dense", "moe") or cfg.is_encoder_decoder \
-                or cfg.modality != "text":
-            raise NotImplementedError(
-                f"{cfg.name}: the port's DecoderLM takes dense and MoE text "
-                "decoders only (no vision or encoder-decoder model)")
         self.cfg = cfg
         self.prefix_n = (cfg.moe.first_moe_layer
                          if cfg.moe is not None else 0)
@@ -217,13 +251,18 @@ class DecoderLM:
     # -- apply -------------------------------------------------------------
     def bottom_apply(self, params: dict, batch_inputs: dict, *,
                      mode: str = "train", cache: Optional[dict] = None):
-        """Client side: embed the tokens and run the prefix and bottom
-        layers.  Returns (features, new cache, extras for ``top_apply``:
-        the positions and the bottom's aux loss)."""
+        """Client side: embed the tokens (behind the patch embeddings of a
+        vision model) and run the prefix and bottom layers.  Returns
+        (features, new cache, extras for ``top_apply``: the positions and
+        the bottom's aux loss)."""
         tokens = batch_inputs["tokens"]
-        b, s = tokens.shape
         x = params["embed"][tokens]
-        positions = _positions(batch_inputs, b, s, tokens.device)
+        if self.cfg.modality == "vision" and "patch_embeds" in batch_inputs:
+            x = torch.cat([batch_inputs["patch_embeds"].to(x.dtype), x],
+                          dim=1)
+        b, s = x.shape[:2]
+        positions = _positions(batch_inputs, b, s, tokens.device,
+                               self.cfg.rope_kind == "mrope")
         cache = cache or {}
         new_cache = {}
         aux = None
@@ -525,13 +564,160 @@ class XLSTMModel:
             new_cache
 
 
+class EncDecModel:
+    """seamless-m4t: a non-causal encoder over frame embeddings (the audio
+    frontend a stub) and a causal decoder whose layers cross-attend to the
+    encoder's output; the split lies inside the encoder, at
+    ``min(max(1, n_enc // 2), n_enc - 1)`` layers.
+
+      bottom = ``frame_proj`` + the first ``split`` encoder layers
+      top    = the other encoder layers, ``enc_norm``, the decoder
+               (``dec_embed``, ``dec_stack`` of cross-attending layers),
+               ``final_norm`` and the LM head
+
+    The top computes every decoder layer's cross K/V from the encoder's
+    output once.  Serving: the prefill writes them into the cache's
+    ``cross_k`` / ``cross_v`` (L, B, max_len, KVH, hd) from row 0 and the
+    decoder's self-attention caches (``dec_self``, a list of
+    :class:`KVCache` of ``min(max_len, 4096)`` slots); a decode step runs
+    the top only (the client is idle and hands no features).  As in JAX,
+    the decoder cross-attends to the whole ``max_len`` buffer in the
+    prefill and in decode, its rows past the S written included (zeros),
+    so the result depends on ``max_len``: the reference's behaviour, kept
+    here as it is."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+        n_enc = cfg.num_encoder_layers
+        self.split = min(max(1, n_enc // 2), n_enc - 1)
+
+    def init(self, generator: torch.Generator,
+             device: torch.device | str) -> dict:
+        """Parameters drawn from ``generator`` (in fp32 on its device), in
+        ``cfg.dtype`` on ``device``."""
+        cfg = self.cfg
+        dt = _dtype(cfg)
+        layers = lambda n, idx, cross=False: [
+            _init_attn_layer(cfg, idx, generator, device, cross)
+            for _ in range(n)]
+        bottom = {"frame_proj": dense_init(cfg.d_model, cfg.d_model,
+                                           generator, device, dt),
+                  "stack": layers(self.split, 0)}
+        top = {"stack": layers(cfg.num_encoder_layers - self.split,
+                               self.split),
+               "enc_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
+               "dec_embed": embed_init(cfg.vocab_size, cfg.d_model,
+                                       generator, device, dt),
+               "dec_stack": layers(cfg.num_layers, 0, True),
+               "final_norm": init_norm(cfg.d_model, cfg.norm, device, dt),
+               "lm_head": dense_init(cfg.d_model, cfg.vocab_size, generator,
+                                     device, dt)}
+        return {"bottom": bottom, "top": top}
+
+    def init_cache(self, batch: int, max_len: int,
+                   device: torch.device | str) -> dict:
+        """The top's decoder self-attention caches (``min(max_len, 4096)``
+        slots, the generated length's budget) and the cross K/V of every
+        decoder layer over ``max_len`` encoder rows; the bottom keeps
+        none."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        zeros = lambda: torch.zeros(shape, dtype=_dtype(cfg), device=device)
+        return {"bottom": None,
+                "top": {"dec_self": _init_stacked_kv_cache(
+                    cfg.num_layers, batch, min(max_len, 4096), cfg, device),
+                        "cross_k": zeros(), "cross_v": zeros()}}
+
+    def bottom_apply(self, params: dict, batch_inputs: dict, *,
+                     mode: str = "train", cache=None):
+        """Client side: project the (B, S, d_model) ``frames`` and run the
+        bottom encoder layers (non-causal, positions 0 .. S - 1, each
+        layer in train mode whatever ``mode`` is, as JAX).  In decode the
+        client is idle: it hands on the batch's ``frames`` (None) and
+        positions."""
+        cfg = self.cfg
+        if mode == "decode":
+            tokens = batch_inputs["tokens"]
+            pos = _positions(batch_inputs, *tokens.shape, tokens.device)
+            return batch_inputs.get("frames"), cache, {
+                "aux_loss": _no_aux(pos), "positions": pos}
+        frames = batch_inputs["frames"]
+        b, s, _ = frames.shape
+        x = frames.to(_dtype(cfg)) @ params["frame_proj"]
+        positions = default_positions(s, 0, frames.device).expand(b, s)
+        x, _, aux = _run_attn_stack(params["stack"], cfg, x,
+                                    positions=positions, mode="train",
+                                    caches=None, causal=False)
+        return x, None, {"aux_loss": aux, "positions": positions}
+
+    def _cross_kv(self, p: dict, enc: torch.Tensor):
+        """A decoder layer's cross K/V (B, S, KVH, hd) of the encoder's
+        output: its ``cross`` block's key and value projections, with no
+        bias, norm or rotary embedding, as in JAX."""
+        cfg = self.cfg
+        shape = enc.shape[:2] + (cfg.num_kv_heads, cfg.resolved_head_dim)
+        return ((enc @ p["cross"]["wk"]).reshape(shape),
+                (enc @ p["cross"]["wv"]).reshape(shape))
+
+    def top_apply(self, params: dict, features, *, extras: dict,
+                  mode: str = "train", cache: Optional[dict] = None):
+        """Server side.  Train and prefill: the top encoder layers
+        (non-causal), ``enc_norm``, each decoder layer's cross K/V, then
+        the decoder over ``extras["dec_tokens"]`` (B, T) at positions 0 ..
+        T - 1; a prefill with a cache writes the cross K/V into it and
+        fills the decoder's self-attention caches.  Decode: the decoder
+        alone, one token at ``extras["positions"]``, over the cached cross
+        K/V.  ``aux_loss`` sums the top's, the decoder's and the bottom's
+        (zero without MoE)."""
+        cfg = self.cfg
+        dev = extras["dec_tokens"].device
+        if mode != "decode":
+            enc, _, aux = _run_attn_stack(
+                params["stack"], cfg, features,
+                positions=extras["positions"], mode="train", caches=None,
+                causal=False)
+            enc = apply_norm(params["enc_norm"], enc, cfg.norm)
+            cross = [self._cross_kv(p_i, enc) for p_i in params["dec_stack"]]
+            tgt = extras["dec_tokens"]
+            y = params["dec_embed"][tgt]
+            dpos = default_positions(tgt.shape[1], 0, dev).expand(tgt.shape)
+            if mode == "prefill" and cache is not None:
+                s = enc.shape[1]
+                for i, (k, v) in enumerate(cross):
+                    cache["cross_k"][i, :, :s] = k
+                    cache["cross_v"][i, :, :s] = v
+                cross = list(zip(cache["cross_k"], cache["cross_v"]))
+                dec_cache = cache["dec_self"]
+            else:
+                dec_cache = None
+            mode_dec = "prefill" if mode == "prefill" else "train"
+            y, new_self, aux2 = _run_attn_stack(
+                params["dec_stack"], cfg, y, positions=dpos, mode=mode_dec,
+                caches=dec_cache, cross_kv=cross)
+        else:
+            y = params["dec_embed"][extras["dec_tokens"]]
+            y, new_self, aux2 = _run_attn_stack(
+                params["dec_stack"], cfg, y, positions=extras["positions"],
+                mode="decode", caches=cache["dec_self"],
+                cross_kv=list(zip(cache["cross_k"], cache["cross_v"])))
+            aux = _no_aux(y)
+        y = apply_norm(params["final_norm"], y, cfg.norm)
+        out = {"logits": _lm_logits(params, y),
+               "aux_loss": aux + aux2 + extras.get("aux_loss", 0.0)}
+        new_cache = None if cache is None else dict(cache, dec_self=new_self)
+        return out, new_cache
+
+
 def build_model(cfg: ArchConfig):
-    """The model class of ``cfg``: the paper's CNNs, the dense and MoE
-    decoder LMs, the Zamba2 hybrid and xLSTM are ported; the other families
-    raise."""
+    """The model class of ``cfg``, as the JAX package's builder picks it:
+    the paper's CNNs, the encoder-decoder model, the Zamba2 hybrid, xLSTM,
+    else the decoder LM (dense, MoE, vision)."""
     if cfg.arch_type == "cnn":
         from repro_torch.models.cnn import CNNModel
         return CNNModel(cfg)
+    if cfg.is_encoder_decoder:
+        return EncDecModel(cfg)
     if cfg.block_kind == "mamba2":
         return HybridMamba(cfg)
     if cfg.block_kind == "xlstm":

@@ -46,7 +46,7 @@ from repro_torch.convert import (lm_cache_from_numpy, lm_cache_to_numpy,
                                  lm_params_from_numpy)
 from repro_torch.launch import steps
 from repro_torch.launch.serve import serve_config
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.transformer import build_model
 from _torch_threads import one_torch_thread  # noqa: F401
 
 BATCH, N_DECODE = 2, 4
@@ -169,11 +169,18 @@ def test_serve_config_matches_the_jax_steps():
     pytest.param("full", "deepseek-v2-236b", id="deepseek-v2-236b-full"),
     pytest.param("smoke", "deepseek-v2-236b", id="deepseek-v2-236b-smoke"),
     pytest.param("full", "arctic-480b", id="arctic-480b-full"),
-    pytest.param("smoke", "arctic-480b", id="arctic-480b-smoke")])
+    pytest.param("smoke", "arctic-480b", id="arctic-480b-smoke"),
+    pytest.param("full", "qwen2-vl-7b", id="qwen2-vl-7b-full"),
+    pytest.param("smoke", "qwen2-vl-7b", id="qwen2-vl-7b-smoke"),
+    pytest.param("full", "seamless-m4t-medium",
+                 id="seamless-m4t-medium-full"),
+    pytest.param("smoke", "seamless-m4t-medium",
+                 id="seamless-m4t-medium-smoke")])
 def test_config_fields_match_jax(which, arch):
     """Every field the port's ArchConfig keeps has the JAX value (a
     sub-config's, such as ``moe``, field by field), for the full qwen3-14b,
-    deepseek-v2-236b and arctic-480b configs and their smoke variants."""
+    deepseek-v2-236b, arctic-480b, qwen2-vl-7b and seamless-m4t-medium
+    configs and their smoke variants, and so has the parameter count."""
     if which == "full":
         jcfg, tcfg = jax_get_config(arch), get_config(arch)
     else:
@@ -190,16 +197,25 @@ def test_config_fields_match_jax(which, arch):
             assert got == want, f.name
     assert tcfg.split_layer == jcfg.split_layer
     assert tcfg.resolved_head_dim == jcfg.resolved_head_dim
+    assert tcfg.param_count() == jcfg.param_count()
 
 
+@pytest.mark.parametrize("arch", ["qwen3-14b", "qwen2-vl-7b",
+                                  "seamless-m4t-medium"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_init_tree_matches_the_converted_jax_tree(dtype):
+def test_init_tree_matches_the_converted_jax_tree(dtype, arch):
     """The port's own init gives the converted JAX tree's structure,
-    shapes and dtypes, so weights drawn on the card have the JAX layout."""
-    jcfg, tcfg = _configs(dtype, 2)
+    shapes and dtypes, so weights drawn on the card have the JAX layout
+    (the GQA smoke qwen3-14b, the smoke qwen2-vl-7b, the smoke
+    encoder-decoder seamless-m4t-medium)."""
+    if arch == "qwen3-14b":
+        jcfg, tcfg = _configs(dtype, 2)
+    else:
+        jcfg, tcfg = (replace(c, dtype=dtype) for c in (
+            jax_smoke_config(arch), smoke_config(arch)))
     want = lm_params_from_numpy(jax.device_get(
         jax_build_model(jcfg).init(jax.random.PRNGKey(0))))
-    got = DecoderLM(tcfg).init(torch.Generator().manual_seed(0), "cpu")
+    got = build_model(tcfg).init(torch.Generator().manual_seed(0), "cpu")
     assert jax.tree_util.tree_structure(got) == \
         jax.tree_util.tree_structure(want)
     # jax.tree_util orders dict keys, so the leaves pair up whatever the
@@ -207,12 +223,3 @@ def test_init_tree_matches_the_converted_jax_tree(dtype):
     for g, w in zip(jax.tree_util.tree_leaves(got),
                     jax.tree_util.tree_leaves(want)):
         assert g.shape == w.shape and g.dtype == w.dtype
-
-
-def test_decoder_refuses_families_not_ported():
-    """Vision and encoder-decoder models are not ported (MoE is)."""
-    for kw in (dict(arch_type="vlm", modality="vision"),
-               dict(is_encoder_decoder=True)):
-        with pytest.raises(NotImplementedError, match="no vision or "
-                           "encoder-decoder"):
-            DecoderLM(replace(smoke_config("qwen3-14b"), **kw))
